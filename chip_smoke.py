@@ -1,24 +1,42 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (``rcppml_tpu_torch``) on one H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
-It builds the CD NNLS kernel from ``rcppml_tpu_torch/csrc``, checks it bit
-for bit against its plain PyTorch twin, drives the port's main path
-(``rcppml_tpu_torch.nmf`` on a matrix on the card) with both solvers at the
-pbmc3k (13,714 x 2,638, k=20) and movielens (3,867 x 610, k=50) shapes, and
-times kernel, twin and fits with CUDA events.  Each phase prints its own
-lines and any failure raises, so the exit code is non-zero.  There is no CPU
-fallback: without a CUDA card of compute capability 9.0 it fails.
+It builds the three CUDA kernels from ``rcppml_tpu_torch/csrc`` (one ``nvcc``
+each, started together), holds each against its plain PyTorch twin, drives
+the port's main paths through ``rcppml_tpu_torch.nmf`` on a matrix on the
+card, and times kernels, twins and fits with CUDA events:
+
+  * the MSE fit with both solvers at the pbmc3k (13,714 x 2,638, k=20) and
+    movielens (3,867 x 610, k=50) shapes: the shared-Gram CD NNLS kernel,
+    bit for bit against its twin;
+  * the IRLS fit at the pbmc3k shape: KL at k=16 for 20 iterations, the same
+    with the fused weighted-Gram kernel switched on (``RCPPML_FUSED_WGRAM``),
+    and NB with zero inflation per row at k=20 for 5 iterations: the
+    per-column-Gram CD NNLS kernel, bit for bit against its twin, and the
+    fused weight + Gram + RHS kernel, within 1e-4 of its twin's largest
+    entry.
+
+Each phase prints its own lines and any failure raises, so the exit code is
+non-zero.  There is no CPU fallback: without a CUDA card of compute
+capability 9.0 it fails.
 
 The second line from the end is one JSON object about the kernels; the last
-line is ``{"ok": true, "device": {...}}``.  The matrices are synthetic
-(``simulate_nmf``, seeded), with the shapes and the share of zeros of the
-real data sets.  Imports no JAX.
+line is ``{"ok": true, "device": {...}}``.  The matrices are synthetic and
+seeded (``simulate_nmf``, ``pbmc_counts``), with the shapes and the share
+of zeros of the real data sets.  Imports no JAX.
+
+With ``--profile`` it builds the kernels and then, instead of the phases
+above, runs the same fits once each under ``torch.profiler`` and prints
+where each fit's time goes: wall time, summed device time and its share of
+the wall time (the rest is the device idling while the host works), the host
+syncs the fit counted, and the largest device kernels by name.
 """
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -29,9 +47,31 @@ import torch
 
 PBMC = dict(m=13714, n=2638, k=20, dropout=0.9)      # BASELINE.md:20
 MOVIELENS = dict(m=3867, n=610, k=50, dropout=0.95)  # bench.py:123-126
+# pbmc3k as counts: 17.9 MB of raw CSC (BENCH_NOTES.md:76) is about 2.2M
+# nonzeros of 36.2M entries
+PBMC_ZERO_SHARE = 0.938
+KL_K, KL_MAXIT = 16, 20                              # BASELINE.md:15
+NBZI_K, NBZI_MAXIT = 20, 5                           # BENCH_NOTES.md:23
+# the NB + ZI fit's counts: overdispersed, dropout per row, rows of very
+# different depth, so that the dispersion and dropout estimates have
+# something to find
+NBZI_DATA = dict(nb_size=1.0, row_dropout=0.3, row_spread=2.0)
+# at least this share of the rows must end with a size strictly inside
+# (nb_size_min, nb_size_max); a row of nearly all zeros ends at the cap
+NBZI_THETA_INSIDE = 0.05
+# a corner of the count matrices small enough for a CPU fit; the fit on the
+# card must agree with it in loss history and in factors (share of the
+# largest entry)
+SMALL = (1200, 400)
+SMALL_RTOL, SMALL_FACTOR_TOL = 1e-4, 1e-2
 MAXIT = 20
 REPS = 5
 ULP_LIMIT = 4
+WGRAM_RTOL = 1e-4
+# the card's published peaks (H100 SXM data sheet): device memory rate and
+# float32 rate outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
 # (k, n, L1, upper_bound, dead coordinate): every k at every n of the main
 # path's solves, with and without L1, then the special cases; k=128 puts G
 # above 48 KB of shared memory and k=256 beyond it (read-only cache path)
@@ -40,6 +80,31 @@ CD_CASES = [(k, n, l1, 0.0, False) for k in (8, 20, 50, 100, 128)
 CD_CASES += [(20, 2638, 0.0, 0.0, True), (50, 610, 0.25, 0.0, True),
              (20, 2638, 0.0, 2.0, False), (100, 610, 0.25, 2.0, False),
              (256, 610, 0.0, 0.0, False)]
+# the same for the per-column-Gram kernel; at k=100 the Gram batch of
+# n=13,714 columns is 549 MB
+CDB_CASES = [(k, n, l1, 0.0, False) for k in (8, 16, 20, 50, 100)
+             for n in (610, 2638, 13714) for l1 in (0.0, 0.25)]
+CDB_CASES += [(16, 2638, 0.0, 0.0, True), (50, 610, 0.25, 0.0, True),
+              (16, 2638, 0.0, 2.0, False), (20, 13714, 0.25, 2.0, False)]
+# fused weighted-Gram kernel: (loss_kind, power, theta per "row"/"col"/None)
+WG_KINDS = [("kl", 0.0, None), ("power", 2.0, None), ("power", 3.0, None),
+            ("power", 1.5, None), ("nb", 0.0, "row"), ("nb", 0.0, "col")]
+WG_SHAPES = [(13714, 2638), (2638, 13714), (3867, 610)]   # (m, bc), all ragged
+
+
+def wgram_cases():
+    """(kind, power, theta, sparse_zeros, k, m, bc): every kind with
+    sparse_zeros on and off at k=16 on the KL fit's H side, the KL fit's W
+    side as the fit launches it, and each of the twelve (k, shape) pairs with
+    one of the twelve (kind, sparse) pairs."""
+    combos = [(kind, s) for kind in WG_KINDS for s in (False, True)]
+    cases = [(*kind, s, 16, *WG_SHAPES[0]) for kind, s in combos]
+    cases.append(("kl", 0.0, None, False, 16, *WG_SHAPES[1]))
+    pairs = [(k, shape) for k in (8, 16, 20, 50) for shape in WG_SHAPES]
+    for i, (k, shape) in enumerate(pairs):
+        kind, s = combos[(5 * i + 3) % len(combos)]
+        cases.append((*kind, s, k, *shape))
+    return cases
 
 
 def check(ok, what):
@@ -59,9 +124,57 @@ def simulated(shape, seed=0):
     return torch.from_numpy(A).cuda()
 
 
-def cuda_ms(fn, reps=REPS):
+def pbmc_counts(k, seed=0, nb_size=None, row_dropout=0.0,
+                row_spread=0.0):
+    """The stand-in for the pbmc3k count matrix (the real one is not at
+    hand): counts around ``scale * W H`` with W and H from ``simulate_nmf``
+    and ``scale`` found by bisection so that the expected share of zeros is
+    the real matrix's (estimated on every 37th entry).  Poisson counts, or
+    with ``nb_size`` a gamma-Poisson mixture (negative binomial of that
+    size).  ``row_spread`` > 0 scales row i of the mean by a lognormal
+    factor of that sigma (genes differ in expression by orders of
+    magnitude; only a row with counts well above 1 shows its dispersion);
+    ``row_dropout`` > 0 zeroes each entry of row i with a probability pi_i
+    drawn uniformly from [0, row_dropout].  Returns the matrix (float32, on
+    the card) and a dict with scale, nb_size, pi_row."""
+    from rcppml_tpu_torch.utils.simulate import simulate_nmf
+    m, n = PBMC["m"], PBMC["n"]
+    mean = simulate_nmf(m, n, k, noise=0.0, dropout=0.0,
+                        seed=seed)["A"].astype(np.float64)
+    rs = np.random.RandomState(seed + 1)
+    if row_spread > 0:
+        mean *= rs.lognormal(0.0, row_spread, size=(m, 1))
+    pi_row = rs.uniform(0.0, row_dropout, size=m)
+    pick = np.arange(0, m * n, 37)
+    sample, pi = mean.ravel()[pick], pi_row[pick // n]
+
+    def zero_share(scale):
+        mu = scale * sample
+        p0 = np.exp(-mu) if nb_size is None else \
+            (nb_size / (nb_size + mu)) ** nb_size
+        return (pi + (1.0 - pi) * p0).mean()
+
+    lo, hi = 0.0, 1.0
+    while zero_share(hi) > PBMC_ZERO_SHARE:
+        hi *= 2.0
+    for _ in range(50):
+        mid = 0.5 * (lo + hi)
+        lo, hi = (mid, hi) if zero_share(mid) > PBMC_ZERO_SHARE else (lo, mid)
+    scale = 0.5 * (lo + hi)
+    mean *= scale
+    if nb_size is not None:
+        mean *= rs.gamma(nb_size, 1.0 / nb_size, size=mean.shape)
+    A = rs.poisson(mean).astype(np.float32)
+    if row_dropout > 0:
+        A *= rs.uniform(size=A.shape) >= pi_row[:, None]
+    return torch.from_numpy(A).cuda(), dict(scale=scale, nb_size=nb_size,
+                                            pi_row=pi_row)
+
+
+def cuda_ms(fn, reps=REPS, warmup=True):
     """Median of ``reps`` CUDA-event timings of ``fn()``, after a warm-up."""
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -75,6 +188,15 @@ def cuda_ms(fn, reps=REPS):
     return statistics.median(times)
 
 
+def peak_mib(fn):
+    """``torch.cuda.max_memory_allocated`` over one ``fn()``, in MiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**20
+
+
 def max_ulp(a, b):
     """Largest distance in units in the last place between two fp32 tensors."""
     def ordered(x):
@@ -83,17 +205,53 @@ def max_ulp(a, b):
     return int((ordered(a) - ordered(b)).abs().max())
 
 
+def bound_ms(n_bytes, n_flops):
+    """The least time the card could take: the larger of bytes over the
+    memory rate and float32 operations over the fp32 rate.  Returns
+    (milliseconds, "bytes" or "operations")."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_flops / PEAK_FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 @contextlib.contextmanager
 def plain_cd_twin():
-    """Route the fit's CD solves to the plain twin: a test hook, used only to
-    compare a fit through the kernel with the same fit without it."""
-    from rcppml_tpu_torch.ops import cd_nnls, solvers
-    kernel = solvers.cd_nnls_shared
+    """Route the fit's CD solves to the plain twins: a test hook, used only
+    to compare a fit through the kernels with the same fit without them."""
+    from rcppml_tpu_torch.ops import cd_nnls, cd_nnls_batched, solvers
+    kernels = solvers.cd_nnls_shared, solvers.cd_nnls_batched
     solvers.cd_nnls_shared = cd_nnls.cd_nnls_shared_plain
+    solvers.cd_nnls_batched = cd_nnls_batched.cd_nnls_batched_plain
     try:
         yield
     finally:
-        solvers.cd_nnls_shared = kernel
+        solvers.cd_nnls_shared, solvers.cd_nnls_batched = kernels
+
+
+@contextlib.contextmanager
+def plain_wgram_twin():
+    """Route the fused weighted-Gram call of the IRLS solve to its twin."""
+    from rcppml_tpu_torch.models import nmf_irls
+    from rcppml_tpu_torch.ops import wgram
+    kernel = nmf_irls.weighted_gram_rhs
+    nmf_irls.weighted_gram_rhs = wgram.weighted_gram_rhs_plain
+    try:
+        yield
+    finally:
+        nmf_irls.weighted_gram_rhs = kernel
+
+
+@contextlib.contextmanager
+def fused_wgram():
+    """Set ``RCPPML_FUSED_WGRAM`` for the fits inside."""
+    saved = os.environ.pop("RCPPML_FUSED_WGRAM", None)
+    os.environ["RCPPML_FUSED_WGRAM"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("RCPPML_FUSED_WGRAM", None)
+        if saved is not None:
+            os.environ["RCPPML_FUSED_WGRAM"] = saved
 
 
 def cd_system(k, n, seed, dead=False):
@@ -109,6 +267,44 @@ def cd_system(k, n, seed, dead=False):
     X0 = np.abs(rs.normal(size=(k, n))).astype(np.float32)
     B_res = (F @ Y - G @ X0).astype(np.float32)
     return [torch.from_numpy(a).cuda() for a in (G, B_res, X0)]
+
+
+def cd_batched_system(k, n, seed, dead=False):
+    """A warm-started NNLS system with one Gram per column, in residual
+    form: G_j = F diag(w_j) F^T and b_j = F (w_j * y_j) from seeded numpy
+    data, assembled on the card."""
+    from rcppml_tpu_torch.ops import linalg, solvers
+    rs = np.random.RandomState(seed)
+    p = max(2 * k, 64)
+    F = np.abs(rs.normal(size=(k, p))).astype(np.float32)
+    if dead:
+        F[k // 2] = 0.0
+    w = rs.uniform(0.2, 2.0, size=(p, n)).astype(np.float32)
+    Y = (np.abs(rs.normal(size=(p, n)))
+         * (rs.uniform(size=(p, n)) < 0.3)).astype(np.float32)
+    X0 = np.abs(rs.normal(size=(k, n))).astype(np.float32)
+    F, w, Y, X0 = (torch.from_numpy(a).cuda() for a in (F, w, Y, X0))
+    Gb, b = linalg.weighted_gram_and_rhs(F, w, Y)
+    return Gb, b - solvers.batched_gram_matvec(Gb, X0), X0
+
+
+def wgram_inputs(k, m, bc, seed, theta):
+    """Operands of one weight + Gram + RHS call: a nonnegative factor and
+    warm start (numpy, seeded), counts with about two thirds zeros (torch
+    generator on the card, seeded), and a dispersion per row or column."""
+    rs = np.random.RandomState(seed)
+    F = (np.abs(rs.normal(size=(k, m))) * (rs.uniform(size=(k, m)) < 0.7)
+         ).astype(np.float32)
+    X = (np.abs(rs.normal(size=(k, bc))) * (rs.uniform(size=(k, bc)) < 0.7)
+         / k).astype(np.float32)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    A = torch.poisson(torch.full((m, bc), 0.4, device="cuda"), generator=gen)
+    th = None
+    if theta is not None:
+        th = torch.from_numpy(rs.uniform(0.05, 50.0, size=(
+            m if theta == "row" else bc,)).astype(np.float32)).cuda()
+    return (torch.from_numpy(F).cuda(), torch.from_numpy(X).cuda(), A,
+            th if theta == "row" else None, th if theta == "col" else None)
 
 
 def check_losses(res, A, *, monotone):
@@ -128,12 +324,87 @@ def check_losses(res, A, *, monotone):
     return hist, mse, var
 
 
+def check_irls(res, maxit, k, shape, *, falling=True):
+    """``falling``: the last loss is below the first.  Not asked of a
+    zero-inflated fit: its solves see the imputed matrix while the loss is
+    the likelihood of the observed one without the dropout term, and it
+    rises in the JAX package too on such counts."""
+    hist = np.asarray(res.loss_history, np.float64)
+    check(hist.shape == (maxit,) and np.isfinite(hist).all(),
+          f"finite loss history of {maxit}: {hist}")
+    if falling:
+        check(hist[-1] < hist[0], f"last loss below the first: {hist}")
+    check(res.W.shape == (shape[0], k) and res.H.shape == (k, shape[1])
+          and np.isfinite(res.W).all() and np.isfinite(res.H).all()
+          and np.isfinite(res.d).all() and (res.W >= 0).all()
+          and (res.H >= 0).all(), "finite nonnegative factors of the shape")
+    return hist
+
+
+def mse_cd_fit(rtt, A):
+    return rtt.nmf(A, PBMC["k"], solver="cd", maxit=MAXIT, tol=0, seed=1)
+
+
+def kl_fit(rtt, A, maxit=KL_MAXIT):
+    return rtt.nmf(A, KL_K, loss="kl", maxit=maxit, tol=0, seed=1)
+
+
+def nbzi_fit(rtt, A):
+    return rtt.nmf(A, NBZI_K, loss="nb", zi="row", maxit=NBZI_MAXIT, tol=0,
+                   seed=1)
+
+
+def profile_fits(rtt, card):
+    """One run of each fit under ``torch.profiler``, after a warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    A_pb, (A_ct, _) = simulated(PBMC), pbmc_counts(KL_K)
+    A_nb, _ = pbmc_counts(NBZI_K, **NBZI_DATA)
+    fits = (("MSE CD k=20", lambda: mse_cd_fit(rtt, A_pb), False),
+            (f"KL k={KL_K}", lambda: kl_fit(rtt, A_ct), False),
+            (f"KL k={KL_K}, RCPPML_FUSED_WGRAM=1", lambda: kl_fit(rtt, A_ct),
+             True),
+            (f"NB zi=row k={NBZI_K}", lambda: nbzi_fit(rtt, A_nb), False))
+    for label, fit, fused in fits:
+        with fused_wgram() if fused else contextlib.nullcontext():
+            fit()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                res = fit()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+        print(f"{label}, {res.iterations} iterations: wall {wall_ms:.1f} ms "
+              f"under the profiler, device busy {device_ms:.1f} ms "
+              f"({100 * device_ms / wall_ms:.1f}%), "
+              f"{sum(e.count for e in rows)} device kernels and copies, "
+              f"{res.misc.get('host_syncs', 'no')} counted host syncs, "
+              f"{res.misc.get('irls_inner_iterations', 0)} inner iterations  "
+              f"[{card}]", flush=True)
+        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"    {e.self_device_time_total / 1e3:9.2f} ms  "
+                  f"{e.count:5d} x  {e.key[:90]}", flush=True)
+
+
+def same_factors(a, b):
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               for f in ("W", "d", "H"))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
                          "runs only on the card")
     import rcppml_tpu_torch as rtt
-    from rcppml_tpu_torch.ops import _build, cd_nnls, linalg
+    from rcppml_tpu_torch.ops import (_build, cd_nnls, cd_nnls_batched,
+                                      linalg, solvers, wgram)
+    cd_shared, cd_batched = cd_nnls.cd_nnls_shared, \
+        cd_nnls_batched.cd_nnls_batched
+    wg = wgram.weighted_gram_rhs
 
     phase("1 environment")
     smi = subprocess.run(
@@ -149,20 +420,32 @@ def main():
         raise SystemExit("chip_smoke: the kernels need compute capability "
                          "9.0 (sm_90a)")
     rtt.set_fp32_precision()
+    os.environ.pop("RCPPML_FUSED_WGRAM", None)
 
     phase("2 build")
-    path, seconds = _build.build(cd_nnls.KERNEL)
-    print(f"built {path.name} in {seconds:.2f} s", flush=True)
-    for line in path.with_suffix(".so.log").read_text().splitlines():
-        if "registers" in line:
-            print("  ptxas:", line.split(":", 1)[1].strip(), flush=True)
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    check(sorted(built) == sorted([cd_nnls.KERNEL, cd_nnls_batched.KERNEL,
+                                   wgram.KERNEL]),
+          f"the three kernels were built: {sorted(built)}")
+    for name, (path, seconds) in built.items():
+        print(f"built {path.name} in {seconds:.2f} s", flush=True)
+        for line in path.with_suffix(".so.log").read_text().splitlines():
+            if "registers" in line:
+                print("  ptxas:", line.split(":", 1)[1].strip(), flush=True)
+    print(f"all three, side by side: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    if "--profile" in sys.argv[1:]:
+        phase(f"profiles on {card}")
+        profile_fits(rtt, card)
+        return
 
-    phase("3 kernel against plain twin")
-    max_abs_err = 0.0
+    phase("3 shared-Gram CD kernel against its plain twin")
+    err_shared = 0.0
     for k, n, l1, ub, dead in CD_CASES:
         G, B_res, X0 = cd_system(k, n, seed=k * 100003 + n, dead=dead)
-        out = cd_nnls.cd_nnls_shared(G, B_res, X0, l1, 5e-6, nonneg=True,
-                                     maxit=100, upper_bound=ub)
+        out = cd_shared(G, B_res, X0, l1, 5e-6, nonneg=True, maxit=100,
+                        upper_bound=ub)
         torch.cuda.synchronize()
         plain = cd_nnls.cd_nnls_shared_plain(G, B_res, X0, l1, 5e-6,
                                              nonneg=True, maxit=100,
@@ -170,7 +453,7 @@ def main():
         check(bool(torch.isfinite(out).all()), "finite CD solution")
         equal = torch.equal(out, plain)
         ulp = 0 if equal else max_ulp(out, plain)
-        max_abs_err = max(max_abs_err, float((out - plain).abs().max()))
+        err_shared = max(err_shared, float((out - plain).abs().max()))
         print(f"k={k:3d} n={n:5d} L1={l1} ub={ub} dead={dead}: "
               f"{'bitwise equal' if equal else f'max {ulp} ulp'}, "
               f"{float((out > 0).float().mean()):.3f} of x > 0", flush=True)
@@ -180,29 +463,33 @@ def main():
             check(torch.equal(out[k // 2], X0[k // 2]),
                   "a dead coordinate keeps its warm start")
 
-    phase("4 main path, CD solver")
+    phase("4 MSE path, CD solver")
     A_pb = simulated(PBMC)
-    cd_nnls.cd_nnls_shared.launches = 0
-    res_cd = rtt.nmf(A_pb, PBMC["k"], solver="cd", maxit=MAXIT, tol=0, seed=1)
-    launches = cd_nnls.cd_nnls_shared.launches
-    print(f"pbmc3k shape, k=20, CD: {launches} kernel launches", flush=True)
-    check(launches == 2 * MAXIT, f"{2 * MAXIT} kernel launches, got {launches}")
+    cd_shared.launches = cd_batched.launches = wg.launches = 0
+    res_cd = mse_cd_fit(rtt, A_pb)
+    launches_shared = cd_shared.launches
+    print(f"pbmc3k shape, k=20, CD: {launches_shared} kernel launches",
+          flush=True)
+    check(launches_shared == 2 * MAXIT,
+          f"{2 * MAXIT} kernel launches, got {launches_shared}")
+    check(cd_batched.launches == 0 and wg.launches == 0,
+          "the MSE fit launches neither IRLS kernel")
     hist, mse, var = check_losses(res_cd, A_pb, monotone=True)
     print(f"  loss {hist[0]:.6g} -> {hist[-1]:.6g}; mse {mse:.6g} < "
           f"var(A) {var:.6g}", flush=True)
     with plain_cd_twin():
-        res_plain = rtt.nmf(A_pb, PBMC["k"], solver="cd", maxit=MAXIT, tol=0,
-                            seed=1)
-    check(np.array_equal(res_plain.loss_history, res_cd.loss_history),
-          "the fit through the plain twin has the same loss history")
+        plain_fit_ms = cuda_ms(lambda: check(np.array_equal(
+            mse_cd_fit(rtt, A_pb).loss_history, res_cd.loss_history),
+            "the fit through the plain twin has the same loss history"),
+            reps=1, warmup=False)
     print("  the same fit through the plain twin: identical loss history",
           flush=True)
 
     A_ml = simulated(MOVIELENS)
-    cd_nnls.cd_nnls_shared.launches = 0
+    cd_shared.launches = 0
     res_ml = rtt.nmf(A_ml, MOVIELENS["k"], L1=(0, 0.01), maxit=MAXIT, tol=0,
                      seed=1)
-    ml_launches = cd_nnls.cd_nnls_shared.launches
+    ml_launches = cd_shared.launches
     print(f"movielens shape, k=50, L1=(0, 0.01), solver "
           f"{res_ml.misc['config'].solver.name}: {ml_launches} kernel "
           f"launches", flush=True)
@@ -212,65 +499,342 @@ def main():
     print(f"  loss {hist[0]:.6g} -> {hist[-1]:.6g}; mse {mse:.6g} < "
           f"var(A) {var:.6g}", flush=True)
 
-    phase("5 main path, default solver (Cholesky)")
-    cd_nnls.cd_nnls_shared.launches = 0
+    phase("5 MSE path, default solver (Cholesky)")
+    cd_shared.launches = 0
     res_ch = rtt.nmf(A_pb, PBMC["k"], maxit=MAXIT, tol=0, seed=1)
     check(res_ch.misc["config"].solver.name == "CHOLESKY",
           "auto selects Cholesky at k=20 without L1")
-    check(cd_nnls.cd_nnls_shared.launches == 0,
-          "the Cholesky fit launches no CD kernel")
+    check(cd_shared.launches == 0, "the Cholesky fit launches no CD kernel")
     hist, mse, var = check_losses(res_ch, A_pb, monotone=True)
     print(f"pbmc3k shape, k=20, Cholesky: 0 kernel launches; loss "
           f"{hist[0]:.6g} -> {hist[-1]:.6g}; mse {mse:.6g} < var(A) "
           f"{var:.6g}", flush=True)
 
-    phase(f"6 times (CUDA events, median of {REPS} after a warm-up) on "
+    phase("6 per-column-Gram CD kernel against its plain twin")
+    err_batched = 0.0
+    for k, n, l1, ub, dead in CDB_CASES:
+        Gb, B_res, X0 = cd_batched_system(k, n, seed=k * 100003 + n,
+                                          dead=dead)
+        out = cd_batched(Gb, B_res, X0, l1, 5e-6, nonneg=True, maxit=100,
+                         upper_bound=ub)
+        torch.cuda.synchronize()
+        plain, sweeps = cd_nnls_batched.cd_nnls_batched_plain(
+            Gb, B_res, X0, l1, 5e-6, nonneg=True, maxit=100, upper_bound=ub,
+            return_sweeps=True)
+        check(bool(torch.isfinite(out).all()), "finite CD solution")
+        equal = torch.equal(out, plain)
+        ulp = 0 if equal else max_ulp(out, plain)
+        err_batched = max(err_batched, float((out - plain).abs().max()))
+        print(f"k={k:3d} n={n:5d} L1={l1} ub={ub} dead={dead}: "
+              f"{'bitwise equal' if equal else f'max {ulp} ulp'}, "
+              f"{float((out > 0).float().mean()):.3f} of x > 0, sweeps "
+              f"{float(sweeps.float().mean()):.1f} mean {int(sweeps.max())} "
+              f"max", flush=True)
+        check(ulp <= ULP_LIMIT, f"kernel within {ULP_LIMIT} ulp of the twin at "
+              f"k={k} n={n} L1={l1} ub={ub} dead={dead}: {ulp}")
+        if dead:
+            check(torch.equal(out[k // 2], X0[k // 2]),
+                  "a dead coordinate keeps its warm start")
+        del Gb, B_res, X0, out, plain
+
+    phase("7 fused weight + Gram + RHS kernel against its plain twin "
+          f"(within {WGRAM_RTOL} of the twin's largest entry)")
+    err_wgram = rel_wgram = 0.0
+    for kind, power, theta, sparse, k, m, bc in wgram_cases():
+        F, X, A, th_r, th_c = wgram_inputs(k, m, bc, seed=k * 1009 + m,
+                                           theta=theta)
+        kw = dict(loss_kind=kind, power=power, sparse_zeros=sparse)
+        Gb, b = wg(F, X, A, th_r, th_c, **kw)
+        Gb2, b2 = wg(F, X, A, th_r, th_c, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(Gb, Gb2) and torch.equal(b, b2),
+              "a second launch on the same inputs is bitwise equal")
+        Gp, bp = wgram.weighted_gram_rhs_plain(F, X, A, th_r, th_c, **kw)
+        check(bool(torch.isfinite(Gb).all() and torch.isfinite(b).all()),
+              "finite Gram and RHS")
+        eg, eb = float((Gb - Gp).abs().max()), float((b - bp).abs().max())
+        rg, rb = eg / float(Gp.abs().max()), eb / float(bp.abs().max())
+        err_wgram, rel_wgram = max(err_wgram, eg, eb), max(rel_wgram, rg, rb)
+        print(f"{kind:5s} p={power} theta={theta} sparse_zeros={sparse} "
+              f"k={k:2d} m={m:5d} bc={bc:5d}: Gb off by {rg:.2e}, b by "
+              f"{rb:.2e} of the largest entry", flush=True)
+        check(rg <= WGRAM_RTOL and rb <= WGRAM_RTOL,
+              f"kernel within {WGRAM_RTOL} of the twin at {kind} p={power} "
+              f"theta={theta} sparse={sparse} k={k} m={m} bc={bc}: "
+              f"{rg:.3g}, {rb:.3g}")
+        del F, X, A, Gb, b, Gb2, b2, Gp, bp
+    print(f"largest error: {rel_wgram:.3e} relative, {err_wgram:.3e} "
+          f"absolute", flush=True)
+
+    phase("8 IRLS path at the pbmc3k shape")
+    A_ct, info = pbmc_counts(KL_K)
+    A_nb, info_nb = pbmc_counts(NBZI_K, **NBZI_DATA)
+    shape = tuple(A_ct.shape)
+    for label, A, made in (("Poisson counts", A_ct, info),
+                           (f"counts {NBZI_DATA}", A_nb, info_nb)):
+        print(f"{label} {shape}: {float((A == 0).float().mean()):.4f} zeros, "
+              f"largest {int(A.max())}, scale {made['scale']:.4g}",
+              flush=True)
+
+    def fit_kl(maxit=KL_MAXIT):
+        return kl_fit(rtt, A_ct, maxit)
+
+    def fit_nbzi():
+        return nbzi_fit(rtt, A_nb)
+
+    # (i) KL through the default path: kernel 2 once per inner iteration
+    cd_shared.launches = cd_batched.launches = wg.launches = 0
+    res_kl = fit_kl()
+    launches_batched = cd_batched.launches
+    inner = res_kl.misc["irls_inner_iterations"]
+    hist_kl = check_irls(res_kl, KL_MAXIT, KL_K, shape)
+    print(f"(i) KL k={KL_K}, {KL_MAXIT} iterations: {launches_batched} "
+          f"launches of cd_nnls_batched for {inner} inner iterations, "
+          f"{res_kl.misc['host_syncs']} host syncs; loss {hist_kl[0]:.6g} -> "
+          f"{hist_kl[-1]:.6g}", flush=True)
+    check(launches_batched == inner and 2 * KL_MAXIT <= inner <= 200,
+          f"one launch per inner iteration, 40 to 200: {launches_batched}, "
+          f"{inner}")
+    check(wg.launches == 0 and cd_shared.launches == 0,
+          "the default IRLS path launches only cd_nnls_batched")
+    check(same_factors(fit_kl(), res_kl),
+          "the same seed gives bitwise equal W, d, H")
+
+    # (ii) the same fit with the fused weighted-Gram kernel switched on
+    with fused_wgram():
+        cd_shared.launches = cd_batched.launches = wg.launches = 0
+        res_fused = fit_kl()
+        launches_wgram, fused_batched = wg.launches, cd_batched.launches
+        hist_fused = check_irls(res_fused, KL_MAXIT, KL_K, shape)
+        off = float(np.abs(hist_fused / hist_kl - 1).max())
+        print(f"(ii) with RCPPML_FUSED_WGRAM: {launches_wgram} launches of "
+              f"weighted_gram_rhs, {fused_batched} of cd_nnls_batched; loss "
+              f"history within {off:.2e} of (i)", flush=True)
+        check(launches_wgram == fused_batched
+              == res_fused.misc["irls_inner_iterations"] > 0,
+              "one weighted_gram_rhs launch per cd_nnls_batched launch")
+        check(off <= 1e-3, f"loss history within 1e-3 of (i): {off}")
+        check(same_factors(fit_kl(), res_fused),
+              "the same seed gives bitwise equal W, d, H with the fused "
+              "kernel")
+
+    # (iii) NB with zero inflation per row
+    cd_batched.launches = 0
+    res_nb = fit_nbzi()
+    nb_launches = cd_batched.launches
+    hist_nb = check_irls(res_nb, NBZI_MAXIT, NBZI_K, shape, falling=False)
+    cfg_nb = res_nb.misc["config"]
+    check(res_nb.theta is not None and res_nb.theta.shape == (shape[0],)
+          and (res_nb.theta >= cfg_nb.nb_size_min).all()
+          and (res_nb.theta <= cfg_nb.nb_size_max).all(),
+          "theta inside [nb_size_min, nb_size_max]")
+    inside = float(((res_nb.theta > cfg_nb.nb_size_min)
+                    & (res_nb.theta < cfg_nb.nb_size_max)).mean())
+    check(inside >= NBZI_THETA_INSIDE,
+          f"theta strictly inside its bounds in {inside:.3f} of the rows")
+    pi_corr = float(np.corrcoef(res_nb.pi_row, info_nb["pi_row"])[0, 1])
+    check(res_nb.pi_row is not None and res_nb.pi_row.shape == (shape[0],)
+          and (res_nb.pi_row >= 0.001).all() and (res_nb.pi_row <= 0.999).all(),
+          "pi_row inside [0.001, 0.999]")
+    check(nb_launches == res_nb.misc["irls_inner_iterations"],
+          "one launch per inner iteration")
+    print(f"(iii) NB + zi=row k={NBZI_K}, {NBZI_MAXIT} iterations: "
+          f"{nb_launches} launches of cd_nnls_batched; loss {hist_nb[0]:.6g} "
+          f"-> {hist_nb[-1]:.6g}; theta {res_nb.theta.min():.3g}.."
+          f"{res_nb.theta.max():.3g}, strictly inside its bounds in "
+          f"{inside:.3f} of the rows, median of those "
+          f"{float(np.median(res_nb.theta[res_nb.theta < cfg_nb.nb_size_max])):.3g}"
+          f" (data: {NBZI_DATA['nb_size']}); pi_row {res_nb.pi_row.min():.3g}.."
+          f"{res_nb.pi_row.max():.3g}, correlation with the data's dropout "
+          f"{pi_corr:.3f}", flush=True)
+
+    # the same counts without zero inflation: there the NB loss falls
+    res_nb0 = rtt.nmf(A_nb, NBZI_K, loss="nb", maxit=NBZI_MAXIT, tol=0, seed=1)
+    hist_nb0 = check_irls(res_nb0, NBZI_MAXIT, NBZI_K, shape)
+    inside0 = float(((res_nb0.theta > cfg_nb.nb_size_min)
+                     & (res_nb0.theta < cfg_nb.nb_size_max)).mean())
+    check(inside0 >= NBZI_THETA_INSIDE,
+          f"theta strictly inside its bounds in {inside0:.3f} of the rows")
+    print(f"      NB without zi on the same counts: loss {hist_nb0[0]:.6g} -> "
+          f"{hist_nb0[-1]:.6g}; theta strictly inside its bounds in "
+          f"{inside0:.3f} of the rows", flush=True)
+
+    # (iv) two KL iterations through the kernels and through their twins
+    with fused_wgram():
+        two = fit_kl(2)
+        with plain_cd_twin():
+            two_cd_plain = fit_kl(2)
+            with plain_wgram_twin():
+                cd_batched.launches = wg.launches = 0
+                two_plain = fit_kl(2)
+                check(cd_batched.launches == 0 and wg.launches == 0,
+                      "the fit through both twins launches no kernel")
+    check(np.array_equal(two.loss_history, two_cd_plain.loss_history),
+          "with cd_nnls_batched alone swapped for its twin the loss "
+          "histories are bitwise equal")
+    off = float(np.abs(two_plain.loss_history / two.loss_history - 1).max())
+    check(off <= 1e-3, f"both twins: loss history within 1e-3: {off}")
+    print(f"(iv) KL, 2 iterations, fused: cd_nnls_batched swapped for its "
+          f"twin: identical loss history; both kernels swapped: within "
+          f"{off:.2e}", flush=True)
+
+    # (v) a small corner of the same counts, on the card and on the CPU,
+    # where the wrappers run their twins
+    for label, fit, A in (
+            ("KL", lambda r, a: kl_fit(r, a, NBZI_MAXIT), A_ct),
+            ("NB + zi=row", nbzi_fit, A_nb)):
+        small = A[:SMALL[0], :SMALL[1]].contiguous()
+        on_card, on_cpu = fit(rtt, small), fit(rtt, small.cpu())
+        off = float(np.abs(np.asarray(on_card.loss_history)
+                           / np.asarray(on_cpu.loss_history) - 1).max())
+        far = max(float(np.abs(getattr(on_card, f) - getattr(on_cpu, f)).max()
+                        / np.abs(getattr(on_cpu, f)).max()) for f in "WdH")
+        print(f"(v) {label} at {SMALL}, {NBZI_MAXIT} iterations, card "
+              f"against CPU: loss history within "
+              f"{off:.2e}, W, d, H within {far:.2e} of their largest entry",
+              flush=True)
+        check(off <= SMALL_RTOL and far <= SMALL_FACTOR_TOL,
+              f"{label} on the card agrees with the CPU fit: {off}, {far}")
+
+    phase(f"9 times (CUDA events, median of {REPS} after a warm-up) on "
           f"{card}")
+
+    def factors(res):
+        W_T = torch.from_numpy(np.ascontiguousarray(res.W.T)).cuda()
+        H = torch.from_numpy(np.ascontiguousarray(res.H)).cuda()
+        return W_T, H
 
     def solve_inputs(res, A, side):
         """The next iteration's solve of a finished fit, as the loop
         builds it: Gram, RHS and warm start in residual form."""
-        W_T = torch.from_numpy(np.ascontiguousarray(res.W.T)).cuda()
-        H = torch.from_numpy(np.ascontiguousarray(res.H)).cuda()
+        W_T, H = factors(res)
         F, X0, data = (W_T, H, A) if side == "H" else (H, W_T, A.T)
         G, B = linalg.gram(F), linalg.rhs(F, data)
         return G, B - G @ X0, X0
 
-    solve_times = {}
+    def cd_report(label, k, n, gram_floats, ms, plain_ms, sweeps):
+        """Print one solve's times beside its bound; returns the bound."""
+        col_sweeps = int(sweeps.sum())
+        bound, by = bound_ms(4 * (gram_floats + 3 * k * n),
+                             2 * k * k * col_sweeps)
+        print(f"solve {label}: kernel {ms:.4f} ms, plain twin "
+              f"{plain_ms:.4f} ms, bound {bound:.5f} ms by {by}; sweeps "
+              f"{col_sweeps / n:.2f} mean {int(sweeps.max())} max  [{card}]",
+              flush=True)
+        return bound, by
+
+    times = {}
     for label, res, A, side in (("(20, 2638) H side", res_cd, A_pb, "H"),
                                 ("(20, 13714) W side", res_cd, A_pb, "W"),
                                 ("(50, 610) H side", res_ml, A_ml, "H")):
         G, B_res, X0 = solve_inputs(res, A, side)
-        ms = cuda_ms(lambda: cd_nnls.cd_nnls_shared(
-            G, B_res, X0, 0.0, 5e-6, nonneg=True, maxit=100))
+        ms = cuda_ms(lambda: cd_shared(G, B_res, X0, 0.0, 5e-6, nonneg=True,
+                                       maxit=100))
         plain_ms = cuda_ms(lambda: cd_nnls.cd_nnls_shared_plain(
             G, B_res, X0, 0.0, 5e-6, nonneg=True, maxit=100))
-        solve_times[label] = (ms, plain_ms)
-        print(f"solve {label}: kernel {ms:.4f} ms, plain twin "
-              f"{plain_ms:.4f} ms  [{card}]", flush=True)
+        _, sweeps = cd_nnls.cd_nnls_shared_plain(
+            G, B_res, X0, 0.0, 5e-6, nonneg=True, maxit=100,
+            return_sweeps=True)
+        k, n = B_res.shape
+        times["shared " + label] = (ms, plain_ms, *cd_report(
+            "cd_nnls_shared " + label, k, n, k * k, ms, plain_ms, sweeps))
 
-    fits = (("pbmc3k k=20 CD", lambda: rtt.nmf(
-                A_pb, PBMC["k"], solver="cd", maxit=MAXIT, tol=0, seed=1)),
-            ("pbmc3k k=20 Cholesky", lambda: rtt.nmf(
-                A_pb, PBMC["k"], maxit=MAXIT, tol=0, seed=1)),
-            ("movielens k=50 L1 CD", lambda: rtt.nmf(
-                A_ml, MOVIELENS["k"], L1=(0, 0.01), maxit=MAXIT, tol=0,
-                seed=1)))
-    for label, fit in fits:
-        print(f"fit {label}, {MAXIT} iterations: {cuda_ms(fit):.3f} ms  "
+    def irls_inputs(res, A, side):
+        """The first inner iteration of the next ALS iteration's solve of a
+        finished KL fit: F, warm start X, data panel."""
+        W_T, H = factors(res)
+        if side == "H":
+            return W_T, H, A
+        return H, W_T, A.T.contiguous()
+
+    rs = np.random.RandomState(5)
+    F_ml = torch.from_numpy(np.abs(rs.normal(size=(50, 610))).astype(
+        np.float32)).cuda()
+    X_ml = torch.from_numpy((np.abs(rs.normal(size=(50, 3867))) / 50).astype(
+        np.float32)).cuda()
+    A_ml_T = A_ml.T.contiguous()
+    for label, (F, X, A_blk) in (
+            ("(16, 2638) H side of fit (i)", irls_inputs(res_kl, A_ct, "H")),
+            ("(16, 13714) W side of fit (i)", irls_inputs(res_kl, A_ct, "W")),
+            ("(50, 3867) movielens W side", (F_ml, X_ml, A_ml_T))):
+        kw = dict(loss_kind="kl", sparse_zeros=False)
+        k, m = F.shape
+        bc = X.shape[1]
+        KR = linalg.kr_product(F)
+        Gb, b = wgram.weighted_gram_rhs_plain(F, X, A_blk, KR=KR, **kw)
+        B_res = b - solvers.batched_gram_matvec(Gb, X)
+        ms = cuda_ms(lambda: cd_batched(Gb, B_res, X, 0.0, 5e-6, nonneg=True,
+                                        maxit=100))
+        plain_ms = cuda_ms(lambda: cd_nnls_batched.cd_nnls_batched_plain(
+            Gb, B_res, X, 0.0, 5e-6, nonneg=True, maxit=100))
+        _, sweeps = cd_nnls_batched.cd_nnls_batched_plain(
+            Gb, B_res, X, 0.0, 5e-6, nonneg=True, maxit=100,
+            return_sweeps=True)
+        times["batched " + label] = (ms, plain_ms, *cd_report(
+            "cd_nnls_batched " + label, k, bc, bc * k * k, ms, plain_ms,
+            sweeps))
+        if "movielens" in label:
+            continue
+        ms = cuda_ms(lambda: wg(F, X, A_blk, **kw))
+        plain_ms = cuda_ms(lambda: wgram.weighted_gram_rhs_plain(
+            F, X, A_blk, KR=KR, **kw))
+        # per entry of A: mu (k multiply-adds), the k (k + 1) / 2 distinct
+        # entries of a symmetric Gram, and b (k)
+        bound, by = bound_ms(4 * (k * m + k * bc + m * bc + bc * k * k
+                                  + k * bc),
+                             2 * m * bc * (k * (k + 1) // 2 + 2 * k))
+        print(f"weight + Gram + RHS {label}: kernel {ms:.4f} ms, plain twin "
+              f"(the default path: three cuBLAS products and the weight "
+              f"pass) {plain_ms:.4f} ms, bound {bound:.5f} ms by {by}  "
               f"[{card}]", flush=True)
-    with plain_cd_twin():
-        plain_fit_ms = cuda_ms(fits[0][1], reps=3)
-    print(f"fit pbmc3k k=20 CD through the plain twin (median of 3): "
+        times["wgram " + label] = (ms, plain_ms, bound, by)
+        del KR, Gb, b, B_res
+
+    fits = ((f"pbmc3k k=20 MSE CD, {MAXIT} iterations",
+             lambda: mse_cd_fit(rtt, A_pb)),
+            (f"pbmc3k k=20 MSE Cholesky, {MAXIT} iterations", lambda: rtt.nmf(
+                A_pb, PBMC["k"], maxit=MAXIT, tol=0, seed=1)),
+            (f"movielens k=50 MSE L1 CD, {MAXIT} iterations", lambda: rtt.nmf(
+                A_ml, MOVIELENS["k"], L1=(0, 0.01), maxit=MAXIT, tol=0,
+                seed=1)),
+            (f"(i) pbmc3k counts k={KL_K} KL, {KL_MAXIT} iterations", fit_kl),
+            (f"(iii) pbmc3k counts k={NBZI_K} NB zi=row, {NBZI_MAXIT} "
+             f"iterations", fit_nbzi))
+    for label, fit in fits:
+        print(f"fit {label}: {cuda_ms(fit):.3f} ms, peak {peak_mib(fit):.0f} MiB  "
+              f"[{card}]", flush=True)
+    with fused_wgram():
+        print(f"fit (ii) pbmc3k counts k={KL_K} KL with RCPPML_FUSED_WGRAM, "
+              f"{KL_MAXIT} iterations: {cuda_ms(fit_kl):.3f} ms, peak "
+              f"{peak_mib(fit_kl):.0f} MiB  [{card}]", flush=True)
+    print(f"fit pbmc3k k=20 MSE CD through the plain twin (one run): "
           f"{plain_fit_ms:.3f} ms  [{card}]", flush=True)
 
-    ms, plain_ms = solve_times["(20, 2638) H side"]
-    print(json.dumps({"kernels": [{
-        "name": "cd_nnls_shared", "route": "cuda",
-        "source": "rcppml_tpu_torch/csrc/cd_nnls_shared.cu",
-        "replaces": "rcppml_tpu/ops/pallas_kernels.py:154",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "ms": ms, "plain_ms": plain_ms}]}), flush=True)
+    def entry(name, source, replaces, launches, err, rel, key):
+        """``max_rel_err``: the largest error over the twin's largest entry
+        (the fused kernel's Grams reach 1e9, so its absolute error is
+        large where its relative error is 1e-5)."""
+        ms, plain_ms, bound, by = times[key]
+        return {"name": name, "route": "cuda",
+                "source": f"rcppml_tpu_torch/csrc/{source}",
+                "replaces": f"rcppml_tpu/ops/pallas_kernels.py:{replaces}",
+                "launches": launches, "max_abs_err": err,
+                "max_rel_err": rel, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                # no single PyTorch call computes a CD NNLS solve, or the
+                # weight, Gram and RHS together
+                "library_ms": None}
+
+    print(json.dumps({"kernels": [
+        entry("cd_nnls_shared", "cd_nnls_shared.cu", 154, launches_shared,
+              err_shared, 0.0 if err_shared == 0 else None,
+              "shared (20, 2638) H side"),
+        entry("cd_nnls_batched", "cd_nnls_batched.cu", 193, launches_batched,
+              err_batched, 0.0 if err_batched == 0 else None,
+              "batched (16, 2638) H side of fit (i)"),
+        entry("weighted_gram_rhs", "wgram_rhs.cu", 636, launches_wgram,
+              err_wgram, rel_wgram, "wgram (16, 2638) H side of fit (i)"),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

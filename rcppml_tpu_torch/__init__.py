@@ -1,21 +1,39 @@
 """rcppml_tpu_torch — the PyTorch / CUDA port of ``rcppml_tpu``.
 
-A second package beside the JAX one, which stays the reference.  This
-slice carries the dense ALS-NMF fit with MSE loss, both solvers (Cholesky +
-clip and CD NNLS), the L1/L2/L21/angular/graph/target features, and the
-standard, projective and symmetric variants.  The CD NNLS solve runs in a
-CUDA kernel written for Hopper (``csrc/cd_nnls_shared.cu``) on a CUDA
-tensor, and in its plain PyTorch twin on a CPU tensor.
+A second package beside the JAX one, which stays the reference.  So far it
+carries:
+
+  * the dense ALS-NMF fit with MSE loss, both solvers (Cholesky + clip and CD
+    NNLS), the L1/L2/L21/angular/graph/target features, and the standard,
+    projective and symmetric variants;
+  * the IRLS fit for ``loss="kl"``, ``"gp"``, ``"nb"``, ``"gamma"``,
+    ``"inverse_gaussian"``, ``"tweedie"``, ``"huber"``/``"mae"`` and
+    ``robust=``, with the dispersion updates (per row, per column, global,
+    none), zero inflation (``zi="row"/"col"``) and sparse-input semantics.
+
+Three kernels written for Hopper run on a CUDA tensor, each with a plain
+PyTorch twin that runs on a CPU tensor: the shared-Gram CD NNLS solve
+(``csrc/cd_nnls_shared.cu``), the CD NNLS solve with one Gram per column that
+every IRLS inner iteration calls (``csrc/cd_nnls_batched.cu``), and the fused
+IRLS weight + weighted Gram + RHS (``csrc/wgram_rhs.cu``), used when
+``RCPPML_FUSED_WGRAM`` is set in the environment.
+
+Entry points run on the CUDA card unless the caller asks for ``device="cpu"``
+or passes a CPU tensor.  Still raising ``NotImplementedError`` with their
+ROADMAP.md item: cross-validation and masks, rank sweeps, ``fused_vmem``,
+``bf16_data``, ``profile=True``, callbacks, checkpoints, multi-restart,
+SVD-seeded init, streaming, multi-modal input and meshes.
 
 It imports ``torch`` and never ``jax``; kernels are built with ``nvcc`` at
 first use, never at import.
 """
 
 from .api import build_config, nmf
-from .config import FactorConfig, Loss, NMFConfig, Norm, Solver
+from .config import (ZI, Dispersion, FactorConfig, Loss, NMFConfig, Norm,
+                     Solver)
 from .device import kernels_available, set_fp32_precision
 from .result import NMFResult
 
 __all__ = ["nmf", "build_config", "NMFConfig", "FactorConfig", "NMFResult",
-           "Loss", "Norm", "Solver", "kernels_available",
+           "Loss", "Norm", "Solver", "Dispersion", "ZI", "kernels_available",
            "set_fp32_precision"]

@@ -1,11 +1,23 @@
 """User-facing API of the port, mirroring ``rcppml_tpu/api.py``.
 
 ``nmf(A, k, ...)`` takes a dense numpy array, a scipy sparse matrix (made
-dense; standard NMF treats zeros as data) or a 2-D tensor, fits on the
-``device`` it is given, and returns an :class:`NMFResult`.
-:func:`build_config` is the JAX package's, whole.  Branches of the JAX API
-that are not ported yet raise ``NotImplementedError`` naming their
-ROADMAP.md item; none of them falls back silently.
+dense) or a 2-D tensor and returns an :class:`NMFResult`.  The fit runs on
+the CUDA card unless the caller passes ``device="cpu"`` or a CPU tensor.
+:func:`build_config` is the JAX package's, whole.
+
+Losses: ``mse`` (Cholesky or CD solver) and, through the IRLS path with the
+CD solver, ``kl``, ``gp``, ``nb``, ``gamma``, ``inverse_gaussian``,
+``tweedie``, ``huber``, ``mae`` and ``robust=`` on any of them, with
+``dispersion`` per row, per column, global or none and ``zi="row"/"col"``
+for ``gp`` and ``nb``.  A scipy-sparse input to an IRLS fit gives zeros unit
+weight and a loss over the nonzeros.
+
+Branches of the JAX API that are not ported yet raise
+``NotImplementedError`` naming their ROADMAP.md item; none of them falls back
+silently: cross-validation, masks and NaN auto-masking, rank sweeps and
+``k="auto"``, ``fused_vmem``, ``bf16_data``, ``profile=True``,
+``on_iteration``, ``checkpoint_path``, multi-restart seeds, SVD-seeded
+init, ``.spz`` paths and streaming, multi-modal input and ``mesh=``.
 """
 
 from __future__ import annotations
@@ -267,8 +279,9 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
 
     ``data``: numpy array, scipy sparse matrix or 2-D tensor.  ``k``: an
     int.  ``device``: where the fit runs; by default a tensor's own device,
-    and the CPU for a host array.  Other keywords are those of
-    :func:`build_config`.
+    and the CUDA card for a host array (numpy, scipy sparse, DataFrame).
+    Without a card that raises a ``RuntimeError``; pass ``device="cpu"`` to
+    fit on the CPU.  Other keywords are those of :func:`build_config`.
     """
     if isinstance(data, (list, tuple, dict)) and not _is_sparse(data):
         raise unported("multi-modal nmf(list/dict)", "Queue 1 item 12")
@@ -300,6 +313,7 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
         raise unported("on_iteration callbacks", "Queue 1 item 4")
 
     row_names, col_names, data = _extract_dimnames(data)
+    sparse_input = _is_sparse(data)
     A = _to_dense_f32(data)
     if kwargs.get("symmetric") and A.shape[0] != A.shape[1]:
         raise ValueError(f"symmetric NMF requires a square matrix, got "
@@ -329,7 +343,7 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
         print(f"[nmf] {A.shape[0]} x {A.shape[1]}  k={cfg.rank}  "
               f"loss={cfg.loss.value}  solver={cfg.solver.name.lower()}")
     res = nmf_fit(A, cfg, w_init=w_init, h_init=h_init, aux=aux,
-                  device=device)
+                  device=device, sparse_zeros=sparse_input)
     res.misc["config"] = cfg
     res.row_names, res.col_names = row_names, col_names
     if cfg.verbose:

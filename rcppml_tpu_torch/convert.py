@@ -11,9 +11,11 @@ import dataclasses
 import enum
 
 import numpy as np
+import torch
 
 from . import config as cfg_mod
 from .models.nmf import FitState, init_fit_state
+from .models.nmf_irls import IRLSState
 
 
 def _field_value(port_default, ref_value):
@@ -47,9 +49,32 @@ def state_from_numpy(W_T, H, d, *, device, max_iter: int) -> FitState:
                           W_T, H, d, device=device)
 
 
+def irls_state_from_numpy(W_T, H, d, *, disp_row, disp_col, pi_row, pi_col,
+                          A_imp, device, max_iter: int,
+                          it: int = 0) -> IRLSState:
+    """Numpy factors, dispersions (``disp_row`` (m,), ``disp_col`` (n,)), ZI
+    dropouts (``pi_row`` (m,), ``pi_col`` (n,)) and the imputed matrix
+    ``A_imp`` (m, n) as the port's IRLSState after ``it`` iterations, on
+    ``device``, with room for ``max_iter`` losses: a fit of either package
+    can be carried on from its middle (``it > 0`` makes the next iteration
+    warm-start from H and W_T, as it does inside a fit)."""
+    base = state_from_numpy(W_T, H, d, device=device, max_iter=max_iter)
+
+    def dev(x):
+        return torch.from_numpy(np.array(x, np.float32, order="C")).to(device)
+
+    return IRLSState(
+        W_T=base.W_T, H=base.H, d=base.d, disp_row=dev(disp_row),
+        disp_col=dev(disp_col), pi_row=dev(pi_row), pi_col=dev(pi_col),
+        A_imp=dev(A_imp), it=int(it), prev_loss=base.prev_loss,
+        patience_ctr=base.patience_ctr, converged=base.converged,
+        final_tol=base.final_tol, loss_hist=base.loss_hist)
+
+
 def result_to_numpy(res) -> dict:
     """A result of either package as plain numpy arrays and scalars:
-    W, d, H, loss_history, iterations, converged, train_loss."""
+    W, d, H, loss_history, iterations, converged, train_loss, and the IRLS
+    fit's theta, dispersion, pi_row, pi_col (None where not estimated)."""
     def arr(x):
         return None if x is None else np.asarray(x)
 
@@ -57,4 +82,6 @@ def result_to_numpy(res) -> dict:
             "loss_history": arr(res.loss_history),
             "iterations": int(res.iterations),
             "converged": bool(res.converged),
-            "train_loss": float(res.train_loss)}
+            "train_loss": float(res.train_loss),
+            "theta": arr(res.theta), "dispersion": arr(res.dispersion),
+            "pi_row": arr(res.pi_row), "pi_col": arr(res.pi_col)}

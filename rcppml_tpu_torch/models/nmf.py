@@ -1,4 +1,4 @@
-"""Alternating-least-squares NMF: the dense MSE fit loop.
+"""Alternating-least-squares NMF: the entry point and the dense MSE fit loop.
 
 The port of ``rcppml_tpu/models/nmf.py`` (``:43-218, 525-570, 636-687,
 718-744``).  Each iteration mirrors fit_cpu.hpp:444-1825:
@@ -52,16 +52,14 @@ def unported(what: str, item: str) -> NotImplementedError:
 
 def check_ported(cfg: NMFConfig) -> None:
     """Raise NotImplementedError for every config branch this slice lacks."""
-    if cfg.requires_irls():
-        raise unported(f"loss={cfg.loss.value!r} / robust (IRLS)",
-                       "Queue 1 item 6")
     if cfg.is_cv() or cfg.has_mask or cfg.mask_zeros:
         raise unported("cross-validation and masked fits", "Queue 1 item 7")
     if cfg.fused_vmem:
         raise unported("fused_vmem", "Queue 2 kernel 3")
     if cfg.bf16_data:
         raise unported("bf16_data", "Queue 1 item 4")
-    if cfg.enable_profiling:
+    if cfg.enable_profiling and not cfg.requires_irls():
+        # an IRLS fit raises for it in nmf_irls.fit_irls
         raise unported("profile=True", "Queue 1 item 4")
     if cfg.init_mode in (1, 2):
         raise unported("SVD-seeded init (seed='lanczos'/'irlba')",
@@ -160,8 +158,9 @@ def init_fit_state(cfg: NMFConfig, W_T0, H0, d0, *,
 
     def dev(x):
         # contiguous, as every later factor is: the layout of a matmul's
-        # operands selects its kernel, and with it the rounding
-        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+        # operands selects its kernel, and with it the rounding; a copy,
+        # because torch refuses read-only arrays
+        return torch.from_numpy(np.array(x, np.float32, order="C")).to(device)
 
     return FitState(
         W_T=dev(W_T0), H=dev(H0), d=dev(d0), it=0,
@@ -245,42 +244,69 @@ def init_factors(cfg: NMFConfig, m: int, n: int,
 # Entry point
 # ---------------------------------------------------------------------------
 
+def fit_device(A, device=None) -> torch.device:
+    """Where a fit of ``A`` runs: ``device`` if given, else a tensor's own
+    device, else (a host array) the CUDA card.  Without a card that raises:
+    a fit never moves to the CPU unless the caller asks for it."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(A, torch.Tensor):
+        return A.device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "rcppml_tpu_torch fits a host array on the CUDA card, and "
+            "torch.cuda.is_available() is False; pass device=\"cpu\" to fit "
+            "on the CPU")
+    return torch.device("cuda")
+
+
 def nmf_fit(A, cfg: NMFConfig, *, w_init=None, h_init=None,
-            aux: Optional[dict] = None, device=None) -> NMFResult:
+            aux: Optional[dict] = None, device=None,
+            sparse_zeros: bool = False) -> NMFResult:
     """Fit NMF on a dense matrix.
 
     ``A``: an (m, n) numpy array or tensor, used as float32.  ``device``:
-    where the fit runs; by default a tensor's own device, and the CPU for a
-    host array.  ``aux``: optional dense auxiliary arrays (``graph_W``,
+    where the fit runs; by default a tensor's own device, and the CUDA card
+    for a host array (without a card that raises; ``device="cpu"`` fits on
+    the CPU).  ``aux``: optional dense auxiliary arrays (``graph_W``,
     ``graph_H``, ``target_H``/``target_W`` and their ``*_gram``).
+    ``sparse_zeros``: the input was sparse; an IRLS fit then gives zeros unit
+    weight and sums its loss over the nonzeros (an MSE fit ignores it).
     """
     cfg.validate()
     check_ported(cfg)
-    set_fp32_precision()
-    if isinstance(A, torch.Tensor):
-        A_dev = A.to(device=device if device is not None else A.device,
-                     dtype=torch.float32)
-    else:
-        # a copy: the fit never writes A, but torch refuses read-only arrays
-        A_dev = torch.from_numpy(np.array(A, dtype=np.float32)).to(
-            device if device is not None else "cpu")
-    if A_dev.ndim != 2:
+    if np.ndim(A) != 2:
         raise ValueError("data must be a 2-D matrix")
-    m, n = A_dev.shape
+    m, n = A.shape
     if cfg.rank > min(m, n):
         raise ValueError(f"rank {cfg.rank} exceeds min(dim) = {min(m, n)}")
+    # everything that needs no device is checked by now
+    dev = fit_device(A, device)
+    set_fp32_precision()
+    if isinstance(A, torch.Tensor):
+        A_dev = A.to(device=dev, dtype=torch.float32)
+    else:
+        # a copy: the fit never writes A, but torch refuses read-only arrays
+        A_dev = torch.from_numpy(np.array(A, dtype=np.float32)).to(dev)
 
     W_T0, H0, d0 = init_factors(cfg, m, n, w_init=w_init, h_init=h_init)
-    state = init_fit_state(cfg, W_T0, H0, d0, device=A_dev.device)
     aux_dev = {key: torch.as_tensor(np.asarray(val, np.float32)
                                     if not isinstance(val, torch.Tensor)
                                     else val).to(A_dev.device, torch.float32)
                for key, val in (aux or {}).items() if val is not None}
+    if cfg.requires_irls():
+        from .nmf_irls import fit_irls
+        return fit_irls(A_dev, cfg, W_T0, H0, d0, aux_dev,
+                        sparse_zeros=sparse_zeros)
+    state = init_fit_state(cfg, W_T0, H0, d0, device=A_dev.device)
     return finalize_result(cfg, fit_mse(cfg, A_dev, state, aux_dev))
 
 
-def finalize_result(cfg: NMFConfig, state: FitState) -> NMFResult:
-    """Copy a FitState to a host NMFResult (fit_cpu.hpp:1827-1854)."""
+def finalize_result(cfg: NMFConfig, state: FitState,
+                    extra: Optional[dict] = None) -> NMFResult:
+    """Copy a FitState to a host NMFResult (fit_cpu.hpp:1827-1854).
+    ``extra``: further result fields by name (the IRLS fit's ``theta``,
+    ``dispersion``, ``pi_row``, ``pi_col``)."""
     def host(t):
         return t.detach().cpu().numpy()
 
@@ -296,6 +322,8 @@ def finalize_result(cfg: NMFConfig, state: FitState) -> NMFResult:
         loss_history=host(state.loss_hist)[:it]
         if cfg.track_loss_history else None,
     )
+    for key, val in (extra or {}).items():
+        setattr(res, key, val)
     if cfg.sort_model:
         res.sort()
     return res

@@ -6,6 +6,8 @@ name carries a hash of the source and the flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is.  The build needs ``nvcc``
 (``$CUDA_HOME/bin/nvcc``, ``/usr/local/cuda/bin/nvcc`` or on ``PATH``) and
 raises if it is missing or the compile fails: there is no fallback.
+:func:`build_all` compiles every kernel at once, one ``nvcc`` process per
+source, all with the same flags.
 """
 
 from __future__ import annotations
@@ -48,31 +50,56 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
+def kernel_names() -> list[str]:
+    """Every kernel source of the package, ``csrc/<name>.cu``, by name."""
+    return sorted(path.stem for path in CSRC.glob("*.cu"))
+
+
+def build_all(names=None) -> dict[str, tuple[Path, float]]:
+    """Compile ``csrc/<name>.cu`` for every name (default: all of them)
+    that is not built yet, all ``nvcc`` processes started together.
+
+    Returns ``{name: (library path, seconds its compile took)}`` (0.0 for a
+    library that was already built).  nvcc's output, including ``-Xptxas
+    -v``'s register and shared-memory report, is kept beside each library as
+    ``<library>.log``.  If any compile fails, the others are still waited
+    for, and then KernelBuildError is raised with the failed ones' logs.
+    """
+    names = kernel_names() if names is None else list(names)
+    done, running = {}, {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            done[name] = (out, 0.0)
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (out, tmp, cmd, proc, time.perf_counter())
+    failed = []
+    for name, (out, tmp, cmd, proc, t0) in running.items():
+        output, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        log = f"$ {' '.join(cmd)}\n{output}"
+        out.with_suffix(".so.log").write_text(log)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed on {name}.cu "
+                          f"(exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)      # atomic: a concurrent loader sees all or none
+        done[name] = (out, seconds)
+    if failed:
+        raise KernelBuildError("\n".join(failed))
+    return done
+
+
 def build(name: str) -> tuple[Path, float]:
     """Compile ``csrc/<name>.cu`` unless its library is already built.
-
-    Returns the library's path and the seconds the compile took (0.0 when
-    it was already built).  nvcc's output, including ``-Xptxas -v``'s
-    register and shared-memory report, is kept beside the library as
-    ``<library>.log``.
-    """
-    out = library_path(name)
-    if out.exists():
-        return out, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    out.with_suffix(".so.log").write_text(log)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelBuildError(f"nvcc failed on {name}.cu "
-                               f"(exit {proc.returncode}):\n{log}")
-    os.replace(tmp, out)          # atomic: a concurrent loader sees all or none
-    return out, seconds
+    Returns the library's path and the seconds the compile took."""
+    return build_all([name])[name]
 
 
 @functools.cache

@@ -38,12 +38,16 @@ def _scalars(k: int, L1: float, cd_tol: float):
 def cd_nnls_shared_plain(G: torch.Tensor, B_res: torch.Tensor,
                          X0: torch.Tensor, L1: float, cd_tol: float, *,
                          nonneg: bool, maxit: int,
-                         upper_bound: float = 0.0) -> torch.Tensor:
+                         upper_bound: float = 0.0,
+                         return_sweeps: bool = False):
     """Plain twin of ``rcppml_tpu/ops/solvers.py::_cd_sweeps`` (with
     ``l1_static=True``): the same names, the same order of operations.
 
     ``B_res`` is the residual ``B - G @ X0``.  Runs on whatever device the
-    tensors are on; reads ``any(active)`` on the host once per sweep.
+    tensors are on; reads ``any(active)`` on the host once per sweep.  With
+    ``return_sweeps`` it returns ``(X, sweeps)``, ``sweeps`` an (n,) int64
+    tensor of the sweeps each column ran before it froze: the kernel, being
+    bitwise equal, ran the same ones.
     """
     k, n = B_res.shape
     dev, dtype = B_res.device, B_res.dtype
@@ -61,8 +65,10 @@ def cd_nnls_shared_plain(G: torch.Tensor, B_res: torch.Tensor,
     X = X0.clone(memory_format=torch.contiguous_format)
     B_res = B_res.clone(memory_format=torch.contiguous_format)
     active = torch.ones((n,), dtype=torch.bool, device=dev)
+    sweeps = torch.zeros((n,), dtype=torch.int64, device=dev)
     it = 0
     while it < maxit and bool(active.any()):
+        sweeps += active
         tol_sum = torch.zeros((n,), dtype=dtype, device=dev)
         for i in range(k):
             g = gdiag[i]
@@ -87,7 +93,7 @@ def cd_nnls_shared_plain(G: torch.Tensor, B_res: torch.Tensor,
         still = tol_sum * inv_k >= cd_tol_t
         active = active & still
         it += 1
-    return X
+    return (X, sweeps) if return_sweeps else X
 
 
 def _check(G, B_res, X0):

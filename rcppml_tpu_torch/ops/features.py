@@ -1,6 +1,7 @@
 """Regularizer / feature application on Gram and RHS matrices.
 
-The port of ``rcppml_tpu/ops/features.py:21-139``, itself the shared
+The port of ``rcppml_tpu/ops/features.py:21-139`` (with
+``tier2_gram_addition`` for the per-column-Gram solves), itself the shared
 application sequence of the reference (``nmf/variant_helpers.hpp:89-146``).
 All of these touch only k x k or k x cols matrices.
 """
@@ -81,6 +82,26 @@ def apply_features(G, B, factor, fc: FactorConfig, *, graph=None,
     if fc.target_lambda != 0:
         G, B = apply_target(G, B, fc, target, target_gram)
     return G, B
+
+
+def tier2_gram_addition(factor, fc: FactorConfig, graph=None):
+    """Shared tier-2 Gram addition for per-column-Gram solves.
+
+    Graph regularization and L21 depend only on the previous iterate of the
+    factor being solved (``apply_cv_features``, variant_helpers.hpp:174-189),
+    so they are one shared k x k matrix added to every per-column (weighted)
+    Gram.  Returns None when neither feature is configured.
+    """
+    has_graph = graph is not None and fc.graph_lambda > 0
+    if not has_graph and fc.L21 <= 0:
+        return None
+    k = factor.shape[0]
+    GA = torch.zeros((k, k), dtype=factor.dtype, device=factor.device)
+    if has_graph:
+        GA = apply_graph_reg(GA, graph, factor, fc.graph_lambda)
+    if fc.L21 > 0:
+        GA = apply_l21(GA, factor, fc.L21)
+    return GA
 
 
 def apply_upper_bound(X, upper_bound: float):

@@ -1,6 +1,6 @@
 """Core linear-algebra primitives of the ALS loop.
 
-The port of ``rcppml_tpu/ops/linalg.py:35-90``:
+The port of ``rcppml_tpu/ops/linalg.py:35-174``:
 
   * :func:`gram` — ``G = F @ F.T`` plus the reference's ``TINY_NUM``
     diagonal guard (gram.hpp:30-62);
@@ -8,7 +8,9 @@ The port of ``rcppml_tpu/ops/linalg.py:35-90``:
   * :func:`extract_scaling` — row-norm extraction into d
     (nmf/variant_helpers.hpp:287-305);
   * :func:`gram_trick_loss` and :func:`mse_loss_from_saved` — the O(k^2)
-    Frobenius loss (nmf/fit_cpu.hpp:17-20, 1710-1753).
+    Frobenius loss (nmf/fit_cpu.hpp:17-20, 1710-1753);
+  * :func:`kr_product` and :func:`weighted_gram_and_rhs` — the per-column
+    weighted Gram and RHS of the IRLS solves (nnls_batch_irls.hpp:459-516).
 
 These are plain large products outside any TPU kernel, so they go to
 ``torch.matmul``.  Float32 products run in full float32 once
@@ -71,3 +73,49 @@ def mse_loss_from_saved(trAtA, W_T, d, B_w, G_w):
     cross = (d[:, None] * W_T * B_w).sum()
     recon = ((d[:, None] * d[None, :]) * G_wt * G_w).sum()
     return trAtA - 2.0 * cross + recon
+
+
+# Khatri-Rao operand budget (floats): beyond k^2 * m of this size the
+# blocked batched product runs instead (k=200, m=1e6 would need 4e10 floats)
+KR_BUDGET_FLOATS = 1.5e8
+
+
+def kr_product(F: torch.Tensor) -> torch.Tensor:
+    """Row-wise Khatri-Rao self-product (k^2, m), float32.
+
+    ``KR[k1*k + k2, r] = F[k1, r] * F[k2, r]`` turns the per-column weighted
+    Gram batch ``G_j = F diag(w_j) F^T`` into one dense product
+    ``KR @ w -> (k^2, n)``.  The JAX package rounds this operand to bfloat16
+    on the TPU; the port keeps float32 on every device (there is no bf16
+    ``kr_product`` here yet), which is the JAX package's ``precise`` branch.
+    """
+    k, m = F.shape
+    return (F[:, None, :] * F[None, :, :]).reshape(k * k, m)
+
+
+def weighted_gram_and_rhs(F: torch.Tensor, w: torch.Tensor,
+                          A_blk: torch.Tensor,
+                          KR: torch.Tensor | None = None):
+    """Per-column weighted Gram + RHS: G_j = F diag(w_j) F^T, b_j = F (w_j*a_j).
+
+    F (k, m), w (m, bc), A_blk (m, bc) -> (Gb (bc, k, k), b (k, bc)), all
+    float32 with float32 accumulation on every device.
+
+    ``KR``: an optional precomputed :func:`kr_product` of F; a caller that
+    solves many column blocks against one F builds it once.  While the KR
+    operand fits ``KR_BUDGET_FLOATS`` the Gram batch is one large product
+    ``KR @ w``; beyond it the blocked batched product ``(F * w_j) F^T`` runs,
+    which holds a (bc, k, m) intermediate that the caller's block size has
+    to allow for.
+    """
+    k, m = F.shape
+    if KR is None and k * k * m <= KR_BUDGET_FLOATS:
+        KR = kr_product(F)
+    if KR is not None:
+        G_flat = KR @ w                                       # (k^2, bc)
+        Gb = G_flat.reshape(k, k, -1).permute(2, 0, 1).contiguous()
+    else:
+        Fw = F[None, :, :] * w.T[:, None, :]                  # (bc, k, m)
+        Gb = Fw @ F.T
+    b = F @ (w * A_blk)
+    return Gb, b

@@ -1,6 +1,7 @@
-"""NNLS solvers over a whole column batch with one shared Gram.
+"""NNLS solvers over a whole column batch, with one shared Gram or with one
+Gram per column.
 
-The port of ``rcppml_tpu/ops/solvers.py:32-183``:
+The port of ``rcppml_tpu/ops/solvers.py:32-330``:
 
   * :func:`cholesky_clip_batch` — unconstrained Cholesky solve, then clip
     (primitives/cpu/cholesky_clip.hpp:129-164).  No TPU kernel stood here:
@@ -9,6 +10,11 @@ The port of ``rcppml_tpu/ops/solvers.py:32-183``:
     NNLS (primitives/cpu/nnls_batch.hpp:71-225) through
     :func:`rcppml_tpu_torch.ops.cd_nnls.cd_nnls_shared`: the CUDA kernel for
     a CUDA tensor, its plain twin for a CPU tensor.
+  * :func:`batched_gram_matvec`, :func:`batched_spd_solve`,
+    :func:`cholesky_clip_batched_gram`, :func:`cd_nnls_batched_gram` — the
+    per-column-Gram variants behind the IRLS weighted solves (and, later, the
+    CV Gram downdates).  The CD variant goes through
+    :func:`rcppml_tpu_torch.ops.cd_nnls_batched.cd_nnls_batched`.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import torch
 
 from .. import constants
 from .cd_nnls import cd_nnls_shared
+from .cd_nnls_batched import cd_nnls_batched
 
 
 def _chol_solve(G: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -88,3 +95,73 @@ def cd_nnls_batch_traced(G, B_res, X0, L1, *, nonneg: bool, maxit: int,
     return cd_nnls_shared(G, B_res, X0, float(L1),
                           _eff_cd_tol(cd_tol, B_res.dtype), nonneg=nonneg,
                           maxit=maxit, upper_bound=upper_bound)
+
+
+# ---------------------------------------------------------------------------
+# Per-column-Gram variants (IRLS weighted solves, CV Gram downdates)
+# ---------------------------------------------------------------------------
+
+def batched_gram_matvec(Gb: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """y_j = G_j @ x_j for Gb (n, k, k), X (k, n) -> (k, n), contiguous."""
+    return torch.einsum("jkl,lj->kj", Gb, X).contiguous()
+
+
+def batched_spd_solve(Gb: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Batched SPD solve: Gb (n, k, k), B (k, n) -> X (k, n).
+
+    The JAX package's Cholesky-Crout factorization as written there: k steps,
+    every operation over the whole batch, then forward and back substitution.
+    The pivots are floored at 1e-30 instead of raising, so a singular column
+    gives a finite garbage solution rather than an error, as there.
+    """
+    n, k, _ = Gb.shape
+    G = Gb.permute(1, 2, 0)                            # (k, k, n) view
+    L = torch.zeros((k, k, n), dtype=Gb.dtype, device=Gb.device)
+    below = torch.arange(k, device=Gb.device)
+
+    for j in range(k):
+        row_j = L[j]                                   # (k, n)
+        sum_sq = (row_j * row_j).sum(dim=0)            # (n,)
+        l_jj = torch.sqrt(torch.clamp_min(G[j, j] - sum_sq, 1e-30))
+        # column j below the diagonal: L_ij = (g_ij - <L_i., L_j.>) / l_jj
+        dots = (L * row_j[None, :, :]).sum(dim=1)      # (k, n)
+        col = (G[:, j] - dots) / l_jj[None, :]
+        col = torch.where((below > j)[:, None], col, torch.zeros_like(col))
+        col[j] = l_jj
+        L[:, j] = col                                  # in place: L is ours
+
+    Y = torch.zeros((k, n), dtype=Gb.dtype, device=Gb.device)
+    for i in range(k):                                 # L y = b
+        acc = (L[i] * Y).sum(dim=0)
+        Y[i] = (B[i] - acc) / torch.clamp_min(L[i, i], 1e-30)
+    X = torch.zeros((k, n), dtype=Gb.dtype, device=Gb.device)
+    for i in range(k - 1, -1, -1):                     # L^T x = y
+        acc = (L[:, i] * X).sum(dim=0)
+        X[i] = (Y[i] - acc) / torch.clamp_min(L[i, i], 1e-30)
+    return X
+
+
+def cholesky_clip_batched_gram(Gb, B, *, nonneg: bool = True,
+                               upper_bound: float = 0.0):
+    """Per-column Cholesky + clip: Gb (n, k, k), B (k, n) -> X (k, n)
+    (cholesky_clip_col per column, cholesky_clip.hpp:64-106)."""
+    X = batched_spd_solve(Gb, B)
+    if nonneg:
+        X = torch.clamp_min(X, 0.0)
+    if upper_bound > 0:
+        X = torch.clamp_max(X, upper_bound)
+    return X
+
+
+def cd_nnls_batched_gram(Gb, B_res, X0, L1, *, nonneg: bool, maxit: int,
+                         cd_tol: float, upper_bound: float = 0.0):
+    """CD NNLS with a distinct Gram per column.
+
+    Gb (n, k, k), B_res (k, n) the residual relative to X0 (k, n).  The same
+    sweep and freeze semantics as the shared-Gram solver.  A CUDA tensor goes
+    to the kernel and a CPU tensor to the plain twin, inside
+    :func:`cd_nnls_batched`; there is no other branch.
+    """
+    return cd_nnls_batched(Gb, B_res, X0, float(L1),
+                           _eff_cd_tol(cd_tol, B_res.dtype), nonneg=nonneg,
+                           maxit=maxit, upper_bound=upper_bound)

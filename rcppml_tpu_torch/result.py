@@ -26,6 +26,10 @@ class NMFResult:
     final_tol: float = float("nan")
     train_loss: float = float("nan")
     loss_history: Optional[np.ndarray] = None       # per-iteration train loss
+    theta: Optional[np.ndarray] = None              # GP theta / NB size
+    dispersion: Optional[np.ndarray] = None         # Gamma/IG/Tweedie phi
+    pi_row: Optional[np.ndarray] = None             # ZI dropout probs per row
+    pi_col: Optional[np.ndarray] = None             # ZI dropout probs per col
     misc: Dict[str, Any] = field(default_factory=dict)
     row_names: Optional[np.ndarray] = None          # A's rownames -> W rows
     col_names: Optional[np.ndarray] = None          # A's colnames -> H cols

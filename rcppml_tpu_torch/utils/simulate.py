@@ -1,12 +1,16 @@
-"""Synthetic ground-truth generator (R/simulateNMF.R:25).
+"""Synthetic ground-truth generators (R/simulateNMF.R:25).
 
-``simulate_nmf`` is ``rcppml_tpu/utils/simulate.py:16-76``, copied so that
-this package never imports JAX: the same seed gives the same matrix in both
-packages.  A = W H with known factors, plus noise and dropout scaled to the
-signal.
+``simulate_nmf`` and ``simulate_counts`` are ``rcppml_tpu/utils/simulate.py:
+16-76`` and ``:157-178``, copied so that this package never imports JAX: the
+same seed gives the same matrix in both packages.  ``simulate_nmf``: A = W H
+with known factors, plus noise and dropout scaled to the signal.
+``simulate_counts``: Poisson or negative-binomial counts around a gamma W H,
+optionally zero-inflated, for the count-distribution fits.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
@@ -71,3 +75,27 @@ def simulate_nmf(m: int = 100, n: int = 100, k: int = 5, *,
     if dropout > 0:
         A = A * (rs.uniform(size=A.shape) >= dropout)
     return {"A": A.astype(np.float32), "W": W, "H": H}
+
+
+def simulate_counts(m: int = 80, n: int = 120, k: int = 4, *,
+                    theta: float = 0.0, nb_size: Optional[float] = None,
+                    zi_pi: float = 0.0, scale: float = 5.0, seed: int = 7):
+    """Count-data generator for the IRLS distribution tests.
+
+    mu = scale * W H; samples Poisson / NB(size=nb_size) and optionally
+    zero-inflates with per-row dropout probability ``zi_pi``.
+    """
+    rs = np.random.RandomState(seed)
+    W = rs.gamma(1.0, 1.0, (m, k)).astype(np.float64)
+    H = rs.gamma(1.0, 1.0, (k, n)).astype(np.float64)
+    mu = scale * (W @ H) / k
+    if nb_size is not None:
+        p = nb_size / (nb_size + mu)
+        A = rs.negative_binomial(nb_size, np.clip(p, 1e-12, 1.0)).astype(np.float64)
+    else:
+        A = rs.poisson(mu).astype(np.float64)
+    if zi_pi > 0:
+        drop = rs.uniform(size=A.shape) < zi_pi
+        A = A * (~drop)
+    return {"A": A.astype(np.float32), "W": W.astype(np.float32),
+            "H": H.astype(np.float32), "mu": mu}

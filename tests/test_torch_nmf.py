@@ -24,13 +24,14 @@ import jax.numpy as jnp
 import rcppml_tpu as rt
 from rcppml_tpu import rng as ref_rng
 from rcppml_tpu.models import nmf as ref_nmf
+from rcppml_tpu.utils.simulate import simulate_counts as ref_simulate_counts
 from rcppml_tpu.utils.simulate import simulate_nmf as ref_simulate_nmf
 
 import rcppml_tpu_torch as rtt
 from rcppml_tpu_torch import convert, rng
 from rcppml_tpu_torch.models import nmf as port_nmf
 from rcppml_tpu_torch.ops import cd_nnls
-from rcppml_tpu_torch.utils.simulate import simulate_nmf
+from rcppml_tpu_torch.utils.simulate import simulate_counts, simulate_nmf
 
 K = 5
 MAXIT = 15
@@ -68,6 +69,15 @@ def _assert_factors_close(port, ref, tol=2e-3):
 def test_simulate_nmf_matches_reference():
     a, b = simulate_nmf(50, 40, 3, seed=2), ref_simulate_nmf(50, 40, 3, seed=2)
     for key in ("A", "W", "H"):
+        np.testing.assert_array_equal(a[key], b[key])
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(nb_size=1.5, scale=2.0),
+                                dict(zi_pi=0.3, seed=9)],
+                         ids=["poisson", "nb", "zero_inflated"])
+def test_simulate_counts_matches_reference(kw):
+    a, b = simulate_counts(30, 20, 3, **kw), ref_simulate_counts(30, 20, 3, **kw)
+    for key in ("A", "W", "H", "mu"):
         np.testing.assert_array_equal(a[key], b[key])
 
 
@@ -122,7 +132,7 @@ def test_fit_matches_reference(variant, data, square):
     kw = VARIANTS[variant]
     A = square if kw.get("symmetric") else data
     ref = rt.nmf(A, K, seed=1, maxit=MAXIT, tol=0, **kw)
-    port = rtt.nmf(A, K, seed=1, maxit=MAXIT, tol=0, **kw)
+    port = rtt.nmf(A, K, seed=1, maxit=MAXIT, tol=0, device="cpu", **kw)
     assert port.iterations == ref.iterations == MAXIT
     _assert_loss_close(port.loss_history, ref.loss_history, A)
     _assert_factors_close(port, ref)
@@ -132,16 +142,17 @@ def test_fit_matches_reference(variant, data, square):
 
 def test_fit_converges_with_tol_like_reference(data):
     ref = rt.nmf(data, K, seed=3, maxit=200, tol=1e-3)
-    port = rtt.nmf(data, K, seed=3, maxit=200, tol=1e-3)
+    port = rtt.nmf(data, K, seed=3, maxit=200, tol=1e-3, device="cpu")
     assert ref.converged and port.converged
     assert abs(port.iterations - ref.iterations) <= 1
     assert port.final_tol < 1e-3
 
 
 def test_sparse_and_tensor_inputs_match_dense(data):
-    dense = rtt.nmf(data, K, seed=2, maxit=5, tol=0)
-    for A in (sp.csr_matrix(data), torch.from_numpy(data)):
-        other = rtt.nmf(A, K, seed=2, maxit=5, tol=0)
+    dense = rtt.nmf(data, K, seed=2, maxit=5, tol=0, device="cpu")
+    for A, device in ((sp.csr_matrix(data), "cpu"),
+                      (torch.from_numpy(data), None)):   # a tensor's own
+        other = rtt.nmf(A, K, seed=2, maxit=5, tol=0, device=device)
         np.testing.assert_array_equal(other.loss_history, dense.loss_history)
         np.testing.assert_array_equal(other.W, dense.W)
 
@@ -160,7 +171,7 @@ def test_fit_keeps_float32_matmuls_out_of_tf32(data):
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     try:
-        rtt.nmf(data, K, seed=1, maxit=1, tol=0)
+        rtt.nmf(data, K, seed=1, maxit=1, tol=0, device="cpu")
         assert not torch.backends.cuda.matmul.allow_tf32
         assert not torch.backends.cudnn.allow_tf32
         assert torch.get_float32_matmul_precision() == "highest"
@@ -174,7 +185,7 @@ def test_dimnames_carry_through(data):
     pd = pytest.importorskip("pandas")
     df = pd.DataFrame(data, index=[f"g{i}" for i in range(data.shape[0])],
                       columns=[f"c{j}" for j in range(data.shape[1])])
-    res = rtt.nmf(df, K, seed=1, maxit=3, tol=0)
+    res = rtt.nmf(df, K, seed=1, maxit=3, tol=0, device="cpu")
     rows, cols = res.dimnames()
     assert rows[0] == "g0" and cols[-1] == f"c{data.shape[1] - 1}"
 
@@ -194,7 +205,7 @@ def test_config_round_trip_gives_the_same_fit(data):
             assert dataclasses.asdict(p) == dataclasses.asdict(r)
         else:
             assert getattr(p, "value", p) == getattr(r, "value", r), f.name
-    port = convert.result_to_numpy(port_nmf.nmf_fit(data, cfg))
+    port = convert.result_to_numpy(port_nmf.nmf_fit(data, cfg, device="cpu"))
     ref = convert.result_to_numpy(ref_nmf.nmf_fit(data, ref_cfg))
     assert port["iterations"] == ref["iterations"] == MAXIT
     _assert_loss_close(port["loss_history"], ref["loss_history"], data)
@@ -210,7 +221,7 @@ def test_factors_handed_across_give_the_same_first_loss(data):
     ref = convert.result_to_numpy(ref_nmf.nmf_fit(data, one, w_init=W,
                                                   h_init=H))
     port = convert.result_to_numpy(rtt.nmf(data, K, maxit=1, tol=0, w_init=W,
-                                           h_init=H))
+                                           h_init=H, device="cpu"))
     _assert_loss_close(port["loss_history"], ref["loss_history"], data)
 
     cfg = convert.config_from_reference(one)
@@ -228,8 +239,6 @@ def test_factors_handed_across_give_the_same_first_loss(data):
 # ---------------------------------------------------------------------------
 
 UNPORTED = {
-    "irls": dict(loss="kl"),
-    "robust": dict(robust=True),
     "cv": dict(test_fraction=0.1),
     "mask_matrix": dict(mask=np.zeros((120, 90), bool)),
     "mask_zeros": dict(mask="zeros"),
@@ -249,7 +258,7 @@ UNPORTED = {
 @pytest.mark.parametrize("branch", list(UNPORTED))
 def test_unported_branch_raises(branch, data):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rtt.nmf(data, K, tol=0, **UNPORTED[branch])
+        rtt.nmf(data, K, tol=0, device="cpu", **UNPORTED[branch])
 
 
 @pytest.mark.parametrize("args", [
@@ -262,17 +271,17 @@ def test_unported_inputs_raise(args, data):
         A = data.copy()
         A[0, 0] = np.nan
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rtt.nmf(A, k)
+        rtt.nmf(A, k, device="cpu")
 
 
 def test_invalid_inputs_raise_value_errors(data):
     with pytest.raises(ValueError):
-        rtt.nmf(data, 200)                          # rank > min(m, n)
+        rtt.nmf(data, 200, device="cpu")            # rank > min(m, n)
     with pytest.raises(ValueError):
-        rtt.nmf(data, K, symmetric=True)            # not square
+        rtt.nmf(data, K, symmetric=True, device="cpu")   # not square
     bad = data.copy()
     bad[0, 0] = np.inf
     with pytest.raises(ValueError):
-        rtt.nmf(bad, K)
+        rtt.nmf(bad, K, device="cpu")
     with pytest.raises(ValueError):
-        rtt.nmf(data, K, L1=1.5)
+        rtt.nmf(data, K, L1=1.5, device="cpu")

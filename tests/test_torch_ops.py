@@ -55,7 +55,9 @@ def _factors(seed, k=6, m=40, n=30):
 
 def test_import_loads_neither_jax_nor_triton():
     code = ("import sys, rcppml_tpu_torch; "
-            "bad = [m for m in ('jax', 'triton') if m in sys.modules]; "
+            "import rcppml_tpu_torch.models.nmf_irls, rcppml_tpu_torch.convert; "
+            "bad = [m for m in ('jax', 'triton', 'rcppml_tpu') "
+            "if m in sys.modules]; "
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
@@ -63,11 +65,17 @@ def test_import_loads_neither_jax_nor_triton():
 
 
 def test_no_port_source_imports_jax():
-    for path in (REPO / "rcppml_tpu_torch").rglob("*.py"):
+    """Neither the port nor ``chip_smoke.py`` imports JAX or the JAX
+    package, not even a module of it that does not import JAX."""
+    banned = ("import jax", "from jax", "import rcppml_tpu ",
+              "import rcppml_tpu.", "from rcppml_tpu ", "from rcppml_tpu.")
+    sources = [*(REPO / "rcppml_tpu_torch").rglob("*.py"),
+               REPO / "chip_smoke.py"]
+    assert len(sources) > 10
+    for path in sources:
         for line in path.read_text().splitlines():
-            stripped = line.strip()
-            assert not stripped.startswith(("import jax", "from jax")), \
-                f"{path}: {line}"
+            stripped = line.strip() + " "
+            assert not stripped.startswith(banned), f"{path}: {line}"
 
 
 # ---------------------------------------------------------------------------
