@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py [--profile]
 
-It builds the three CUDA kernels from ``rcppml_tpu_torch/csrc`` (one ``nvcc``
-each, started together), holds each against its plain PyTorch twin, drives
-the port's main paths through ``rcppml_tpu_torch.nmf`` on a matrix on the
-card, and times kernels, twins and fits with CUDA events:
+It builds the CUDA kernels from ``rcppml_tpu_torch/csrc`` (five sources, one
+``nvcc`` each, started together), holds each against its plain PyTorch twin,
+drives the port's main paths through ``rcppml_tpu_torch.nmf`` on a matrix on
+the card, and times kernels, twins and fits with CUDA events:
 
   * the MSE fit with both solvers at the pbmc3k (13,714 x 2,638, k=20) and
     movielens (3,867 x 610, k=50) shapes: the shared-Gram CD NNLS kernel,
@@ -16,7 +16,13 @@ card, and times kernels, twins and fits with CUDA events:
     and NB with zero inflation per row at k=20 for 5 iterations: the
     per-column-Gram CD NNLS kernel, bit for bit against its twin, and the
     fused weight + Gram + RHS kernel, within 1e-4 of its twin's largest
-    entry.
+    entry;
+  * the whole-fit Newton-Schulz ALS (``fused_vmem=True``) at both shapes,
+    with float32 and bfloat16 data: the tall-skinny products B = F A and
+    B = H A^T within 1e-5 of ``torch.matmul``, the whole-fit kernel within
+    1e-4 of its twin after one iteration and within 1e-3 in loss after
+    twenty, all three bitwise repeatable; and the default loop with
+    ``bf16_data=True``, multi-restart, callbacks and ``profile=True``.
 
 Each phase prints its own lines and any failure raises, so the exit code is
 non-zero.  There is no CPU fallback: without a CUDA card of compute
@@ -68,10 +74,33 @@ MAXIT = 20
 REPS = 5
 ULP_LIMIT = 4
 WGRAM_RTOL = 1e-4
-# the card's published peaks (H100 SXM data sheet): device memory rate and
-# float32 rate outside the tensor cores
+# the card's published peaks (H100 SXM data sheet): device memory rate,
+# float32 rate outside the tensor cores, dense bfloat16 rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+# tall-skinny products: every k at both data shapes and one odd shape, within
+# this share of the twin's largest entry (float32 sums in another order)
+RHS_KS = (1, 20, 50, 128)
+RHS_ODD_SHAPE = (1001, 77)
+RHS_RTOL = 1e-5
+# whole-fit kernel against its twin.  After one iteration: this share of the
+# largest entry of W_T, H, d.  With bfloat16 data W_T and d come from H
+# rounded to bfloat16, where a last-bit difference between the kernel's H and
+# the twin's rounds the other way, so there the twin's W update is fed the
+# kernel's own H and held to the same bar.  The same is done along the
+# kernel's own trajectory, one iteration per call: every half step of MAXIT
+# iterations, float32 and bfloat16, within this bar of the twin fed the
+# kernel's state.  After MAXIT iterations in one call: the loss history, and
+# with float32 data the factors; the bfloat16 factors against the twin's own
+# trajectory are printed (ALS amplifies the flipped roundings: 0.24 of the
+# largest entry at the movielens shape, where every half step agrees to 1e-5)
+FUSED_RTOL_ONE = 1e-4
+FUSED_LOSS_RTOL = 1e-3
+FUSED_FACTOR_TOL = 1e-2
+FUSED_PENALTIES = dict(l1_w=0.01, l1_h=0.02, l2_w=0.05, l2_h=0.03)
+# the fused fit's converged loss against the default (Cholesky) fit's
+CONVERGED_MAXIT, CONVERGED_RTOL = 100, 1e-2
 # (k, n, L1, upper_bound, dead coordinate): every k at every n of the main
 # path's solves, with and without L1, then the special cases; k=128 puts G
 # above 48 KB of shared memory and k=256 beyond it (read-only cache path)
@@ -205,12 +234,14 @@ def max_ulp(a, b):
     return int((ordered(a) - ordered(b)).abs().max())
 
 
-def bound_ms(n_bytes, n_flops):
+def bound_ms(n_bytes, n_flops, n_flops_bf16=0):
     """The least time the card could take: the larger of bytes over the
-    memory rate and float32 operations over the fp32 rate.  Returns
-    (milliseconds, "bytes" or "operations")."""
+    memory rate and the operations over the peak rate of their type
+    (float32, and products of bfloat16 values).  Returns (milliseconds,
+    "bytes" or "operations")."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = (n_flops / PEAK_FP32_FLOPS
+             + n_flops_bf16 / PEAK_BF16_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -354,17 +385,194 @@ def nbzi_fit(rtt, A):
                    seed=1)
 
 
+def fused_fit(rtt, A, shape, maxit=MAXIT, **kw):
+    return rtt.nmf(A, shape["k"], fused_vmem=True, tol=0, maxit=maxit, seed=1,
+                   **kw)
+
+
+@contextlib.contextmanager
+def plain_fused_twin():
+    """Route the ``fused_vmem`` fit to the plain twin of the whole-fit
+    kernel: a test hook, used only to time the twin-driven fit."""
+    from rcppml_tpu_torch.ops import fused_als
+    kernel = fused_als.fused_als
+    fused_als.fused_als = fused_als.fused_als_plain
+    try:
+        yield
+    finally:
+        fused_als.fused_als = kernel
+
+
+def rel_err(out, plain):
+    """Largest error as a share of the plain version's largest entry."""
+    return float((out - plain).abs().max()) / float(plain.abs().max())
+
+
+def check_rhs_kernels(A_by_shape):
+    """Kernels 7 and 8 against their twins.  Returns, for each kernel by
+    name, the largest absolute and relative error seen at float32."""
+    from rcppml_tpu_torch.ops import rhs_tall as rt_
+    worst = {"rhs_tall": [0.0, 0.0], "rhs_tall_t": [0.0, 0.0]}
+    for label, A32 in A_by_shape.items():
+        m, n = A32.shape
+        for dtype in (torch.float32, torch.bfloat16):
+            A = A32.to(dtype)
+            for k in RHS_KS:
+                rs = np.random.RandomState(k * 7919 + m)
+                F = torch.from_numpy(rs.rand(k, m).astype(np.float32)).cuda()
+                H = torch.from_numpy(rs.rand(k, n).astype(np.float32)).cuda()
+                errs = []
+                for fn, plain_fn, X in (
+                        (rt_.rhs_tall, rt_.rhs_tall_plain, F),
+                        (rt_.rhs_tall_t, rt_.rhs_tall_t_plain, H)):
+                    out, again = fn(X, A), fn(X, A)
+                    torch.cuda.synchronize()
+                    check(torch.equal(out, again), f"{fn.__name__}: a second "
+                          "launch on the same inputs is bitwise equal")
+                    plain = plain_fn(X, A)
+                    check(bool(torch.isfinite(out).all()), "finite product")
+                    errs.append(rel_err(out, plain))
+                    if dtype == torch.float32:
+                        own = worst[fn.__name__]
+                        own[0] = max(own[0], float((out - plain).abs().max()))
+                        own[1] = max(own[1], errs[-1])
+                name = "bf16" if dtype == torch.bfloat16 else "fp32"
+                print(f"{label} {m}x{n} {name} A, k={k:3d}: F A off by "
+                      f"{errs[0]:.2e}, H A^T by {errs[1]:.2e} of the largest "
+                      f"entry; bitwise repeatable", flush=True)
+                check(max(errs) <= RHS_RTOL, f"within {RHS_RTOL} of the twin "
+                      f"at {label} {name} k={k}: {errs}")
+            del A
+    return worst
+
+
+def fused_start(shape):
+    """The starting factors ``rtt.nmf(..., seed=1)`` uses, on the card."""
+    from rcppml_tpu_torch import rng
+    k, m, n = shape["k"], shape["m"], shape["n"]
+    return (torch.from_numpy(rng.fill_uniform(1, k, m)).cuda(),
+            torch.from_numpy(rng.fill_uniform(1, k, n, offset=k * m)).cuda())
+
+
+def fused_half_steps(A, W0, H0, iters, **kw):
+    """The whole-fit kernel's own trajectory, one iteration per call, with
+    each half step held against the twin fed the kernel's state: H against
+    the twin's H update from the same W, then W_T, d and the loss against
+    the twin's W update from the kernel's H.  Returns the largest error of
+    each over the iterations, as shares of the twin's largest entry."""
+    from rcppml_tpu_torch.ops import fused_als as fa
+    bf16 = kw.get("a_bf16", False)
+    A_mm, trata = fa.widened(A, bf16), (A * A).sum()
+    l1_w, l1_h, l2_w, l2_h = (kw.get(key, 0.0) for key in
+                              ("l1_w", "l1_h", "l2_w", "l2_h"))
+    W, H = W0, H0
+    worst = dict(W_T=0.0, H=0.0, d=0.0, loss=0.0)
+    for _ in range(iters):
+        Wk, Hk, dk, lk = fa.fused_als(A, W, H, maxit=1, **kw)
+        Hp, _ = fa.h_update_plain(A_mm, W, fa.seed_inverse_plain(W, l2_h),
+                                  a_bf16=bf16, l1_h=l1_h, l2_h=l2_h)
+        Wp, dp, _, lp = fa.w_update_plain(
+            A_mm, Hk, fa.seed_inverse_plain(H, l2_w), trata, a_bf16=bf16,
+            l1_w=l1_w, l2_w=l2_w)
+        for f, out, plain in (("W_T", Wk, Wp), ("H", Hk, Hp), ("d", dk, dp),
+                              ("loss", lk[0], lp)):
+            worst[f] = max(worst[f], rel_err(out, plain))
+        W, H = Wk, Hk
+    return worst
+
+
+def check_fused_kernel(cells):
+    """Kernel 3 against its twin at both shapes: one iteration, then MAXIT
+    with and without L1/L2, float32 and bfloat16 data, in one call and half
+    step by half step.  Returns the largest absolute and relative error of
+    the float32 one-iteration cases."""
+    from rcppml_tpu_torch.ops import fused_als as fa
+    worst_abs = worst_rel = 0.0
+    for label, (A, shape) in cells.items():
+        W0, H0 = fused_start(shape)
+        for bf16 in (False, True):
+            name = "bf16" if bf16 else "fp32"
+            one = fa.fused_als(A, W0, H0, maxit=1, a_bf16=bf16)
+            one_plain = fa.fused_als_plain(A, W0, H0, maxit=1, a_bf16=bf16)
+            errs = {f: rel_err(o, p)
+                    for f, o, p in zip(("W_T", "H", "d"), one, one_plain)}
+            note = ""
+            if bf16:
+                # the twin's W update from the kernel's H
+                W_p, d_p = fa.w_update_plain(
+                    fa.widened(A, True), one[1], fa.seed_inverse_plain(H0),
+                    (A * A).sum(), a_bf16=True)[:2]
+                note = (f" (from the twin's own H: {errs['W_T']:.2e}, "
+                        f"{errs['d']:.2e})")
+                errs.update(W_T=rel_err(one[0], W_p), d=rel_err(one[2], d_p))
+            else:
+                worst_rel = max(worst_rel, *errs.values())
+                worst_abs = max(worst_abs, *(
+                    float((o - p).abs().max())
+                    for o, p in zip(one[:3], one_plain[:3])))
+            print(f"{label} k={shape['k']} {name} A, 1 iteration: H off by "
+                  f"{errs['H']:.2e}, W_T and d"
+                  f"{' from the kernel H' if bf16 else ''} by "
+                  f"{errs['W_T']:.2e}, {errs['d']:.2e} of the largest entry"
+                  f"{note}", flush=True)
+            for f, err in errs.items():
+                check(err <= FUSED_RTOL_ONE, f"{f} within {FUSED_RTOL_ONE} of "
+                      f"the twin after one iteration at {label} {name}: {err}")
+            for pen in (False, True):
+                kw = dict(a_bf16=bf16, **(FUSED_PENALTIES if pen else {}))
+                steps = fused_half_steps(A, W0, H0, MAXIT, **kw)
+                kw["maxit"] = MAXIT
+                out, again = fa.fused_als(A, W0, H0, **kw), \
+                    fa.fused_als(A, W0, H0, **kw)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(out, again)),
+                      "two runs of the whole-fit kernel are bitwise equal")
+                plain = fa.fused_als_plain(A, W0, H0, **kw)
+                check(bool(torch.isfinite(out[3]).all()),
+                      f"finite loss history: {out[3]}")
+                loss_off = float(((out[3] - plain[3]).abs()
+                                  / plain[3].abs()).max())
+                far = max(rel_err(o, p) for o, p in zip(out[:3], plain[:3]))
+                print(f"{label} k={shape['k']} {name} A, {MAXIT} iterations"
+                      f"{', L1/L2' if pen else ''}: every half step within "
+                      f"{max(steps.values()):.2e} of the twin fed the "
+                      f"kernel's state; in one call: loss history within "
+                      f"{loss_off:.2e}, W_T, H, d within {far:.2e} of the "
+                      f"largest entry; loss {float(out[3][0]):.6g} -> "
+                      f"{float(out[3][-1]):.6g}; bitwise repeatable",
+                      flush=True)
+                check(max(steps.values()) <= FUSED_RTOL_ONE,
+                      f"every half step within {FUSED_RTOL_ONE} of the twin "
+                      f"at {label} {name} pen={pen}: {steps}")
+                check(loss_off <= FUSED_LOSS_RTOL,
+                      f"loss history within {FUSED_LOSS_RTOL} of the twin's "
+                      f"at {label} {name} pen={pen}: {loss_off}")
+                check(bf16 or far <= FUSED_FACTOR_TOL,
+                      f"factors within {FUSED_FACTOR_TOL} of the twin's at "
+                      f"{label} {name} pen={pen}: {far}")
+    return worst_abs, worst_rel
+
+
 def profile_fits(rtt, card):
     """One run of each fit under ``torch.profiler``, after a warm-up."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     A_pb, (A_ct, _) = simulated(PBMC), pbmc_counts(KL_K)
+    A_ml = simulated(MOVIELENS)
     A_nb, _ = pbmc_counts(NBZI_K, **NBZI_DATA)
     fits = (("MSE CD k=20", lambda: mse_cd_fit(rtt, A_pb), False),
             (f"KL k={KL_K}", lambda: kl_fit(rtt, A_ct), False),
             (f"KL k={KL_K}, RCPPML_FUSED_WGRAM=1", lambda: kl_fit(rtt, A_ct),
              True),
-            (f"NB zi=row k={NBZI_K}", lambda: nbzi_fit(rtt, A_nb), False))
+            (f"NB zi=row k={NBZI_K}", lambda: nbzi_fit(rtt, A_nb), False),
+            ("MSE fused_vmem k=20", lambda: fused_fit(rtt, A_pb, PBMC), False),
+            ("MSE fused_vmem k=20 bf16_data",
+             lambda: fused_fit(rtt, A_pb, PBMC, bf16_data=True), False),
+            ("MSE Cholesky k=20 bf16_data", lambda: rtt.nmf(
+                A_pb, PBMC["k"], bf16_data=True, maxit=MAXIT, tol=0, seed=1),
+             False),
+            ("movielens MSE fused_vmem k=50",
+             lambda: fused_fit(rtt, A_ml, MOVIELENS), False))
     for label, fit, fused in fits:
         with fused_wgram() if fused else contextlib.nullcontext():
             fit()
@@ -401,10 +609,19 @@ def main():
                          "runs only on the card")
     import rcppml_tpu_torch as rtt
     from rcppml_tpu_torch.ops import (_build, cd_nnls, cd_nnls_batched,
-                                      linalg, solvers, wgram)
+                                      fused_als, linalg, rhs_tall, solvers,
+                                      wgram)
     cd_shared, cd_batched = cd_nnls.cd_nnls_shared, \
         cd_nnls_batched.cd_nnls_batched
     wg = wgram.weighted_gram_rhs
+    fused, rhs_f, rhs_t = fused_als.fused_als, rhs_tall.rhs_tall, \
+        rhs_tall.rhs_tall_t
+    counted = (cd_shared, cd_batched, wg, fused, rhs_f, rhs_t)
+
+    def reset_counts():
+        for fn in counted:
+            fn.launches = 0
+        fused.calls = 0
 
     phase("1 environment")
     smi = subprocess.run(
@@ -426,14 +643,18 @@ def main():
     t0 = time.perf_counter()
     built = _build.build_all()
     check(sorted(built) == sorted([cd_nnls.KERNEL, cd_nnls_batched.KERNEL,
-                                   wgram.KERNEL]),
-          f"the three kernels were built: {sorted(built)}")
+                                   wgram.KERNEL, fused_als.KERNEL,
+                                   rhs_tall.KERNEL]),
+          f"the five sources were built: {sorted(built)}")
     for name, (path, seconds) in built.items():
         print(f"built {path.name} in {seconds:.2f} s", flush=True)
-        for line in path.with_suffix(".so.log").read_text().splitlines():
-            if "registers" in line:
-                print("  ptxas:", line.split(":", 1)[1].strip(), flush=True)
-    print(f"all three, side by side: {time.perf_counter() - t0:.2f} s",
+        # one line per distinct report: the product tiles are instantiated
+        # sixteen times
+        for line in sorted({line.split(":", 1)[1].strip() for line in
+                            path.with_suffix(".so.log").read_text().splitlines()
+                            if "registers" in line}):
+            print("  ptxas:", line, flush=True)
+    print(f"all five, side by side: {time.perf_counter() - t0:.2f} s",
           flush=True)
     if "--profile" in sys.argv[1:]:
         phase(f"profiles on {card}")
@@ -465,15 +686,15 @@ def main():
 
     phase("4 MSE path, CD solver")
     A_pb = simulated(PBMC)
-    cd_shared.launches = cd_batched.launches = wg.launches = 0
+    reset_counts()
     res_cd = mse_cd_fit(rtt, A_pb)
     launches_shared = cd_shared.launches
     print(f"pbmc3k shape, k=20, CD: {launches_shared} kernel launches",
           flush=True)
     check(launches_shared == 2 * MAXIT,
           f"{2 * MAXIT} kernel launches, got {launches_shared}")
-    check(cd_batched.launches == 0 and wg.launches == 0,
-          "the MSE fit launches neither IRLS kernel")
+    check(sum(fn.launches for fn in counted) == launches_shared,
+          "the MSE CD fit launches no other kernel")
     hist, mse, var = check_losses(res_cd, A_pb, monotone=True)
     print(f"  loss {hist[0]:.6g} -> {hist[-1]:.6g}; mse {mse:.6g} < "
           f"var(A) {var:.6g}", flush=True)
@@ -583,7 +804,7 @@ def main():
         return nbzi_fit(rtt, A_nb)
 
     # (i) KL through the default path: kernel 2 once per inner iteration
-    cd_shared.launches = cd_batched.launches = wg.launches = 0
+    reset_counts()
     res_kl = fit_kl()
     launches_batched = cd_batched.launches
     inner = res_kl.misc["irls_inner_iterations"]
@@ -595,14 +816,14 @@ def main():
     check(launches_batched == inner and 2 * KL_MAXIT <= inner <= 200,
           f"one launch per inner iteration, 40 to 200: {launches_batched}, "
           f"{inner}")
-    check(wg.launches == 0 and cd_shared.launches == 0,
+    check(sum(fn.launches for fn in counted) == launches_batched,
           "the default IRLS path launches only cd_nnls_batched")
     check(same_factors(fit_kl(), res_kl),
           "the same seed gives bitwise equal W, d, H")
 
     # (ii) the same fit with the fused weighted-Gram kernel switched on
     with fused_wgram():
-        cd_shared.launches = cd_batched.launches = wg.launches = 0
+        reset_counts()
         res_fused = fit_kl()
         launches_wgram, fused_batched = wg.launches, cd_batched.launches
         hist_fused = check_irls(res_fused, KL_MAXIT, KL_K, shape)
@@ -696,7 +917,123 @@ def main():
         check(off <= SMALL_RTOL and far <= SMALL_FACTOR_TOL,
               f"{label} on the card agrees with the CPU fit: {off}, {far}")
 
-    phase(f"9 times (CUDA events, median of {REPS} after a warm-up) on "
+    phase(f"9 tall-skinny product kernels against their twins (within "
+          f"{RHS_RTOL} of the twin's largest entry)")
+    rs = np.random.RandomState(11)
+    A_odd = torch.from_numpy(
+        (rs.rand(*RHS_ODD_SHAPE) * (rs.rand(*RHS_ODD_SHAPE) < 0.3)).astype(
+            np.float32)).cuda()
+    errs_rhs = check_rhs_kernels(
+        {"movielens": A_ml, "pbmc3k": A_pb, "odd": A_odd})
+    for name, (err, rel) in errs_rhs.items():
+        print(f"{name}, largest float32 error: {rel:.3e} relative, "
+              f"{err:.3e} absolute", flush=True)
+
+    phase("10 whole-fit Newton-Schulz ALS kernel against its twin (one "
+          f"iteration, and every half step of {MAXIT}, within "
+          f"{FUSED_RTOL_ONE}; {MAXIT} iterations in one call: loss within "
+          f"{FUSED_LOSS_RTOL}, float32 factors within {FUSED_FACTOR_TOL})")
+    cells = {"movielens": (A_ml, MOVIELENS), "pbmc3k": (A_pb, PBMC)}
+    err_fused, rel_fused = check_fused_kernel(cells)
+
+    phase("11 fused_vmem path, bf16_data, multi-restart, callbacks, profile")
+    phases = fused_als.phase_count(MAXIT)
+    launches_fused = 0
+    for label, (A, shape) in cells.items():
+        k = shape["k"]
+        base = rtt.nmf(A, k, maxit=CONVERGED_MAXIT, tol=0, seed=1)
+        check(base.misc["config"].solver.name == "CHOLESKY",
+              "the default fit takes the Cholesky solver")
+        for bf16 in (False, True):
+            name = "bf16_data" if bf16 else "float32"
+            reset_counts()
+            res = fused_fit(rtt, A, shape, bf16_data=bf16)
+            check(fused.calls == 1 and fused.launches == phases,
+                  f"one call enqueuing {phases} kernels: {fused.calls}, "
+                  f"{fused.launches}")
+            check(sum(fn.launches for fn in counted) == phases,
+                  "the fused_vmem fit launches no other kernel")
+            if label == "pbmc3k" and not bf16:
+                launches_fused = fused.launches
+            check(res.iterations == MAXIT and res.converged is False
+                  and np.isfinite(res.final_tol),
+                  "fixed-iteration result contract")
+            hist, mse, var = check_losses(res, A, monotone=False)
+            check(same_factors(fused_fit(rtt, A, shape, bf16_data=bf16), res),
+                  "the same seed gives bitwise equal W, d, H")
+            long_fit = fused_fit(rtt, A, shape, maxit=CONVERGED_MAXIT,
+                                 bf16_data=bf16)
+            b, f = base.loss_history[-1], long_fit.loss_history[-1]
+            print(f"{label} k={k} fused_vmem {name}: 1 call, {phases} "
+                  f"kernels, no other launch; loss {hist[0]:.6g} -> "
+                  f"{hist[-1]:.6g}; mse {mse:.6g} < var(A) {var:.6g}; after "
+                  f"{CONVERGED_MAXIT} iterations {f:.6g} against the "
+                  f"Cholesky fit's {b:.6g} ({abs(b - f) / abs(b):.2e} "
+                  f"relative)", flush=True)
+            check(abs(b - f) / abs(b) <= CONVERGED_RTOL,
+                  f"converged loss within {CONVERGED_RTOL} of the default "
+                  f"fit's: {f}, {b}")
+
+    # the default loop with bf16_data: kernels 7 and 8 once per iteration
+    reset_counts()
+    res_bf = rtt.nmf(A_pb, PBMC["k"], bf16_data=True, maxit=MAXIT, tol=0,
+                     seed=1)
+    launches_rhs, launches_rhs_t = rhs_f.launches, rhs_t.launches
+    check(launches_rhs == MAXIT and launches_rhs_t == MAXIT
+          and sum(fn.launches for fn in counted) == 2 * MAXIT,
+          f"{MAXIT} launches each of rhs_tall and rhs_tall_t and no other: "
+          f"{launches_rhs}, {launches_rhs_t}")
+    hist, mse, var = check_losses(res_bf, A_pb, monotone=False)
+    off = float(np.abs(hist / np.asarray(res_ch.loss_history, np.float64)
+                       - 1).max())
+    print(f"pbmc3k k=20 Cholesky bf16_data: {launches_rhs} launches of "
+          f"rhs_tall, {launches_rhs_t} of rhs_tall_t; loss {hist[0]:.6g} -> "
+          f"{hist[-1]:.6g}, within {off:.2e} of the float32 fit's; mse "
+          f"{mse:.6g} < var(A) {var:.6g}", flush=True)
+    check(off <= 2e-2, f"bf16_data loss history within 2e-2 of float32: {off}")
+    check(same_factors(rtt.nmf(A_pb, PBMC["k"], bf16_data=True, maxit=MAXIT,
+                               tol=0, seed=1), res_bf),
+          "the same seed gives bitwise equal W, d, H with bf16_data")
+
+    seeds = [1, 2, 3]
+    multi = rtt.nmf(A_ml, MOVIELENS["k"], fused_vmem=True, tol=0, maxit=MAXIT,
+                    seed=seeds)
+    inits = multi.misc["all_inits"]
+    best = [r["selected"] for r in inits].index(True)
+    check(len(inits) == 3 and inits[best]["loss"] == min(
+        r["loss"] for r in inits) and np.isfinite(multi.loss_history).all(),
+          f"the best of three restarts is selected: {inits}")
+    check(same_factors(rtt.nmf(A_ml, MOVIELENS["k"], fused_vmem=True, tol=0,
+                               maxit=MAXIT, seed=seeds[best]), multi),
+          "the selected restart equals its standalone fit")
+    print(f"movielens k=50 fused_vmem seed={seeds}: losses "
+          f"{[round(r['loss'], 1) for r in inits]}, restart {best} selected",
+          flush=True)
+
+    calls = []
+    stepped = rtt.nmf(A_pb, PBMC["k"], maxit=MAXIT, tol=0, seed=1,
+                      on_iteration=lambda it, train, test: calls.append(
+                          (it, train)))
+    check([c[0] for c in calls] == list(range(1, MAXIT + 1))
+          and np.array_equal(np.float32([c[1] for c in calls]),
+                             stepped.loss_history),
+          f"the callback is called {MAXIT} times with the losses")
+    check(np.array_equal(stepped.loss_history, res_ch.loss_history),
+          "step mode has the loop's loss history")
+    sections = {key: round(v, 2) for key, v in stepped.profile.items()}
+    print(f"pbmc3k k=20 on_iteration: {len(calls)} calls; sections "
+          f"{sections} ms", flush=True)
+    profiled = rtt.nmf(A_pb, PBMC["k"], maxit=MAXIT, tol=0, seed=1,
+                       profile=True)
+    check(profiled.profile.get("mode") == "fused-segmented"
+          and profiled.profile["iterations"] == MAXIT
+          and np.array_equal(profiled.loss_history, res_ch.loss_history),
+          f"the profiled fit is the loop in segments: {profiled.profile}")
+    timed = {key: round(v, 2) for key, v in profiled.profile.items()
+             if isinstance(v, float)}
+    print(f"pbmc3k k=20 profile=True: {timed}", flush=True)
+
+    phase(f"12 times (CUDA events, median of {REPS} after a warm-up) on "
           f"{card}")
 
     def factors(res):
@@ -790,6 +1127,92 @@ def main():
         times["wgram " + label] = (ms, plain_ms, bound, by)
         del KR, Gb, b, B_res
 
+    # kernels 7 and 8 beside torch.matmul: device time, from a CUDA graph of
+    # BATCH calls replayed (a product of tens of microseconds is otherwise
+    # timed by the host's launch path), and beside it the time per call of
+    # BATCH eager calls back to back.  A matrix that fits in L2 stays there,
+    # as it does between the iterations of a fit
+    BATCH = 20
+
+    def batch_ms(fn):
+        return cuda_ms(lambda: [fn() for _ in range(BATCH)]) / BATCH
+
+    def graph_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(BATCH):
+                fn()
+        return cuda_ms(graph.replay) / BATCH
+
+    for label, A32, k in (("pbmc3k k=20", A_pb, 20),
+                          ("movielens k=50", A_ml, 50)):
+        m, n = A32.shape
+        rs = np.random.RandomState(k)
+        F = torch.from_numpy(rs.rand(k, m).astype(np.float32)).cuda()
+        H = torch.from_numpy(rs.rand(k, n).astype(np.float32)).cuda()
+        A16 = A32.to(torch.bfloat16)
+        for name, fn, plain_fn, X, J in (
+                ("rhs_tall", rhs_f, rhs_tall.rhs_tall_plain, F, n),
+                ("rhs_tall_t", rhs_t, rhs_tall.rhs_tall_t_plain, H, m)):
+            ms = graph_ms(lambda: fn(X, A32))
+            lib_ms = graph_ms(lambda: plain_fn(X, A32))
+            ms16 = graph_ms(lambda: fn(X, A16))
+            bound, by = bound_ms(4 * (m * n + X.numel() + k * J),
+                                 2 * k * m * n)
+            # products of bfloat16 values: the tensor cores' rate
+            bound16, by16 = bound_ms(2 * m * n + 4 * (X.numel() + k * J), 0,
+                                     2 * k * m * n)
+            print(f"{name} {label}: kernel {ms:.4f} ms, torch.matmul (the "
+                  f"plain twin and the library call) {lib_ms:.4f} ms, bound "
+                  f"{bound:.5f} ms by {by}; bfloat16 A: kernel {ms16:.4f} ms, "
+                  f"bound {bound16:.5f} ms by {by16}; per eager call "
+                  f"{batch_ms(lambda: fn(X, A32)):.4f} ms against "
+                  f"{batch_ms(lambda: plain_fn(X, A32)):.4f} ms  [{card}]",
+                  flush=True)
+            times[f"{name} {label}"] = (ms, lib_ms, bound, by)
+        del A16
+
+    def fused_flops(m, n, k, maxit, ns_steps=7):
+        """Operations of the whole fit, (with A, without A).  With A: the
+        two products per iteration, float32 or bfloat16 as A is.  Without:
+        per iteration one Gram of each factor (the loss's W W^T is the next
+        iteration's H-side Gram), two Ginv . B products and two refines of
+        1 + 2 ns_steps k x k products; once, the Grams and refines that seed
+        the two inverses."""
+        grams = 2 * k * k * (m + n)
+        refines = 2 * (1 + 2 * ns_steps) * 2 * k ** 3
+        return (maxit * 4 * k * m * n,
+                maxit * (2 * grams + refines) + grams + refines)
+
+    for label, (A, shape) in cells.items():
+        m, n, k = shape["m"], shape["n"], shape["k"]
+        W0, H0 = fused_start(shape)
+        for bf16 in (False, True):
+            ms = cuda_ms(lambda: fused(A, W0, H0, maxit=MAXIT, a_bf16=bf16))
+            plain_ms = cuda_ms(lambda: fused_als.fused_als_plain(
+                A, W0, H0, maxit=MAXIT, a_bf16=bf16), reps=3)
+            # the function's inputs read once and its outputs written once,
+            # against its operations; beside it the traffic of reading A
+            # twice per iteration, which is what the card does once A
+            # exceeds L2
+            io_bytes = (2 if bf16 else 4) * m * n \
+                + 4 * (2 * k * (m + n) + k + MAXIT)
+            with_a, without_a = fused_flops(m, n, k, MAXIT)
+            bound, by = bound_ms(io_bytes, without_a, with_a) if bf16 else \
+                bound_ms(io_bytes, with_a + without_a)
+            reread_ms = 2 * MAXIT * m * n * (2 if bf16 else 4) \
+                / PEAK_BYTES_PER_S * 1e3
+            print(f"fused_als {label} k={k} "
+                  f"{'bfloat16' if bf16 else 'float32'} A, {MAXIT} "
+                  f"iterations: kernel sequence {ms:.3f} ms, "
+                  f"plain twin {plain_ms:.3f} ms, bound {bound:.4f} ms by "
+                  f"{by} (reading A twice per iteration: {reread_ms:.3f} ms)"
+                  f"  [{card}]", flush=True)
+            if not bf16:
+                times[f"fused_als {label}"] = (ms, plain_ms, bound, by)
+
     fits = ((f"pbmc3k k=20 MSE CD, {MAXIT} iterations",
              lambda: mse_cd_fit(rtt, A_pb)),
             (f"pbmc3k k=20 MSE Cholesky, {MAXIT} iterations", lambda: rtt.nmf(
@@ -797,6 +1220,23 @@ def main():
             (f"movielens k=50 MSE L1 CD, {MAXIT} iterations", lambda: rtt.nmf(
                 A_ml, MOVIELENS["k"], L1=(0, 0.01), maxit=MAXIT, tol=0,
                 seed=1)),
+            (f"pbmc3k k=20 MSE fused_vmem, {MAXIT} iterations",
+             lambda: fused_fit(rtt, A_pb, PBMC)),
+            (f"pbmc3k k=20 MSE fused_vmem bf16_data, {MAXIT} iterations",
+             lambda: fused_fit(rtt, A_pb, PBMC, bf16_data=True)),
+            (f"pbmc3k k=20 MSE Cholesky bf16_data, {MAXIT} iterations",
+             lambda: rtt.nmf(A_pb, PBMC["k"], bf16_data=True, maxit=MAXIT,
+                             tol=0, seed=1)),
+            (f"movielens k=50 MSE fused_vmem, {MAXIT} iterations",
+             lambda: fused_fit(rtt, A_ml, MOVIELENS)),
+            (f"movielens k=50 MSE fused_vmem bf16_data, {MAXIT} iterations",
+             lambda: fused_fit(rtt, A_ml, MOVIELENS, bf16_data=True)),
+            (f"movielens k=50 MSE Cholesky, {MAXIT} iterations",
+             lambda: rtt.nmf(A_ml, MOVIELENS["k"], maxit=MAXIT, tol=0,
+                             seed=1)),
+            (f"movielens k=50 MSE CD, {MAXIT} iterations",
+             lambda: rtt.nmf(A_ml, MOVIELENS["k"], solver="cd", maxit=MAXIT,
+                             tol=0, seed=1)),
             (f"(i) pbmc3k counts k={KL_K} KL, {KL_MAXIT} iterations", fit_kl),
             (f"(iii) pbmc3k counts k={NBZI_K} NB zi=row, {NBZI_MAXIT} "
              f"iterations", fit_nbzi))
@@ -809,21 +1249,29 @@ def main():
               f"{peak_mib(fit_kl):.0f} MiB  [{card}]", flush=True)
     print(f"fit pbmc3k k=20 MSE CD through the plain twin (one run): "
           f"{plain_fit_ms:.3f} ms  [{card}]", flush=True)
+    with plain_fused_twin():
+        for label, (A, shape) in cells.items():
+            print(f"fit {label} k={shape['k']} MSE fused_vmem through the "
+                  f"plain twin, {MAXIT} iterations: "
+                  f"{cuda_ms(lambda: fused_fit(rtt, A, shape), reps=3):.3f} "
+                  f"ms  [{card}]", flush=True)
 
-    def entry(name, source, replaces, launches, err, rel, key):
+    def entry(name, source, replaces, launches, err, rel, key,
+              library=False, file="pallas_kernels.py"):
         """``max_rel_err``: the largest error over the twin's largest entry
         (the fused kernel's Grams reach 1e9, so its absolute error is
-        large where its relative error is 1e-5)."""
+        large where its relative error is 1e-5).  ``library``: the plain
+        twin is one PyTorch call (``torch.matmul``) computing the same
+        function; no single call computes a CD NNLS solve, the weight, Gram
+        and RHS together, or a whole fit."""
         ms, plain_ms, bound, by = times[key]
         return {"name": name, "route": "cuda",
                 "source": f"rcppml_tpu_torch/csrc/{source}",
-                "replaces": f"rcppml_tpu/ops/pallas_kernels.py:{replaces}",
+                "replaces": f"rcppml_tpu/ops/{file}:{replaces}",
                 "launches": launches, "max_abs_err": err,
                 "max_rel_err": rel, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                # no single PyTorch call computes a CD NNLS solve, or the
-                # weight, Gram and RHS together
-                "library_ms": None}
+                "library_ms": plain_ms if library else None}
 
     print(json.dumps({"kernels": [
         entry("cd_nnls_shared", "cd_nnls_shared.cu", 154, launches_shared,
@@ -834,6 +1282,16 @@ def main():
               "batched (16, 2638) H side of fit (i)"),
         entry("weighted_gram_rhs", "wgram_rhs.cu", 636, launches_wgram,
               err_wgram, rel_wgram, "wgram (16, 2638) H side of fit (i)"),
+        # one fused_vmem fit: every kernel its one call enqueues
+        entry("fused_als", "fused_als.cu", 446, launches_fused, err_fused,
+              rel_fused, "fused_als pbmc3k"),
+        # the default loop with bf16_data; times at float32, beside matmul
+        entry("rhs_tall", "rhs_tall.cu", 319, launches_rhs,
+              *errs_rhs["rhs_tall"], "rhs_tall pbmc3k k=20", library=True,
+              file="pallas_experiments.py"),
+        entry("rhs_tall_t", "rhs_tall.cu", 365, launches_rhs_t,
+              *errs_rhs["rhs_tall_t"], "rhs_tall_t pbmc3k k=20", library=True,
+              file="pallas_experiments.py"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

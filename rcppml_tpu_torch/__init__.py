@@ -9,20 +9,27 @@ carries:
   * the IRLS fit for ``loss="kl"``, ``"gp"``, ``"nb"``, ``"gamma"``,
     ``"inverse_gaussian"``, ``"tweedie"``, ``"huber"``/``"mae"`` and
     ``robust=``, with the dispersion updates (per row, per column, global,
-    none), zero inflation (``zi="row"/"col"``) and sparse-input semantics.
+    none), zero inflation (``zi="row"/"col"``) and sparse-input semantics;
+  * on dense MSE fits, the opt-in whole-fit Newton-Schulz ALS
+    (``fused_vmem=True``), bfloat16 data (``bf16_data=True``), multi-restart
+    (``seed=[...]``), per-iteration callbacks (``on_iteration=``) and the
+    profiled fit (``profile=True``).
 
-Three kernels written for Hopper run on a CUDA tensor, each with a plain
+Six kernels written for Hopper run on a CUDA tensor, each with a plain
 PyTorch twin that runs on a CPU tensor: the shared-Gram CD NNLS solve
 (``csrc/cd_nnls_shared.cu``), the CD NNLS solve with one Gram per column that
-every IRLS inner iteration calls (``csrc/cd_nnls_batched.cu``), and the fused
+every IRLS inner iteration calls (``csrc/cd_nnls_batched.cu``), the fused
 IRLS weight + weighted Gram + RHS (``csrc/wgram_rhs.cu``), used when
-``RCPPML_FUSED_WGRAM`` is set in the environment.
+``RCPPML_FUSED_WGRAM`` is set in the environment, the whole-fit
+Newton-Schulz ALS (``csrc/fused_als.cu``), and the two products that read A
+once, B = F A and B = H A^T (``csrc/rhs_tall.cu``), which the whole-fit
+kernel contains and the default loop calls when A is bfloat16.
 
 Entry points run on the CUDA card unless the caller asks for ``device="cpu"``
 or passes a CPU tensor.  Still raising ``NotImplementedError`` with their
-ROADMAP.md item: cross-validation and masks, rank sweeps, ``fused_vmem``,
-``bf16_data``, ``profile=True``, callbacks, checkpoints, multi-restart,
-SVD-seeded init, streaming, multi-modal input and meshes.
+ROADMAP.md item: cross-validation and masks, rank sweeps, ``profile=True``
+and callbacks with an IRLS loss, checkpoints, SVD-seeded init, streaming, multi-modal input
+and meshes.
 
 It imports ``torch`` and never ``jax``; kernels are built with ``nvcc`` at
 first use, never at import.

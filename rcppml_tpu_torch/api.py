@@ -12,12 +12,18 @@ CD solver, ``kl``, ``gp``, ``nb``, ``gamma``, ``inverse_gaussian``,
 for ``gp`` and ``nb``.  A scipy-sparse input to an IRLS fit gives zeros unit
 weight and a loss over the nonzeros.
 
+Dense MSE fits also take ``fused_vmem=True`` (the whole fixed-``maxit`` fit
+as one call of the Newton-Schulz ALS kernels, ``tol=0``), ``bf16_data=True``
+(the products read a bfloat16 copy of A), ``seed=[...]`` (one restart per
+seed, the best train loss wins), ``on_iteration=`` (a callback per
+iteration, step mode) and ``profile=True`` (``res.profile``).
+
 Branches of the JAX API that are not ported yet raise
 ``NotImplementedError`` naming their ROADMAP.md item; none of them falls back
 silently: cross-validation, masks and NaN auto-masking, rank sweeps and
-``k="auto"``, ``fused_vmem``, ``bf16_data``, ``profile=True``,
-``on_iteration``, ``checkpoint_path``, multi-restart seeds, SVD-seeded
-init, ``.spz`` paths and streaming, multi-modal input and ``mesh=``.
+``k="auto"``, ``profile=True`` and ``on_iteration`` with an IRLS loss,
+``checkpoint_path``, SVD-seeded init, ``.spz`` paths and streaming,
+multi-modal input and ``mesh=``.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import torch
 
 from . import constants
 from .config import Dispersion, FactorConfig, Loss, NMFConfig, Norm, Solver, ZI
-from .models.nmf import nmf_fit, unported
+from .models.nmf import device_matrix, fit_device, nmf_fit, unported
 from .result import NMFResult
 
 
@@ -271,6 +277,27 @@ def _extract_dimnames(data):
     return None, None, data
 
 
+def _multi_restart(data, k, seeds, kwargs, rest):
+    """``seed=[...]``: one :func:`nmf` per seed, the best train loss wins
+    (test_parameters.R:554-578), so each restart equals its standalone fit.
+    A dense host matrix goes to the device once; a sparse one stays as it
+    is, because an IRLS fit reads from its type that the zeros are
+    structural."""
+    row_names, col_names, data = _extract_dimnames(data)
+    if isinstance(data, np.ndarray):
+        A = _to_dense_f32(data)
+        data = device_matrix(A, fit_device(A, rest["device"]))
+    runs = [nmf(data, k, **rest, **{**kwargs, "seed": s}) for s in seeds]
+    losses = [float(r.train_loss) for r in runs]
+    best_ix = int(np.nanargmin(losses))
+    best = runs[best_ix]
+    best.misc["all_inits"] = [
+        {"init": i, "loss": losses[i], "selected": i == best_ix}
+        for i in range(len(runs))]
+    best.row_names, best.col_names = row_names, col_names
+    return best
+
+
 def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
         target_W=None, w_init=None, h_init=None, streaming=False,
         chunk_cols=None, on_iteration=None, mesh=None,
@@ -281,7 +308,11 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
     int.  ``device``: where the fit runs; by default a tensor's own device,
     and the CUDA card for a host array (numpy, scipy sparse, DataFrame).
     Without a card that raises a ``RuntimeError``; pass ``device="cpu"`` to
-    fit on the CPU.  Other keywords are those of :func:`build_config`.
+    fit on the CPU.  ``seed=[...]`` fits once per seed and returns the
+    restart with the best train loss (``misc["all_inits"]`` lists them all).
+    ``on_iteration(iter, train_loss, nan)`` is called after every iteration
+    of a dense MSE fit (with an IRLS loss it raises).  Other keywords are
+    those of :func:`build_config`.
     """
     if isinstance(data, (list, tuple, dict)) and not _is_sparse(data):
         raise unported("multi-modal nmf(list/dict)", "Queue 1 item 12")
@@ -296,7 +327,19 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
             w_init = seed_arg
         kwargs["seed"] = 0
     elif isinstance(seed_arg, (list, tuple)) and len(seed_arg) > 0:
-        raise unported("seed=[...] multi-restart", "Queue 1 item 4")
+        if not np.isscalar(k) or isinstance(k, str):
+            raise ValueError(
+                "seed=[...] multi-restart requires a scalar integer k; "
+                "for a rank sweep use cv_seed=[...] to control "
+                "repetitions")
+        return _multi_restart(
+            data, k, seed_arg, kwargs,
+            dict(mask=mask, graph_W=graph_W, graph_H=graph_H,
+                 target_H=target_H, target_W=target_W, w_init=w_init,
+                 h_init=h_init, streaming=streaming, chunk_cols=chunk_cols,
+                 on_iteration=on_iteration, mesh=mesh,
+                 checkpoint_path=checkpoint_path,
+                 checkpoint_every=checkpoint_every, device=device))
     if isinstance(k, str) or not np.isscalar(k):
         raise unported(f"k={k!r} (rank sweep / auto-rank)", "Queue 1 item 7")
     if mask is not None or kwargs.get("sparse") or kwargs.get("mask_zeros"):
@@ -308,9 +351,7 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
     if mesh is not None:
         raise unported("mesh=", "Queue 1 item 14")
     if checkpoint_path is not None:
-        raise unported("checkpoint_path", "Queue 1 item 4")
-    if on_iteration is not None:
-        raise unported("on_iteration callbacks", "Queue 1 item 4")
+        raise unported("checkpoint_path", "Queue 1 item 13")
 
     row_names, col_names, data = _extract_dimnames(data)
     sparse_input = _is_sparse(data)
@@ -324,6 +365,10 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
                        has_target_H=target_H is not None,
                        has_target_W=target_W is not None,
                        **kwargs)
+
+    if on_iteration is not None and cfg.requires_irls():
+        # the JAX package accepts the callback there and never calls it
+        raise unported("on_iteration with an IRLS loss", "Queue 1 item 6")
 
     aux = {}
     if graph_W is not None:
@@ -343,7 +388,8 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
         print(f"[nmf] {A.shape[0]} x {A.shape[1]}  k={cfg.rank}  "
               f"loss={cfg.loss.value}  solver={cfg.solver.name.lower()}")
     res = nmf_fit(A, cfg, w_init=w_init, h_init=h_init, aux=aux,
-                  device=device, sparse_zeros=sparse_input)
+                  device=device, sparse_zeros=sparse_input,
+                  on_iteration=on_iteration)
     res.misc["config"] = cfg
     res.row_names, res.col_names = row_names, col_names
     if cfg.verbose:

@@ -137,10 +137,15 @@ class NMFConfig:
     verbose: bool = False
     # opt-in: store A as bfloat16 for the ALS matmuls, fp32 accumulation
     # (rcppml_tpu/config.py:144-162 gives the reasons it is never on by
-    # default).  Validated here; not ported yet (ROADMAP.md Queue 1 item 4).
+    # default: a seed must mean the same factors, and the loss histories
+    # drive the stopping rule).  Plain MSE fits only.
     bf16_data: bool = False
-    # opt-in whole-fit Newton-Schulz ALS, the TPU kernel fused_als_vmem
-    # (ROADMAP.md Queue 2 kernel 3).  Validated here; not ported yet.
+    # opt-in whole-fit Newton-Schulz ALS (ops/fused_als.py): the entire
+    # fixed-iteration fit is one call that enqueues its kernels and returns,
+    # the k x k Gram inverted by warm-started Newton-Schulz instead of a
+    # Cholesky solve.  Same ALS fixed point to ~1e-3 relative, different
+    # trailing digits, hence opt-in and never automatic.  Plain dense MSE
+    # only: fixed maxit (tol=0), L1 norm, nonneg, L1/L2 penalties allowed.
     fused_vmem: bool = False
 
     # presence flags for the auxiliary arrays (masks, graphs, targets)

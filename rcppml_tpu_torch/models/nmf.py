@@ -1,7 +1,11 @@
-"""Alternating-least-squares NMF: the entry point and the dense MSE fit loop.
+"""Alternating-least-squares NMF: the entry point and the dense MSE fits.
 
-The port of ``rcppml_tpu/models/nmf.py`` (``:43-218, 525-570, 636-687,
-718-744``).  Each iteration mirrors fit_cpu.hpp:444-1825:
+The port of ``rcppml_tpu/models/nmf.py``: the fit loop (``:43-218``), the
+whole-fit Newton-Schulz path (``_fit_fused_vmem``, ``:315-346``), the step
+mode with callbacks and the profiled fit (``:365-518``), the initial factors
+(``:525-570``), multi-restart (``:600-616``) and the entry point
+(``:636-744``).
+Each iteration of the loop mirrors fit_cpu.hpp:444-1825:
 
   H-update (gram(W_T) -> rhs -> features -> solve -> posthoc -> normalize)
   -> W-update (the same on A^T) -> saved-matrix Gram-trick loss ->
@@ -11,11 +15,13 @@ The JAX package runs the loop as one ``lax.while_loop`` on the device.  Here
 it is a Python loop over tensors that stay on the fit's device.  The only
 per-iteration read on the host is the convergence test, and a fit with
 ``tol == 0`` skips it: ``rel < 0`` is never true, so such a fit cannot
-converge early and needs no sync until the end.
+converge early and needs no sync until the end.  With ``fused_vmem`` the
+whole fit is one call into ``ops/fused_als.py``.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -26,6 +32,7 @@ from .. import rng as rng_mod
 from ..config import NMFConfig, Solver
 from ..device import set_fp32_precision
 from ..ops import features as feat
+from ..ops import fused_als as fused_mod
 from ..ops import linalg, solvers
 from ..result import NMFResult
 
@@ -51,19 +58,14 @@ def unported(what: str, item: str) -> NotImplementedError:
 
 
 def check_ported(cfg: NMFConfig) -> None:
-    """Raise NotImplementedError for every config branch this slice lacks."""
+    """Raise NotImplementedError for the config branches not ported yet:
+    cross-validation and masks, and SVD-seeded init.  (``profile=True`` with
+    an IRLS loss raises in ``nmf_irls.fit_irls``.)"""
     if cfg.is_cv() or cfg.has_mask or cfg.mask_zeros:
         raise unported("cross-validation and masked fits", "Queue 1 item 7")
-    if cfg.fused_vmem:
-        raise unported("fused_vmem", "Queue 2 kernel 3")
-    if cfg.bf16_data:
-        raise unported("bf16_data", "Queue 1 item 4")
-    if cfg.enable_profiling and not cfg.requires_irls():
-        # an IRLS fit raises for it in nmf_irls.fit_irls
-        raise unported("profile=True", "Queue 1 item 4")
     if cfg.init_mode in (1, 2):
         raise unported("SVD-seeded init (seed='lanczos'/'irlba')",
-                       "Queue 1 item 4, after item 9")
+                       "Queue 1 item 9")
 
 
 # ---------------------------------------------------------------------------
@@ -173,19 +175,34 @@ def init_fit_state(cfg: NMFConfig, W_T0, H0, d0, *,
     )
 
 
+def loop_operands(cfg: NMFConfig, A: torch.Tensor):
+    """What the loop needs of A: tr(A'A), always from the float32 matrix
+    (fit_cpu.hpp:224), and the matrix its products read, bfloat16 with
+    ``bf16_data`` (half the bytes of the dominant operand; the loss
+    bookkeeping stays float32)."""
+    trAtA = (A * A).sum()
+    return trAtA, (A.to(torch.bfloat16) if cfg.bf16_data else A)
+
+
 def fit_mse(cfg: NMFConfig, A: torch.Tensor, state: FitState,
-            aux: Optional[dict] = None) -> FitState:
+            aux: Optional[dict] = None, seg_end: Optional[int] = None,
+            operands=None) -> FitState:
     """Run the dense MSE ALS loop from ``state`` to convergence or
-    ``cfg.max_iter`` (the port of ``_fit_mse`` / ``_mse_loop``)."""
+    ``cfg.max_iter`` (the port of ``_fit_mse`` / ``_mse_loop``).  With
+    ``seg_end`` the loop stops after that many iterations in all, and a later
+    call carries on from the returned state (``_fit_mse_seg``);
+    ``operands`` is :func:`loop_operands` of A, for a caller that runs many
+    segments."""
     h_update, w_update, compute_loss = make_updates(cfg, aux or {})
-    trAtA = (A * A).sum()                 # tr(A'A) once (fit_cpu.hpp:224)
+    trAtA, A = operands if operands is not None else loop_operands(cfg, A)
+    bound = cfg.max_iter if seg_end is None else min(seg_end, cfg.max_iter)
     W_T, H, d, it = state.W_T, state.H, state.d, state.it
     prev_loss, patience_ctr = state.prev_loss, state.patience_ctr
     converged, final_tol = state.converged, state.final_tol
     loss_hist = state.loss_hist.clone()
     # with tol == 0, rel < tol never holds: no host read per iteration
     check_each_iteration = cfg.tol > 0
-    while it < cfg.max_iter:
+    while it < bound and not (check_each_iteration and bool(converged)):
         H, d = h_update(A, W_T, H, d, it)
         W_T, H, d, B_w, G_w = w_update(A, W_T, H, d, it)
         loss = compute_loss(trAtA, A, W_T, H, d, B_w, G_w)
@@ -201,10 +218,171 @@ def fit_mse(cfg: NMFConfig, A: torch.Tensor, state: FitState,
         loss_hist[it] = loss                  # in place: no sync
         prev_loss = loss
         it += 1
-        if check_each_iteration and bool(converged):
-            break
     return FitState(W_T, H, d, it, prev_loss, patience_ctr, converged,
                     final_tol, loss_hist)
+
+
+# ---------------------------------------------------------------------------
+# fused_vmem: the whole fit in one call (opt-in)
+# ---------------------------------------------------------------------------
+
+def fit_fused_vmem(cfg: NMFConfig, A: torch.Tensor, W_T0, H0) -> NMFResult:
+    """The opt-in ``fused_vmem`` path (``_fit_fused_vmem``): the
+    whole fixed-``max_iter`` Newton-Schulz ALS in ``ops/fused_als.py``, the
+    kernels on the card and the plain twin on the CPU.  ``cfg.validate()``
+    has already held this to the dense nonneg MSE fit with tol=0; L1/L2 are
+    supported, tier-2 features are not.  A fit beyond the kernel's gate
+    raises ``ValueError`` there; nothing falls back to the default loop."""
+    def dev(x):
+        return torch.from_numpy(np.array(x, np.float32, order="C")).to(
+            A.device)
+
+    W_T, H, d, hist = fused_mod.fused_als(
+        A, dev(W_T0), dev(H0), maxit=cfg.max_iter, nonneg=True,
+        a_bf16=cfg.bf16_data, l1_w=float(cfg.W.L1), l1_h=float(cfg.H.L1),
+        l2_w=float(cfg.W.L2), l2_h=float(cfg.H.L2))
+    prev = hist[-2] if cfg.max_iter > 1 else hist[-1]
+    final_tol = (prev - hist[-1]).abs() / (prev.abs() + 1e-15)
+    state = FitState(
+        W_T=W_T, H=H, d=d, it=cfg.max_iter, prev_loss=hist[-1],
+        patience_ctr=torch.zeros((), dtype=torch.int32, device=A.device),
+        converged=torch.zeros((), dtype=torch.bool, device=A.device),
+        final_tol=final_tol, loss_hist=hist)
+    return finalize_result(cfg, state)
+
+
+# ---------------------------------------------------------------------------
+# Step mode: a host loop with callbacks and per-section times
+# ---------------------------------------------------------------------------
+
+def _wait(device: torch.device) -> None:
+    """Let the card finish what was enqueued, so that a host clock times it."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def fit_stepwise(A: torch.Tensor, cfg: NMFConfig, W_T0, H0, d0, aux, *,
+                 on_iteration=None) -> NMFResult:
+    """Host-driven ALS loop with a wait after every section.
+
+    Used when the caller wants per-iteration callbacks
+    (``on_iteration(iter, train, test)``, config.hpp:388-392; ``test`` is NaN
+    here) and gives the section -> milliseconds map ``res.profile``
+    (``h_update``, ``w_update``, ``loss``).  Slower than :func:`fit_mse`: the
+    host reads the loss every iteration.
+    """
+    h_update, w_update, compute_loss = make_updates(cfg, aux or {})
+    state = init_fit_state(cfg, W_T0, H0, d0, device=A.device)
+    W_T, H, d = state.W_T, state.H, state.d
+    trAtA, A = loop_operands(cfg, A)
+    prof: dict = {}
+    hist = []
+    prev_loss = np.inf
+    patience = 0
+    converged = False
+    final_tol = float("nan")
+
+    def timed(name, fn):
+        _wait(A.device)
+        t0 = time.perf_counter()
+        out = fn()
+        _wait(A.device)
+        prof[name] = prof.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+    for it in range(cfg.max_iter):
+        H, d = timed("h_update", lambda: h_update(A, W_T, H, d, it))
+        W_T, H, d, B_w, G_w = timed(
+            "w_update", lambda: w_update(A, W_T, H, d, it))
+        loss = float(timed("loss", lambda: compute_loss(
+            trAtA, A, W_T, H, d, B_w, G_w)))
+        hist.append(loss)
+        if on_iteration is not None:
+            on_iteration(it + 1, loss, float("nan"))
+        if it > 0:
+            rel = abs(prev_loss - loss) / (abs(prev_loss) + 1e-15)
+            final_tol = rel
+            if rel < cfg.tol:
+                patience += 1
+                if patience >= cfg.patience:
+                    converged = True
+                    prev_loss = loss
+                    break
+            else:
+                patience = 0
+        prev_loss = loss
+
+    res = NMFResult(
+        W=W_T.cpu().numpy().T, d=d.cpu().numpy(), H=H.cpu().numpy(),
+        iterations=len(hist), converged=converged, final_tol=final_tol,
+        train_loss=float(prev_loss),
+        loss_history=np.asarray(hist, dtype=np.float32), profile=prof)
+    if cfg.sort_model:
+        res.sort()
+    return res
+
+
+def fit_profiled(A: torch.Tensor, cfg: NMFConfig, W_T0, H0, d0,
+                 aux) -> NMFResult:
+    """Profile the production loop (profiling/cpu_timer.hpp:31-50).
+
+    Unlike :func:`fit_stepwise`, this runs the loop the unprofiled fit runs,
+    :func:`fit_mse`, in segments (the same trajectory bit for bit) and times
+    each segment on the host clock.  The section -> ms map keeps its
+    contract: the sections are timed once more at the final state (best of
+    3) and scaled by the iteration count, estimates of where the loop's time
+    goes, marked as such in the map.
+    """
+    state = init_fit_state(cfg, W_T0, H0, d0, device=A.device)
+    operands = loop_operands(cfg, A)
+    seg = max(1, min(32, cfg.max_iter // 8 or 1))
+    seg_times = []          # (iterations in the segment, seconds)
+    _wait(A.device)
+    t_total0 = time.perf_counter()
+    while state.it < cfg.max_iter and not bool(state.converged):
+        it0, t0 = state.it, time.perf_counter()
+        state = fit_mse(cfg, A, state, aux, seg_end=it0 + seg,
+                        operands=operands)
+        _wait(A.device)
+        if state.it > it0:
+            seg_times.append((state.it - it0, time.perf_counter() - t0))
+    fused_total_ms = (time.perf_counter() - t_total0) * 1e3
+    # steady-state cost per iteration: the best segment
+    per_iter_s = min((t / n for n, t in seg_times), default=0.0)
+
+    # the sections once more, on the final state
+    h_update, w_update, compute_loss = make_updates(cfg, aux or {})
+    trAtA, A_sec = operands
+    it = state.it
+
+    def best_of(fn, reps=3):
+        best, out = float("inf"), None
+        for _ in range(reps):
+            _wait(A.device)
+            t0 = time.perf_counter()
+            out = fn()
+            _wait(A.device)
+            best = min(best, time.perf_counter() - t0)
+        return best, out
+
+    t_h, _ = best_of(lambda: h_update(A_sec, state.W_T, state.H, state.d, it))
+    t_w, wout = best_of(lambda: w_update(A_sec, state.W_T, state.H, state.d,
+                                         it))
+    t_l, _ = best_of(lambda: compute_loss(trAtA, A_sec, state.W_T, state.H,
+                                          state.d, wout[3], wout[4]))
+    prof = {
+        "h_update": t_h * 1e3 * it,
+        "w_update": t_w * 1e3 * it,
+        "loss": t_l * 1e3 * it,
+        "fused_total_ms": fused_total_ms,
+        "fused_per_iter_us": per_iter_s * 1e6,
+        "iterations": it,
+        "mode": "fused-segmented",
+        "section_basis": "per-call best-of-3 at final state x iterations "
+                         "(the loop's sections overlap on the device; use "
+                         "torch.profiler for exact attribution)",
+    }
+    return finalize_result(cfg, state, extra={"profile": prof})
 
 
 # ---------------------------------------------------------------------------
@@ -234,7 +412,7 @@ def init_factors(cfg: NMFConfig, m: int, n: int,
         return W_T, H, d0
     if cfg.init_mode in (1, 2):
         raise unported("SVD-seeded init (seed='lanczos'/'irlba')",
-                       "Queue 1 item 4, after item 9")
+                       "Queue 1 item 9")
     W_T = rng_mod.fill_uniform(cfg.seed, k, m, dtype=dtype)
     H = rng_mod.fill_uniform(cfg.seed, k, n, offset=k * m, dtype=dtype)
     return W_T, H, d0
@@ -260,9 +438,19 @@ def fit_device(A, device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def device_matrix(A, dev: torch.device) -> torch.Tensor:
+    """``A`` as a float32 tensor on ``dev``; a host array becomes row-major
+    (a column-major one, as a densified CSC matrix is, would reach the
+    products as a transposed view, with another kernel and other rounding)."""
+    if isinstance(A, torch.Tensor):
+        return A.to(device=dev, dtype=torch.float32)
+    # a copy: the fit never writes A, but torch refuses read-only arrays
+    return torch.from_numpy(np.array(A, dtype=np.float32, order="C")).to(dev)
+
+
 def nmf_fit(A, cfg: NMFConfig, *, w_init=None, h_init=None,
             aux: Optional[dict] = None, device=None,
-            sparse_zeros: bool = False) -> NMFResult:
+            sparse_zeros: bool = False, on_iteration=None) -> NMFResult:
     """Fit NMF on a dense matrix.
 
     ``A``: an (m, n) numpy array or tensor, used as float32.  ``device``:
@@ -272,6 +460,9 @@ def nmf_fit(A, cfg: NMFConfig, *, w_init=None, h_init=None,
     ``graph_H``, ``target_H``/``target_W`` and their ``*_gram``).
     ``sparse_zeros``: the input was sparse; an IRLS fit then gives zeros unit
     weight and sums its loss over the nonzeros (an MSE fit ignores it).
+    ``on_iteration(iter, train_loss, nan)``: called after every iteration of
+    a dense MSE fit, which then runs in step mode (an IRLS fit does not call
+    it, here as in the JAX package; ``api.nmf`` refuses the combination).
     """
     cfg.validate()
     check_ported(cfg)
@@ -283,11 +474,7 @@ def nmf_fit(A, cfg: NMFConfig, *, w_init=None, h_init=None,
     # everything that needs no device is checked by now
     dev = fit_device(A, device)
     set_fp32_precision()
-    if isinstance(A, torch.Tensor):
-        A_dev = A.to(device=dev, dtype=torch.float32)
-    else:
-        # a copy: the fit never writes A, but torch refuses read-only arrays
-        A_dev = torch.from_numpy(np.array(A, dtype=np.float32)).to(dev)
+    A_dev = device_matrix(A, dev)
 
     W_T0, H0, d0 = init_factors(cfg, m, n, w_init=w_init, h_init=h_init)
     aux_dev = {key: torch.as_tensor(np.asarray(val, np.float32)
@@ -298,6 +485,17 @@ def nmf_fit(A, cfg: NMFConfig, *, w_init=None, h_init=None,
         from .nmf_irls import fit_irls
         return fit_irls(A_dev, cfg, W_T0, H0, d0, aux_dev,
                         sparse_zeros=sparse_zeros)
+    if cfg.fused_vmem:
+        if on_iteration is not None or cfg.enable_profiling:
+            raise ValueError("fused_vmem runs the whole fit in one device "
+                             "program — callbacks/profiling need the "
+                             "step-mode loop (drop the knob)")
+        return fit_fused_vmem(cfg, A_dev, W_T0, H0)
+    if on_iteration is not None:
+        return fit_stepwise(A_dev, cfg, W_T0, H0, d0, aux_dev,
+                            on_iteration=on_iteration)
+    if cfg.enable_profiling:
+        return fit_profiled(A_dev, cfg, W_T0, H0, d0, aux_dev)
     state = init_fit_state(cfg, W_T0, H0, d0, device=A_dev.device)
     return finalize_result(cfg, fit_mse(cfg, A_dev, state, aux_dev))
 

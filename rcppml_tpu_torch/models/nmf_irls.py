@@ -537,7 +537,7 @@ def fit_irls(A_dev: torch.Tensor, cfg: NMFConfig, W_T0, H0, d0, aux,
         raise unported("valid_dims (mesh padding)", "Queue 1 item 14")
     if cfg.enable_profiling:
         raise unported("profile=True (the segmented, timed IRLS loop)",
-                       "Queue 1 item 4")
+                       "Queue 1 item 6")
     aux_dev = {key: val for key, val in (aux or {}).items()
                if val is not None and not key.endswith("_gram")}
     init = _init_irls_state(A_dev, cfg, W_T0, H0, d0)

@@ -1,9 +1,10 @@
 """Build the package's CUDA kernels with ``nvcc`` and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C entry point.  It is compiled at
+Each ``csrc/<name>.cu`` exposes plain C entry points.  It is compiled at
 first use into ``rcppml_tpu_torch/_build/`` as a shared library whose file
-name carries a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  The build needs ``nvcc``
+name carries a hash of the source, of every header ``csrc/*.cuh`` (a source
+may include any of them: ``-I csrc``) and of the flags, so an edited source
+or header is rebuilt and an unchanged one is loaded as it is.  The build needs ``nvcc``
 (``$CUDA_HOME/bin/nvcc``, ``/usr/local/cuda/bin/nvcc`` or on ``PATH``) and
 raises if it is missing or the compile fails: there is no fallback.
 :func:`build_all` compiles every kernel at once, one ``nvcc`` process per
@@ -44,10 +45,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    """Where the library built from ``csrc/<name>.cu`` lives.  The name
+    hashes the source, every header of ``csrc`` (name and bytes, in sorted
+    order) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def kernel_names() -> list[str]:
@@ -74,7 +79,8 @@ def build_all(names=None) -> dict[str, tuple[Path, float]]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running[name] = (out, tmp, cmd, proc, time.perf_counter())

@@ -15,7 +15,9 @@ The port of ``rcppml_tpu/ops/linalg.py:35-174``:
 These are plain large products outside any TPU kernel, so they go to
 ``torch.matmul``.  Float32 products run in full float32 once
 :func:`rcppml_tpu_torch.device.set_fp32_precision` has been called, as every
-fit does.  The bf16 branch of ``rhs`` waits for ``bf16_data``.
+fit does.  With a bfloat16 A (``bf16_data``) ``rhs`` needs bfloat16 operands
+and a float32 sum, which ``torch.matmul`` does not give in one call; it goes
+through :mod:`.rhs_tall`, whose kernels read the bfloat16 A once.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 
 from .. import constants
 from ..config import Norm
+from .rhs_tall import rhs_tall, rhs_tall_t
 
 
 def gram(F: torch.Tensor) -> torch.Tensor:
@@ -34,7 +37,17 @@ def gram(F: torch.Tensor) -> torch.Tensor:
 
 
 def rhs(F: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
-    """B = F @ A (k x n), the product that reads A (primitives/cpu/rhs.hpp)."""
+    """B = F @ A (k x n), the product that reads A (primitives/cpu/rhs.hpp).
+
+    When A is stored as bfloat16 (the opt-in ``bf16_data`` path) the small
+    operand is rounded to bfloat16 too and the sum is float32, as
+    ``rcppml_tpu/ops/linalg.py::rhs`` does.  ``A`` is then either contiguous
+    or the transposed view of a contiguous matrix (the W update's ``A.T``),
+    which is read as it lies."""
+    if A.dtype == torch.bfloat16:
+        if not A.is_contiguous() and A.T.is_contiguous():
+            return rhs_tall_t(F, A.T)
+        return rhs_tall(F, A.contiguous())
     return F @ A
 
 

@@ -31,6 +31,8 @@ class NMFResult:
     pi_row: Optional[np.ndarray] = None             # ZI dropout probs per row
     pi_col: Optional[np.ndarray] = None             # ZI dropout probs per col
     misc: Dict[str, Any] = field(default_factory=dict)
+    # section -> milliseconds, from a profiled or step-mode fit
+    profile: Dict[str, Any] = field(default_factory=dict)
     row_names: Optional[np.ndarray] = None          # A's rownames -> W rows
     col_names: Optional[np.ndarray] = None          # A's colnames -> H cols
 

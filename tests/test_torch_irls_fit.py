@@ -311,10 +311,10 @@ def test_validation_errors_come_before_the_device(counts, monkeypatch):
 
 
 IRLS_UNPORTED = {
-    "profile": (dict(profile=True), "Queue 1 item 4"),
+    "profile": (dict(profile=True), "Queue 1 item 6"),
     "cv": (dict(test_fraction=0.1), "Queue 1 item 7"),
     "mask_zeros": (dict(mask="zeros"), "Queue 1 item 7"),
-    "on_iteration": (dict(on_iteration=lambda *a: None), "Queue 1 item 4"),
+    "on_iteration": (dict(on_iteration=lambda *a: None), "Queue 1 item 6"),
 }
 
 

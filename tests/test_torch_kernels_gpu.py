@@ -10,7 +10,13 @@ Parity contract: the two CD kernels round each operation as PyTorch's eager
 twins do (no FMA contraction, IEEE division), so their results are bitwise
 equal.  The fused weight + Gram + RHS kernel sums over m in another order
 than the twin's cuBLAS products, and is held within 1e-4 of the twin's
-largest entry; two launches on the same inputs are bitwise equal.
+largest entry; two launches on the same inputs are bitwise equal.  The two
+tall-skinny products sum in another order than cuBLAS and are held within
+1e-5 of the twin's largest entry; the whole-fit kernel within 1e-4 of its twin
+after one iteration in float32 (H also with bfloat16 data; W and d, which see
+H rounded to bfloat16, within 2^-7) and within 1e-3 in loss after twenty
+(1e-2 with bfloat16 data, whose rounding flips ALS amplifies at these small
+sizes).  All three repeat bit for bit.
 """
 
 import numpy as np
@@ -198,3 +204,164 @@ def test_kl_fit_launches_the_batched_kernel_once_per_inner_iteration(
     monkeypatch.setattr(solvers, "cd_nnls_batched", cdb.cd_nnls_batched_plain)
     plain = rtt.nmf(A, 8, loss="kl", maxit=4, tol=0, seed=1)
     np.testing.assert_array_equal(res.loss_history, plain.loss_history)
+
+
+# ---------------------------------------------------------------------------
+# Kernels 7, 8 (tall-skinny products) and 3 (whole-fit Newton-Schulz ALS)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("k,m,n", [
+    (1, 1001, 77), (20, 1001, 77), (50, 3867, 610), (128, 700, 333),
+    (150, 300, 260),                 # beyond 128 rows: a second pass
+    (20, 13714, 2638), (7, 31, 5000), (7, 5000, 31)])
+def test_rhs_tall_kernels_match_plain(cuda, k, m, n, dtype):
+    from rcppml_tpu_torch.ops import rhs_tall as rt_
+    rs = np.random.RandomState(k + m + n)
+    A = torch.from_numpy((rs.rand(m, n) * (rs.rand(m, n) < 0.2)).astype(
+        np.float32)).to(cuda).to(dtype)
+    F = torch.from_numpy(rs.rand(k, m).astype(np.float32)).to(cuda)
+    H = torch.from_numpy(rs.rand(k, n).astype(np.float32)).to(cuda)
+    before = rt_.rhs_tall.launches, rt_.rhs_tall_t.launches
+    fwd, fwd2 = rt_.rhs_tall(F, A), rt_.rhs_tall(F, A)
+    trp, trp2 = rt_.rhs_tall_t(H, A), rt_.rhs_tall_t(H, A)
+    torch.cuda.synchronize()
+    assert (rt_.rhs_tall.launches, rt_.rhs_tall_t.launches) == \
+        (before[0] + 2, before[1] + 2)
+    assert torch.equal(fwd, fwd2) and torch.equal(trp, trp2)
+    for out, plain in ((fwd, rt_.rhs_tall_plain(F, A)),
+                       (trp, rt_.rhs_tall_t_plain(H, A))):
+        assert out.shape == plain.shape and out.dtype == torch.float32
+        assert float((out - plain).abs().max()) <= \
+            1e-5 * float(plain.abs().max())
+
+
+def test_rhs_tall_refuses_a_strided_matrix(cuda):
+    from rcppml_tpu_torch.ops import rhs_tall as rt_
+    A = torch.ones(64, 40, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        rt_.rhs_tall(torch.ones(3, 40, device=cuda), A.T)
+
+
+def _fused_inputs(m, n, k, device):
+    from rcppml_tpu_torch import rng
+    from rcppml_tpu_torch.utils.simulate import simulate_nmf
+    A = simulate_nmf(m, n, min(k, 10), noise=0.5, dropout=0.5, seed=2)["A"]
+    return (torch.from_numpy(A).to(device),
+            torch.from_numpy(rng.fill_uniform(1, k, m)).to(device),
+            torch.from_numpy(rng.fill_uniform(1, k, n, offset=k * m)).to(
+                device))
+
+
+def _half_step_errors(fa, A, W0, H0, iters, **kw):
+    """The kernel's own trajectory, one iteration per call: H against the
+    twin's H update from the same W, then W_T, d and the loss against the
+    twin's W update from the kernel's H.  The largest error of each, as a
+    share of the twin's largest entry."""
+    bf16 = kw.get("a_bf16", False)
+    A_mm, trata = fa.widened(A, bf16), (A * A).sum()
+    l1_w, l1_h, l2_w, l2_h = (kw.get(key, 0.0) for key in
+                              ("l1_w", "l1_h", "l2_w", "l2_h"))
+    W, H = W0, H0
+    worst = dict(W=0.0, H=0.0, d=0.0, loss=0.0)
+    for _ in range(iters):
+        Wk, Hk, dk, lk = fa.fused_als(A, W, H, maxit=1, **kw)
+        Hp, _ = fa.h_update_plain(A_mm, W, fa.seed_inverse_plain(W, l2_h),
+                                  a_bf16=bf16, l1_h=l1_h, l2_h=l2_h)
+        Wp, dp, _, lp = fa.w_update_plain(
+            A_mm, Hk, fa.seed_inverse_plain(H, l2_w), trata, a_bf16=bf16,
+            l1_w=l1_w, l2_w=l2_w)
+        for name, out, plain in (("W", Wk, Wp), ("H", Hk, Hp), ("d", dk, dp),
+                                 ("loss", lk[0], lp)):
+            worst[name] = max(worst[name], float((out - plain).abs().max())
+                              / float(plain.abs().max()))
+        W, H = Wk, Hk
+    return worst
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pen", [False, True], ids=["plain", "L1L2"])
+@pytest.mark.parametrize("m,n,k", [
+    (256, 200, 6), (131, 77, 5), (1500, 900, 50), (400, 300, 128),
+    (64, 50, 1),
+    (300, 260, 138)])                # the largest k the gate admits
+def test_fused_als_kernel_matches_plain(cuda, m, n, k, pen, bf16):
+    from rcppml_tpu_torch.ops import fused_als as fa
+    A, W0, H0 = _fused_inputs(m, n, k, cuda)
+    kw = dict(a_bf16=bf16, **(dict(l1_w=0.01, l1_h=0.02, l2_w=0.05,
+                                   l2_h=0.03) if pen else {}))
+    before = fa.fused_als.launches, fa.fused_als.calls
+    one = fa.fused_als(A, W0, H0, maxit=1, **kw)
+    torch.cuda.synchronize()
+    assert fa.fused_als.launches == before[0] + fa.phase_count(1)
+    assert fa.fused_als.calls == before[1] + 1
+    one_plain = fa.fused_als_plain(A, W0, H0, maxit=1, **kw)
+    for name, out, plain in zip("WHd", one, one_plain):
+        if bf16 and name != "H":
+            # W and d come from H rounded to bfloat16, where a last-bit
+            # difference between the kernel's H and the twin's rounds the
+            # other way: the half steps below feed the twin the kernel's H
+            continue
+        assert float((out - plain).abs().max()) <= \
+            1e-4 * float(plain.abs().max()), name
+    # every half step of twenty iterations, float32 and bfloat16 alike
+    steps = _half_step_errors(fa, A, W0, H0, 20, **kw)
+    assert max(steps.values()) <= 1e-4, steps
+    many = fa.fused_als(A, W0, H0, maxit=20, **kw)
+    again = fa.fused_als(A, W0, H0, maxit=20, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(many, again))
+    plain = fa.fused_als_plain(A, W0, H0, maxit=20, **kw)
+    assert bool(torch.isfinite(many[3]).all())
+    # twenty iterations in one call against the twin's own trajectory.  So
+    # far above the data's rank (k > 128) the Gram is close to singular and
+    # the iterations grow the flipped bfloat16 roundings (4.7e-2 seen at
+    # k=138, where every half step above agrees to 1.1e-5)
+    rtol = 1e-3 if not bf16 else 1e-2 if k <= 128 else 1e-1
+    torch.testing.assert_close(many[3], plain[3], rtol=rtol, atol=0.0)
+
+
+def test_fused_vmem_fit_is_one_call_and_launches_no_other_kernel(cuda):
+    import rcppml_tpu_torch as rtt
+    from rcppml_tpu_torch.ops import cd_nnls, fused_als as fa, rhs_tall as rt_
+    from rcppml_tpu_torch.utils.simulate import simulate_nmf
+    A = simulate_nmf(400, 300, 8, noise=0.5, seed=1)["A"]
+    before = (fa.fused_als.launches, fa.fused_als.calls,
+              cd_nnls.cd_nnls_shared.launches, rt_.rhs_tall.launches)
+    kw = dict(fused_vmem=True, maxit=12, tol=0, seed=1)
+    res = rtt.nmf(A, 8, **kw)                 # a host array goes to the card
+    assert (fa.fused_als.launches, fa.fused_als.calls) == \
+        (before[0] + fa.phase_count(12), before[1] + 1)
+    assert cd_nnls.cd_nnls_shared.launches == before[2]
+    assert rt_.rhs_tall.launches == before[3]
+    assert res.iterations == 12 and res.converged is False
+    assert np.isfinite(res.loss_history).all()
+    assert res.loss_history[-1] < res.loss_history[0]
+    again = rtt.nmf(A, 8, **kw)
+    for f in ("W", "d", "H", "loss_history"):
+        np.testing.assert_array_equal(getattr(res, f), getattr(again, f))
+    on_cpu = rtt.nmf(A, 8, device="cpu", **kw)
+    np.testing.assert_allclose(res.loss_history, on_cpu.loss_history,
+                               rtol=1e-3)
+    with pytest.raises(ValueError, match="shared memory"):
+        rtt.nmf(np.ones((150, 145), np.float32), 140, fused_vmem=True, tol=0)
+
+
+def test_bf16_data_fit_launches_the_tall_products(cuda):
+    import rcppml_tpu_torch as rtt
+    from rcppml_tpu_torch.ops import rhs_tall as rt_
+    from rcppml_tpu_torch.utils.simulate import simulate_nmf
+    A = torch.from_numpy(simulate_nmf(400, 300, 8, noise=0.5,
+                                      seed=1)["A"]).to(cuda)
+    before = rt_.rhs_tall.launches, rt_.rhs_tall_t.launches
+    res = rtt.nmf(A, 8, bf16_data=True, maxit=6, tol=0, seed=1)
+    assert (rt_.rhs_tall.launches, rt_.rhs_tall_t.launches) == \
+        (before[0] + 6, before[1] + 6)
+    full = rtt.nmf(A, 8, maxit=6, tol=0, seed=1)
+    assert (rt_.rhs_tall.launches, rt_.rhs_tall_t.launches) == \
+        (before[0] + 6, before[1] + 6)           # float32 A: torch.matmul
+    np.testing.assert_allclose(res.loss_history, full.loss_history, rtol=2e-2)
+    on_cpu = rtt.nmf(A.cpu(), 8, bf16_data=True, maxit=6, tol=0, seed=1)
+    np.testing.assert_allclose(res.loss_history, on_cpu.loss_history,
+                               rtol=1e-2)

@@ -243,12 +243,9 @@ UNPORTED = {
     "mask_matrix": dict(mask=np.zeros((120, 90), bool)),
     "mask_zeros": dict(mask="zeros"),
     "sparse_zeros": dict(sparse=True),
-    "fused_vmem": dict(fused_vmem=True),
-    "bf16_data": dict(bf16_data=True),
-    "profile": dict(profile=True),
-    "on_iteration": dict(on_iteration=lambda *a: None),
+    "profile_irls": dict(profile=True, loss="kl"),
     "checkpoint": dict(checkpoint_path="fit.ckpt"),
-    "multi_restart": dict(seed=[1, 2]),
+    "multi_restart_checkpoint": dict(seed=[1, 2], checkpoint_path="fit.ckpt"),
     "svd_init": dict(seed="lanczos"),
     "streaming": dict(streaming=True),
     "mesh": dict(mesh=object()),
@@ -259,6 +256,141 @@ UNPORTED = {
 def test_unported_branch_raises(branch, data):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rtt.nmf(data, K, tol=0, device="cpu", **UNPORTED[branch])
+
+
+PORTED = {
+    "fused_vmem": dict(fused_vmem=True),
+    "bf16_data": dict(bf16_data=True),
+    "profile": dict(profile=True),
+    "on_iteration": dict(on_iteration=lambda *a: None),
+    "multi_restart": dict(seed=[1, 2]),
+}
+
+
+@pytest.mark.parametrize("branch", list(PORTED))
+def test_ported_branch_runs(branch, data):
+    """The branches that raised NotImplementedError before they were ported
+    now fit, with a finite falling loss of the asked length."""
+    res = rtt.nmf(data, K, tol=0, maxit=6, device="cpu", **PORTED[branch])
+    assert res.iterations == 6 and res.loss_history.shape == (6,)
+    assert np.isfinite(res.loss_history).all()
+    assert res.loss_history[-1] < res.loss_history[0]
+    assert res.W.shape == (120, K) and res.H.shape == (K, 90)
+
+
+# ---------------------------------------------------------------------------
+# Multi-restart, callbacks and the profiled fit
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kw", [dict(), dict(solver="cd"),
+                                dict(fused_vmem=True), dict(loss="kl")],
+                         ids=["cholesky", "cd", "fused_vmem", "kl"])
+def test_multi_restart_matches_reference(kw, data):
+    """The selected restart and every restart's loss are the JAX package's;
+    each restart equals its standalone fit."""
+    seeds = [1, 2, 3]
+    A = np.round(data * 3) if "loss" in kw else data
+    common = dict(maxit=8, tol=0, **kw)
+    ref = rt.nmf(A, K, seed=seeds, **common)
+    port = rtt.nmf(A, K, seed=seeds, device="cpu", **common)
+    ref_inits, inits = ref.misc["all_inits"], port.misc["all_inits"]
+    assert [r["init"] for r in inits] == [0, 1, 2]
+    assert [r["selected"] for r in inits] == [r["selected"] for r in ref_inits]
+    assert sum(r["selected"] for r in inits) == 1
+    trAtA = float((A.astype(np.float64) ** 2).sum())
+    for r, p in zip(ref_inits, inits):
+        assert abs(p["loss"] - r["loss"]) <= 2e-4 * abs(r["loss"]) \
+            + 10 * EPS32 * trAtA
+    best = [r["selected"] for r in inits].index(True)
+    assert inits[best]["loss"] == min(r["loss"] for r in inits)
+    assert port.misc["config"].seed == seeds[best]
+    alone = rtt.nmf(A, K, seed=seeds[best], device="cpu", **common)
+    np.testing.assert_array_equal(alone.loss_history, port.loss_history)
+    np.testing.assert_array_equal(alone.W, port.W)
+    _assert_loss_close(port.loss_history, ref.loss_history, A)
+    _assert_factors_close(port, ref)
+
+
+def test_multi_restart_with_extras_loops_over_nmf(data):
+    """Every keyword of ``nmf`` reaches each restart (here a callback), and
+    the selection is that of the same restarts without it."""
+    calls = []
+    res = rtt.nmf(data, K, seed=[1, 2], maxit=4, tol=0, device="cpu",
+                  on_iteration=lambda it, train, test: calls.append(it))
+    plain = rtt.nmf(data, K, seed=[1, 2], maxit=4, tol=0, device="cpu")
+    assert calls == [1, 2, 3, 4] * 2
+    assert [r["selected"] for r in res.misc["all_inits"]] == \
+        [r["selected"] for r in plain.misc["all_inits"]]
+    _assert_loss_close(res.loss_history, plain.loss_history, data)
+    with pytest.raises(ValueError, match="scalar integer k"):
+        rtt.nmf(data, [3, 4], seed=[1, 2], device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(solver="cd"),
+                                dict(bf16_data=True)],
+                         ids=["cholesky", "cd", "bf16_data"])
+def test_on_iteration_matches_reference(kw, data):
+    ref_calls, calls = [], []
+    ref = rt.nmf(data, K, seed=1, maxit=8, tol=0,
+                 on_iteration=lambda *a: ref_calls.append(a), **kw)
+    port = rtt.nmf(data, K, seed=1, maxit=8, tol=0, device="cpu",
+                   on_iteration=lambda *a: calls.append(a), **kw)
+    assert [c[0] for c in calls] == [c[0] for c in ref_calls] \
+        == list(range(1, 9))
+    assert all(np.isnan(c[2]) for c in calls)
+    rtol = 1e-2 if kw.get("bf16_data") else 1e-4
+    trAtA = float((data.astype(np.float64) ** 2).sum())
+    floor = (2.0 ** -8 if kw.get("bf16_data") else 10 * EPS32) * trAtA
+    for c, r in zip(calls, ref_calls):
+        assert abs(c[1] - r[1]) <= rtol * abs(r[1]) + floor
+    np.testing.assert_array_equal(port.loss_history,
+                                  np.float32([c[1] for c in calls]))
+    assert sorted(port.profile) == sorted(ref.profile) \
+        == ["h_update", "loss", "w_update"]
+    assert all(v > 0 for v in port.profile.values())
+    assert port.iterations == ref.iterations == 8
+    if not kw.get("bf16_data"):
+        # step mode is the loop, section by section: the same fit
+        loop = rtt.nmf(data, K, seed=1, maxit=8, tol=0, device="cpu", **kw)
+        np.testing.assert_array_equal(port.loss_history, loop.loss_history)
+        np.testing.assert_array_equal(port.W, loop.W)
+
+
+def test_on_iteration_stops_with_tol_like_the_loop(data):
+    calls = []
+    port = rtt.nmf(data, K, seed=3, maxit=200, tol=1e-3, device="cpu",
+                   on_iteration=lambda *a: calls.append(a[0]))
+    loop = rtt.nmf(data, K, seed=3, maxit=200, tol=1e-3, device="cpu")
+    ref = rt.nmf(data, K, seed=3, maxit=200, tol=1e-3,
+                 on_iteration=lambda *a: None)
+    assert port.converged and port.iterations == loop.iterations
+    assert abs(port.iterations - ref.iterations) <= 1
+    assert calls == list(range(1, port.iterations + 1))
+    assert port.final_tol < 1e-3
+
+
+@pytest.mark.parametrize("kw", [dict(maxit=20, tol=0),
+                                dict(maxit=200, tol=1e-3),
+                                dict(maxit=5, tol=0, solver="cd")],
+                         ids=["fixed", "converging", "short"])
+def test_profile_matches_reference(kw, data):
+    ref = rt.nmf(data, K, seed=1, profile=True, **kw)
+    port = rtt.nmf(data, K, seed=1, profile=True, device="cpu", **kw)
+    assert sorted(port.profile) == sorted(ref.profile)
+    assert port.profile["mode"] == ref.profile["mode"] == "fused-segmented"
+    assert port.profile["iterations"] == port.iterations
+    assert abs(port.iterations - ref.iterations) <= (1 if kw["tol"] else 0)
+    for key in ("h_update", "w_update", "loss", "fused_total_ms",
+                "fused_per_iter_us"):
+        assert port.profile[key] > 0
+    # the segmented loop is the production loop: bitwise the unprofiled fit
+    loop = rtt.nmf(data, K, seed=1, device="cpu", **kw)
+    assert loop.iterations == port.iterations
+    np.testing.assert_array_equal(loop.loss_history, port.loss_history)
+    np.testing.assert_array_equal(loop.W, port.W)
+    assert loop.profile == {}
+    if not kw["tol"]:
+        _assert_loss_close(port.loss_history, ref.loss_history, data)
 
 
 @pytest.mark.parametrize("args", [
