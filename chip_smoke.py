@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
 
-It builds the CUDA kernels from ``rcppml_tpu_torch/csrc`` (five sources, one
+It builds the CUDA kernels from ``rcppml_tpu_torch/csrc`` (seven sources, one
 ``nvcc`` each, started together), holds each against its plain PyTorch twin,
 drives the port's main paths through ``rcppml_tpu_torch.nmf`` on a matrix on
 the card, and times kernels, twins and fits with CUDA events:
@@ -22,7 +22,15 @@ the card, and times kernels, twins and fits with CUDA events:
     B = H A^T within 1e-5 of ``torch.matmul``, the whole-fit kernel within
     1e-4 of its twin after one iteration and within 1e-3 in loss after
     twenty, all three bitwise repeatable; and the default loop with
-    ``bf16_data=True``, multi-restart, callbacks and ``profile=True``.
+    ``bf16_data=True``, multi-restart, callbacks and ``profile=True``;
+  * cross-validated and masked fits at the pbmc3k shape (speckled holdout
+    at k=16 with both solvers and with the KL loss, a 10% mask at k=20,
+    ``mask="zeros"``, a masked fit at k=128), a rank sweep and ``k="auto"`` on
+    a planted-rank matrix: the per-column weighted Gram + RHS kernel within
+    2e-5 of its twin's largest entry, the Cholesky solve + clip kernel bit
+    for bit its twin and within 1e-4 of ``torch.linalg``, both bitwise
+    repeatable, and the holdout mask computed on the card bit for bit the
+    host's.
 
 Each phase prints its own lines and any failure raises, so the exit code is
 non-zero.  There is no CPU fallback: without a CUDA card of compute
@@ -119,6 +127,41 @@ CDB_CASES += [(16, 2638, 0.0, 0.0, True), (50, 610, 0.25, 0.0, True),
 WG_KINDS = [("kl", 0.0, None), ("power", 2.0, None), ("power", 3.0, None),
             ("power", 1.5, None), ("nb", 0.0, "row"), ("nb", 0.0, "col")]
 WG_SHAPES = [(13714, 2638), (2638, 13714), (3867, 610)]   # (m, bc), all ragged
+
+
+# per-column weighted Gram + RHS from given weights (kernel 5): (k, m, bc,
+# real-valued weights or 0/1, operands as column blocks of wider matrices).
+# k=128 at (13,714, 68) and (13,714, 54) are the blocks of the masked k=128
+# fit's H side.  Within this share of the twin's largest entry: both sum m
+# float32 products, the kernel in row order, cuBLAS in tiles
+WG5_RTOL = 2e-5
+WG5_CASES = [(128, 13714, 68, False, True), (128, 13714, 54, False, True),
+             (105, 13714, 83, True, False), (138, 2638, 33, True, True),
+             (5, 1001, 1, True, False), (16, 13714, 77, False, False),
+             (20, 2638, 1, False, True), (50, 3867, 610, True, False),
+             (200, 1001, 7, False, False), (13, 257, 40, True, True),
+             (1, 33, 3, True, False)]
+MASK_K128 = 128
+# Cholesky solve + clip (kernel 6) against its twin (units in the last
+# place: the kernel keeps the twin's order of operations with _rn
+# intrinsics) and against torch.linalg.cholesky + cholesky_solve + clamp on
+# well-conditioned systems (share of the largest entry)
+CHOL_KS = (2, 16, 20, 50, 64, 138, 200)
+CHOL_NS = (1, 610, 2638, 13714)
+CHOL_LINALG_RTOL = 1e-4
+CHOL_UB = 0.05
+# the holdout mask on the card against the host's: (seed, 1 / probability)
+HOLDOUT_CASES = [(s, p) for s in (0, 1, 2**31, 2**63 + 5) for p in (2, 10, 7)]
+HOLDOUT_SMALL = (1000, 700)
+# the cross-validated and masked fits
+CV_K, CV_FRACTION, MASK_K, MASK_SHARE = 16, 0.1, 20, 0.1   # BASELINE.md:14,16
+KL_CV_MAXIT, ZEROS_MAXIT, K128_MAXIT = 3, 5, 2
+# a planted-rank matrix for the sweep and the rank search
+PLANTED = dict(m=3000, n=400, k=8)
+SWEEP_KS, SWEEP_SEEDS = [4, 8, 16], [1, 2]
+# the gathered downdate against the weighted path: loss histories within
+# this (two roundings of the same per-column Grams)
+DOWNDATE_RTOL = 1e-3
 
 
 def wgram_cases():
@@ -257,6 +300,30 @@ def plain_cd_twin():
         yield
     finally:
         solvers.cd_nnls_shared, solvers.cd_nnls_batched = kernels
+
+
+@contextlib.contextmanager
+def linalg_cholesky_solve():
+    """Route the fit's shared-Gram Cholesky solve on the card to
+    ``torch.linalg.cholesky`` + ``cholesky_solve`` + clamps, the calls the
+    kernel replaced: a timing hook, used only to time the same fit through
+    the library's solve."""
+    from rcppml_tpu_torch.ops import solvers
+    kernel = solvers.cholesky_clip
+    solvers.cholesky_clip = linalg_cholesky_clip
+    try:
+        yield
+    finally:
+        solvers.cholesky_clip = kernel
+
+
+def linalg_cholesky_clip(G, B, *, nonneg=True, upper_bound=0.0):
+    X = torch.cholesky_solve(B, torch.linalg.cholesky(G))
+    if nonneg:
+        X = torch.clamp_min(X, 0.0)
+    if upper_bound > 0:
+        X = torch.clamp_max(X, upper_bound)
+    return X
 
 
 @contextlib.contextmanager
@@ -553,6 +620,194 @@ def check_fused_kernel(cells):
     return worst_abs, worst_rel
 
 
+
+@contextlib.contextmanager
+def counted_calls(owner, name):
+    """Count the calls of ``owner.name`` inside the block (``.calls`` of what
+    is yielded)."""
+    real = getattr(owner, name)
+
+    def counting(*args, **kwargs):
+        counting.calls += 1
+        return real(*args, **kwargs)
+
+    counting.calls = 0
+    setattr(owner, name, counting)
+    try:
+        yield counting
+    finally:
+        setattr(owner, name, real)
+
+
+def wg5_inputs(k, m, bc, real, strided, seed):
+    """Operands of one weighted Gram + RHS call: a sparse nonnegative factor,
+    0/1 train weights (a tenth held out) or real-valued ones, counts.  With
+    ``strided`` w and A are column blocks of matrices 40 columns wider, as a
+    fit passes them."""
+    rs = np.random.RandomState(seed)
+    F = (np.abs(rs.normal(size=(k, m))) * (rs.uniform(size=(k, m)) < 0.7)
+         ).astype(np.float32)
+    wide = bc + (40 if strided else 0)
+    w = (rs.uniform(0.0, 2.0, size=(m, wide)) if real
+         else rs.uniform(size=(m, wide)) >= 0.1).astype(np.float32)
+    A = rs.poisson(0.4, size=(m, wide)).astype(np.float32)
+    F, w, A = (torch.from_numpy(a).cuda() for a in (F, w, A))
+    lo = 17 if strided else 0
+    return F, w[:, lo:lo + bc], A[:, lo:lo + bc]
+
+
+def check_weighted_gram():
+    """Kernel 5 against its twin.  Returns the largest absolute and relative
+    error seen."""
+    from rcppml_tpu_torch.ops import weighted_gram as wg5
+    worst_abs = worst_rel = 0.0
+    for k, m, bc, real, strided in WG5_CASES:
+        F, w, A = wg5_inputs(k, m, bc, real, strided, seed=k * 1013 + bc)
+        Gb, b = wg5.weighted_gram(F, w, A)
+        Gb2, b2 = wg5.weighted_gram(F, w, A)
+        torch.cuda.synchronize()
+        check(torch.equal(Gb, Gb2) and torch.equal(b, b2),
+              "a second launch on the same inputs is bitwise equal")
+        Gp, bp = wg5.weighted_gram_plain(F, w, A)
+        check(bool(torch.isfinite(Gb).all() and torch.isfinite(b).all()),
+              "finite Gram and RHS")
+        # (F_a w) F_b and (F_b w) F_a round alike only for 0/1 weights
+        check(real or torch.equal(Gb, Gb.transpose(1, 2)),
+              "with 0/1 weights the two triangles of every Gram are equal")
+        eg, eb = float((Gb - Gp).abs().max()), float((b - bp).abs().max())
+        rg, rb = eg / float(Gp.abs().max()), eb / max(float(bp.abs().max()),
+                                                     1e-30)
+        worst_abs, worst_rel = max(worst_abs, eg, eb), max(worst_rel, rg, rb)
+        print(f"k={k:3d} m={m:5d} bc={bc:3d} "
+              f"{'real' if real else '0/1 '} weights"
+              f"{', column blocks of wider matrices' if strided else ''}: "
+              f"Gb off by {rg:.2e}, b by {rb:.2e} of the largest entry; "
+              f"bitwise repeatable", flush=True)
+        check(rg <= WG5_RTOL and rb <= WG5_RTOL,
+              f"kernel within {WG5_RTOL} of the twin at k={k} m={m} bc={bc}: "
+              f"{rg:.3g}, {rb:.3g}")
+        del F, w, A, Gb, b, Gb2, b2, Gp, bp
+    return worst_abs, worst_rel
+
+
+def chol_system(k, n, seed, rank=None):
+    """G = F F^T / p of a (k, p) Gaussian F with p = 4k (condition number
+    about 9), or of rank ``rank`` < k, and a Gaussian B (k, n)."""
+    rs = np.random.RandomState(seed)
+    p = 4 * k if rank is None else rank
+    F = rs.normal(size=(k, p)).astype(np.float32)
+    G = (F @ F.T / p).astype(np.float32)
+    B = rs.normal(size=(k, n)).astype(np.float32)
+    return torch.from_numpy(G).cuda(), torch.from_numpy(B).cuda()
+
+
+def check_cholesky_clip():
+    """Kernel 6 against its twin and against ``torch.linalg``.  Returns the
+    largest absolute and relative error against the twin and whether every
+    case was bitwise equal to it."""
+    from rcppml_tpu_torch.ops import cholesky_clip as cc
+    from rcppml_tpu_torch.ops import solvers
+    worst_abs = worst_rel = worst_lib = 0.0
+    all_equal = True
+    for k in CHOL_KS:
+        for n in CHOL_NS:
+            G, B = chol_system(k, n, seed=k * 7919 + n)
+            L = torch.linalg.cholesky(G)
+            for nonneg in (True, False):
+                for ub in (0.0, CHOL_UB):
+                    kw = dict(nonneg=nonneg, upper_bound=ub)
+                    out, again = cc.cholesky_clip(G, B, **kw), \
+                        cc.cholesky_clip(G, B, **kw)
+                    torch.cuda.synchronize()
+                    check(torch.equal(out, again), "a second launch on the "
+                          "same inputs is bitwise equal")
+                    check(bool(torch.isfinite(out).all()), "finite solution")
+                    plain = cc.cholesky_clip_plain(G, B, **kw)
+                    lib = torch.cholesky_solve(B, L)
+                    lib = lib.clamp_min(0.0) if nonneg else lib
+                    lib = lib.clamp_max(ub) if ub > 0 else lib
+                    scale = max(float(plain.abs().max()), 1e-30)
+                    err = float((out - plain).abs().max())
+                    err_lib = float((out - lib).abs().max()) / max(
+                        float(lib.abs().max()), 1e-30)
+                    all_equal &= torch.equal(out, plain)
+                    worst_abs = max(worst_abs, err)
+                    worst_rel = max(worst_rel, err / scale)
+                    worst_lib = max(worst_lib, err_lib)
+                    ulp = 0 if err == 0 else max_ulp(out, plain)
+                    check(ulp <= ULP_LIMIT,
+                          f"kernel within {ULP_LIMIT} ulp of the twin at "
+                          f"k={k} n={n} {kw}: {ulp}")
+                    check(err_lib <= CHOL_LINALG_RTOL,
+                          f"kernel within {CHOL_LINALG_RTOL} of torch.linalg "
+                          f"at k={k} n={n} {kw}: {err_lib:.3g}")
+            twin_note = ("bitwise equal to" if all_equal
+                         else f"within {worst_rel:.2e} of")
+            print(f"k={k:3d} n={n:5d}, nonneg and upper_bound on and off: "
+                  f"{twin_note} the twin so far, within {worst_lib:.2e} of "
+                  f"torch.linalg so far; bitwise repeatable", flush=True)
+    # a rank-deficient Gram through the fit's entry, which adds the ridge
+    for k, n in ((20, 2638), (64, 610)):
+        G, B = chol_system(k, n, seed=k + n, rank=k // 2)
+        out = solvers.cholesky_clip_batch(G, B)
+        plain = cc.cholesky_clip_plain(solvers._ridged(G), B)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), "finite solution of a "
+              "rank-deficient system with the ridge")
+        ulp = 0 if torch.equal(out, plain) else max_ulp(out, plain)
+        print(f"k={k} n={n}, G of rank {k // 2} with the trace-relative "
+              f"ridge: finite, within {ulp} ulp of the twin", flush=True)
+        check(ulp <= ULP_LIMIT, f"rank-deficient system within {ULP_LIMIT} "
+              f"ulp of the twin: {ulp}")
+    # a Gram that is not positive definite: floored pivots, nothing raised
+    out = cc.cholesky_clip(torch.zeros((8, 8), device="cuda"),
+                           torch.ones((8, 5), device="cuda"))
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()) and torch.equal(
+        out, cc.cholesky_clip_plain(torch.zeros((8, 8), device="cuda"),
+                                    torch.ones((8, 5), device="cuda"))),
+          "a zero Gram gives the twin's finite solution (pivots floored)")
+    print(f"largest error against the twin: {worst_rel:.3e} relative, "
+          f"{worst_abs:.3e} absolute; every case bitwise equal: {all_equal}",
+          flush=True)
+    return worst_abs, worst_rel, all_equal
+
+
+def check_holdout():
+    """The holdout mask computed on the card against the host's."""
+    from rcppml_tpu_torch import rng
+    for seed, inv_prob in HOLDOUT_CASES:
+        on_card = rng.is_holdout(seed, *HOLDOUT_SMALL, inv_prob, "cuda")
+        host = rng.holdout_mask(seed, *HOLDOUT_SMALL, inv_prob)
+        check(np.array_equal(on_card.cpu().numpy(), host),
+              f"holdout mask of seed {seed}, 1/{inv_prob}, on the card "
+              f"equals the host's")
+    m, n = PBMC["m"], PBMC["n"]
+    on_card = rng.is_holdout(1, m, n, 10, "cuda")
+    host = rng.holdout_mask(1, m, n, 10)
+    check(np.array_equal(on_card.cpu().numpy(), host),
+          f"the {m} x {n} holdout mask on the card equals the host's")
+    ms = cuda_ms(lambda: rng.is_holdout(1, m, n, 10, "cuda"))
+    print(f"{len(HOLDOUT_CASES)} (seed, probability) pairs at "
+          f"{HOLDOUT_SMALL} and seed 1, 1/10 at {m} x {n} "
+          f"({float(on_card.float().mean()):.4f} held out): bit for bit the "
+          f"host's; {ms:.3f} ms on the card", flush=True)
+
+
+def check_cv_histories(res, maxit, *, falling=True):
+    train = np.asarray(res.loss_history, np.float64)
+    test = np.asarray(res.test_loss_history, np.float64)
+    check(res.iterations == maxit and train.shape == test.shape == (maxit,)
+          and np.isfinite(train).all() and np.isfinite(test).all(),
+          f"finite train and test histories of {maxit}: {train}, {test}")
+    if falling:
+        check(train[-1] < train[0], f"train loss falls: {train}")
+    check(np.isfinite(res.W).all() and np.isfinite(res.H).all()
+          and np.isfinite(res.d).all() and (res.W >= 0).all()
+          and (res.H >= 0).all(), "finite nonnegative factors")
+    return train, test
+
+
 def profile_fits(rtt, card):
     """One run of each fit under ``torch.profiler``, after a warm-up."""
     from torch.autograd import DeviceType
@@ -560,6 +815,13 @@ def profile_fits(rtt, card):
     A_pb, (A_ct, _) = simulated(PBMC), pbmc_counts(KL_K)
     A_ml = simulated(MOVIELENS)
     A_nb, _ = pbmc_counts(NBZI_K, **NBZI_DATA)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    M_pb = torch.rand(A_pb.shape, device="cuda", generator=gen) < MASK_SHARE
+
+    def cv(**kw):
+        return rtt.nmf(A_pb, CV_K, test_fraction=CV_FRACTION, cv_seed=1,
+                       maxit=MAXIT, tol=0, cv_patience=MAXIT + 1, seed=1, **kw)
+
     fits = (("MSE CD k=20", lambda: mse_cd_fit(rtt, A_pb), False),
             (f"KL k={KL_K}", lambda: kl_fit(rtt, A_ct), False),
             (f"KL k={KL_K}, RCPPML_FUSED_WGRAM=1", lambda: kl_fit(rtt, A_ct),
@@ -572,7 +834,13 @@ def profile_fits(rtt, card):
                 A_pb, PBMC["k"], bf16_data=True, maxit=MAXIT, tol=0, seed=1),
              False),
             ("movielens MSE fused_vmem k=50",
-             lambda: fused_fit(rtt, A_ml, MOVIELENS), False))
+             lambda: fused_fit(rtt, A_ml, MOVIELENS), False),
+            ("MSE Cholesky k=20", lambda: rtt.nmf(
+                A_pb, PBMC["k"], maxit=MAXIT, tol=0, seed=1), False),
+            (f"CV k={CV_K} CD", lambda: cv(solver="cd"), False),
+            (f"CV k={CV_K} Cholesky per column", cv, False),
+            (f"masked k={MASK_K}", lambda: rtt.nmf(
+                A_pb, MASK_K, mask=M_pb, maxit=MAXIT, tol=0, seed=1), False))
     for label, fit, fused in fits:
         with fused_wgram() if fused else contextlib.nullcontext():
             fit()
@@ -608,15 +876,18 @@ def main():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
                          "runs only on the card")
     import rcppml_tpu_torch as rtt
+    from rcppml_tpu_torch.models import nmf_cv, nmf_irls
     from rcppml_tpu_torch.ops import (_build, cd_nnls, cd_nnls_batched,
-                                      fused_als, linalg, rhs_tall, solvers,
-                                      wgram)
+                                      cholesky_clip, fused_als, linalg,
+                                      rhs_tall, solvers, weighted_gram, wgram)
+    from rcppml_tpu_torch.utils.simulate import simulate_nmf
     cd_shared, cd_batched = cd_nnls.cd_nnls_shared, \
         cd_nnls_batched.cd_nnls_batched
     wg = wgram.weighted_gram_rhs
     fused, rhs_f, rhs_t = fused_als.fused_als, rhs_tall.rhs_tall, \
         rhs_tall.rhs_tall_t
-    counted = (cd_shared, cd_batched, wg, fused, rhs_f, rhs_t)
+    wg5, chol = weighted_gram.weighted_gram, cholesky_clip.cholesky_clip
+    counted = (cd_shared, cd_batched, wg, fused, rhs_f, rhs_t, wg5, chol)
 
     def reset_counts():
         for fn in counted:
@@ -644,8 +915,9 @@ def main():
     built = _build.build_all()
     check(sorted(built) == sorted([cd_nnls.KERNEL, cd_nnls_batched.KERNEL,
                                    wgram.KERNEL, fused_als.KERNEL,
-                                   rhs_tall.KERNEL]),
-          f"the five sources were built: {sorted(built)}")
+                                   rhs_tall.KERNEL, weighted_gram.KERNEL,
+                                   cholesky_clip.KERNEL]),
+          f"the seven sources were built: {sorted(built)}")
     for name, (path, seconds) in built.items():
         print(f"built {path.name} in {seconds:.2f} s", flush=True)
         # one line per distinct report: the product tiles are instantiated
@@ -654,7 +926,7 @@ def main():
                             path.with_suffix(".so.log").read_text().splitlines()
                             if "registers" in line}):
             print("  ptxas:", line, flush=True)
-    print(f"all five, side by side: {time.perf_counter() - t0:.2f} s",
+    print(f"all seven, side by side: {time.perf_counter() - t0:.2f} s",
           flush=True)
     if "--profile" in sys.argv[1:]:
         phase(f"profiles on {card}")
@@ -721,13 +993,21 @@ def main():
           f"var(A) {var:.6g}", flush=True)
 
     phase("5 MSE path, default solver (Cholesky)")
-    cd_shared.launches = 0
-    res_ch = rtt.nmf(A_pb, PBMC["k"], maxit=MAXIT, tol=0, seed=1)
+    reset_counts()
+    with counted_calls(torch.linalg, "cholesky") as linalg_cholesky:
+        res_ch = rtt.nmf(A_pb, PBMC["k"], maxit=MAXIT, tol=0, seed=1)
+    launches_chol = chol.launches
     check(res_ch.misc["config"].solver.name == "CHOLESKY",
           "auto selects Cholesky at k=20 without L1")
-    check(cd_shared.launches == 0, "the Cholesky fit launches no CD kernel")
+    check(launches_chol == 2 * MAXIT
+          and sum(fn.launches for fn in counted) == launches_chol,
+          f"{2 * MAXIT} launches of cholesky_clip and no other kernel: "
+          f"{launches_chol}")
+    check(linalg_cholesky.calls == 0,
+          "the Cholesky fit on the card calls no torch.linalg.cholesky")
     hist, mse, var = check_losses(res_ch, A_pb, monotone=True)
-    print(f"pbmc3k shape, k=20, Cholesky: 0 kernel launches; loss "
+    print(f"pbmc3k shape, k=20, Cholesky: {launches_chol} launches of "
+          f"cholesky_clip, no torch.linalg.cholesky; loss "
           f"{hist[0]:.6g} -> {hist[-1]:.6g}; mse {mse:.6g} < var(A) "
           f"{var:.6g}", flush=True)
 
@@ -980,9 +1260,11 @@ def main():
                      seed=1)
     launches_rhs, launches_rhs_t = rhs_f.launches, rhs_t.launches
     check(launches_rhs == MAXIT and launches_rhs_t == MAXIT
-          and sum(fn.launches for fn in counted) == 2 * MAXIT,
-          f"{MAXIT} launches each of rhs_tall and rhs_tall_t and no other: "
-          f"{launches_rhs}, {launches_rhs_t}")
+          and chol.launches == 2 * MAXIT
+          and sum(fn.launches for fn in counted) == 4 * MAXIT,
+          f"{MAXIT} launches each of rhs_tall and rhs_tall_t, {2 * MAXIT} of "
+          f"cholesky_clip and no other: {launches_rhs}, {launches_rhs_t}, "
+          f"{chol.launches}")
     hist, mse, var = check_losses(res_bf, A_pb, monotone=False)
     off = float(np.abs(hist / np.asarray(res_ch.loss_history, np.float64)
                        - 1).max())
@@ -1033,7 +1315,243 @@ def main():
              if isinstance(v, float)}
     print(f"pbmc3k k=20 profile=True: {timed}", flush=True)
 
-    phase(f"12 times (CUDA events, median of {REPS} after a warm-up) on "
+    phase("12 per-column weighted Gram + RHS kernel against its plain twin "
+          f"(within {WG5_RTOL} of the twin's largest entry)")
+    err_wg5, rel_wg5 = check_weighted_gram()
+    print(f"largest error: {rel_wg5:.3e} relative, {err_wg5:.3e} absolute",
+          flush=True)
+
+    phase("13 Cholesky solve + clip kernel against its plain twin (within "
+          f"{ULP_LIMIT} ulp) and torch.linalg (within {CHOL_LINALG_RTOL} of "
+          f"the largest entry)")
+    err_chol, rel_chol, _ = check_cholesky_clip()
+
+    phase("14 the holdout mask on the card against the host's")
+    check_holdout()
+
+    phase("15 cross-validated and masked fits at the pbmc3k shape, rank "
+          "sweep and rank search")
+    m_pb, n_pb = PBMC["m"], PBMC["n"]
+
+    def column_blocks(k, rows, cols):
+        """Column blocks of one side's masked solve: ``cols`` columns
+        against a (k, rows) factor."""
+        bc = nmf_irls._block_count(cols, k, rows,
+                                   kr=nmf_irls._use_kr(k, rows))
+        return -(-cols // bc)
+
+    def cv_fit(A, maxit=MAXIT, k=CV_K, **kw):
+        return rtt.nmf(A, k, test_fraction=CV_FRACTION, cv_seed=1,
+                       maxit=maxit, tol=0, cv_patience=maxit + 1, seed=1,
+                       **kw)
+
+    def same_fit(a, b):
+        return same_factors(a, b) and np.array_equal(
+            a.loss_history, b.loss_history) and np.array_equal(
+            a.test_loss_history, b.test_loss_history)
+
+    # (i) speckled CV, k=16, CD solver: kernel 2 once per column block
+    reset_counts()
+    res_cv_cd = cv_fit(A_pb, solver="cd")
+    launches_cv_batched = cd_batched.launches
+    blocks = column_blocks(CV_K, m_pb, n_pb) + column_blocks(CV_K, n_pb, m_pb)
+    train, test = check_cv_histories(res_cv_cd, MAXIT)
+    check(launches_cv_batched == blocks * MAXIT
+          and sum(fn.launches for fn in counted) == launches_cv_batched,
+          f"{blocks * MAXIT} launches of cd_nnls_batched and no other "
+          f"kernel: {launches_cv_batched}")
+    check(res_cv_cd.misc["host_syncs"] == MAXIT,
+          f"one host read per iteration: {res_cv_cd.misc['host_syncs']}")
+    check(same_fit(cv_fit(A_pb, solver="cd"), res_cv_cd),
+          "the same seeds give bitwise equal factors and histories")
+    print(f"(i) CV k={CV_K}, test_fraction={CV_FRACTION}, CD, {MAXIT} "
+          f"iterations: {launches_cv_batched} launches of cd_nnls_batched, "
+          f"{res_cv_cd.misc['host_syncs']} host syncs; train "
+          f"{train[0]:.6g} -> {train[-1]:.6g}, test {test[0]:.6g} -> "
+          f"{test[-1]:.6g}, best test {res_cv_cd.misc['best_test_loss']:.6g} "
+          f"at iteration {res_cv_cd.best_iter}; bitwise repeatable",
+          flush=True)
+
+    # (ii) the same with the default solver: per-column Cholesky, no kernel
+    reset_counts()
+    res_cv = cv_fit(A_pb)
+    train, test = check_cv_histories(res_cv, MAXIT)
+    check(res_cv.misc["config"].solver.name == "CHOLESKY"
+          and sum(fn.launches for fn in counted) == 0,
+          "the Cholesky-mode CV fit launches no kernel (batched_spd_solve)")
+    check(same_fit(cv_fit(A_pb), res_cv),
+          "the same seeds give bitwise equal factors and histories")
+    print(f"(ii) CV k={CV_K}, default solver (Cholesky per column, plain "
+          f"PyTorch): train {train[0]:.6g} -> {train[-1]:.6g}, test "
+          f"{test[0]:.6g} -> {test[-1]:.6g}, best test "
+          f"{res_cv.misc['best_test_loss']:.6g} at iteration "
+          f"{res_cv.best_iter}; bitwise repeatable", flush=True)
+
+    # (iii) a seeded 10% mask, k=20; the masked entries are the test set
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    M_pb = torch.rand(A_pb.shape, device="cuda", generator=gen) < MASK_SHARE
+
+    def mask_fit(k=MASK_K, maxit=MAXIT):
+        return rtt.nmf(A_pb, k, mask=M_pb, maxit=maxit, tol=0, seed=1)
+
+    res_mask = mask_fit()
+    train, test = check_cv_histories(res_mask, MAXIT)
+    check(res_mask.misc["host_syncs"] == 0,
+          "a masked fit with tol=0 reads nothing on the host")
+    print(f"(iii) masked k={MASK_K}, {float(M_pb.float().mean()):.4f} of "
+          f"the entries masked: train {train[0]:.6g} -> {train[-1]:.6g}, "
+          f"loss on the masked entries {test[0]:.6g} -> {test[-1]:.6g}",
+          flush=True)
+
+    # (iv) mask="zeros": only the nonzeros are fitted
+    def zeros_fit():
+        return rtt.nmf(A_pb, MASK_K, mask="zeros", maxit=ZEROS_MAXIT, tol=0,
+                       seed=1)
+
+    res_zeros = zeros_fit()
+    train, test = check_cv_histories(res_zeros, ZEROS_MAXIT, falling=False)
+    print(f"(iv) mask=\"zeros\" k={MASK_K}, {ZEROS_MAXIT} iterations, "
+          f"{float((A_pb == 0).float().mean()):.4f} of the entries masked: "
+          f"train {train[0]:.6g} -> {train[-1]:.6g}, loss on the zeros "
+          f"{test[0]:.6g} -> {test[-1]:.6g}", flush=True)
+
+    # (v) KL under CV: the IRLS solves with the holdout weights
+    def kl_cv_fit():
+        return rtt.nmf(A_ct, CV_K, loss="kl", test_fraction=CV_FRACTION,
+                       cv_seed=1, maxit=KL_CV_MAXIT, tol=0,
+                       cv_patience=KL_CV_MAXIT + 1, seed=1)
+
+    reset_counts()
+    res_kl_cv = kl_cv_fit()
+    train, test = check_cv_histories(res_kl_cv, KL_CV_MAXIT, falling=False)
+    check(cd_batched.launches == res_kl_cv.misc["irls_inner_iterations"] > 0
+          and sum(fn.launches for fn in counted) == cd_batched.launches,
+          "one cd_nnls_batched launch per inner iteration and no other")
+    print(f"(v) KL CV k={CV_K}, {KL_CV_MAXIT} iterations: "
+          f"{cd_batched.launches} launches of cd_nnls_batched; train "
+          f"{train[0]:.6g} -> {train[-1]:.6g}, test {test[0]:.6g} -> "
+          f"{test[-1]:.6g}", flush=True)
+
+    # (vi) masked, k=128: the H side's Khatri-Rao operand does not fit, so
+    # its weighted Grams come from kernel 5; the W side's fits
+    check(not nmf_irls._use_kr(MASK_K128, m_pb)
+          and nmf_irls._use_kr(MASK_K128, n_pb),
+          f"at k={MASK_K128} the Khatri-Rao operand fits on the W side only")
+    reset_counts()
+    with counted_calls(linalg, "kr_product") as kr_calls:
+        res_128 = mask_fit(MASK_K128, K128_MAXIT)
+    launches_wg5 = wg5.launches
+    blocks_h = column_blocks(MASK_K128, m_pb, n_pb)
+    train, test = check_cv_histories(res_128, K128_MAXIT)
+    check(launches_wg5 == blocks_h * K128_MAXIT
+          and sum(fn.launches for fn in counted) == launches_wg5,
+          f"{blocks_h} column blocks x {K128_MAXIT} iterations of "
+          f"weighted_gram and no other kernel: {launches_wg5}")
+    check(kr_calls.calls == K128_MAXIT,
+          f"the Khatri-Rao product served the W side, once per iteration: "
+          f"{kr_calls.calls}")
+    print(f"(vi) masked k={MASK_K128}, {K128_MAXIT} iterations: "
+          f"{launches_wg5} launches of weighted_gram ({blocks_h} column "
+          f"blocks an iteration on the H side), {kr_calls.calls} Khatri-Rao "
+          f"products (W side); train {train[0]:.6g} -> {train[-1]:.6g}",
+          flush=True)
+
+    # (vii) a sweep and the rank search on a planted-rank matrix
+    A_pl = torch.from_numpy(simulate_nmf(
+        PLANTED["m"], PLANTED["n"], PLANTED["k"], noise=0.5,
+        seed=5)["A"]).cuda()
+
+    def sweep():
+        return rtt.nmf(A_pl, SWEEP_KS, test_fraction=CV_FRACTION,
+                       cv_seed=SWEEP_SEEDS, maxit=30)
+
+    rows = sweep()
+    check([(r["k"], r["rep"]) for r in rows] == [
+        (k, rep + 1) for rep in range(len(SWEEP_SEEDS)) for k in SWEEP_KS]
+        and all(np.isfinite(r["test_mse"]) and np.isfinite(r["train_mse"])
+                for r in rows), f"one finite row per rank and seed: {rows}")
+    mean_test = {k: float(np.mean([r["test_mse"] for r in rows
+                                   if r["k"] == k])) for k in SWEEP_KS}
+    check(min(mean_test, key=mean_test.get) == PLANTED["k"],
+          f"the test loss is lowest at the planted rank: {mean_test}")
+    print(f"(vii) sweep k={SWEEP_KS} x cv_seed={SWEEP_SEEDS} on a planted "
+          f"rank-{PLANTED['k']} {tuple(A_pl.shape)} matrix: mean test loss "
+          f"{ {k: round(v, 6) for k, v in mean_test.items()} }", flush=True)
+
+    def auto_fit():
+        return rtt.nmf(A_pl, "auto", cv_k_range=(2, 24), criterion="test",
+                       maxit=30, seed=1)
+
+    reset_counts()
+    with counted_calls(torch.linalg, "cholesky") as linalg_cholesky:
+        res_auto = auto_fit()
+    search = res_auto.misc["rank_search"]
+    check(res_auto.k == search["k_optimal"]
+          and abs(res_auto.k - PLANTED["k"]) <= 1,
+          f"the rank search finds the planted rank: {search}")
+    check(chol.launches == 2 * res_auto.iterations > 0
+          and linalg_cholesky.calls == 0 and cd_batched.launches > 0,
+          f"the rank-search fits ran through cd_nnls_batched and the refit "
+          f"through cholesky_clip on the card: {chol.launches}, "
+          f"{res_auto.iterations}")
+    print(f"       k=\"auto\": ranks tried "
+          f"{[e['rank'] for e in search['evaluations']]}, k_optimal "
+          f"{search['k_optimal']}; {cd_batched.launches} launches of "
+          f"cd_nnls_batched in the search, {chol.launches} of cholesky_clip "
+          f"in the refit of {res_auto.iterations} iterations", flush=True)
+
+    # (viii) held-out entries do not move the factors; card against CPU
+    from rcppml_tpu_torch import rng as port_rng
+    small = A_pb[:SMALL[0], :SMALL[1]].contiguous()
+    held = torch.from_numpy(port_rng.holdout_mask(
+        1, *SMALL, int(1.0 / CV_FRACTION))).cuda()
+    moved = torch.where(held, small + 5.0, small)
+    for label, kw in (("CD", dict(solver="cd")), ("Cholesky", dict())):
+        on_card, other = cv_fit(small, **kw), cv_fit(moved, **kw)
+        check(same_factors(on_card, other) and np.array_equal(
+            on_card.loss_history, other.loss_history)
+            and not np.array_equal(on_card.test_loss_history,
+                                   other.test_loss_history),
+            f"{label}: changing A at the held-out entries changes the test "
+            f"loss and nothing else, bit for bit")
+        on_cpu = cv_fit(small.cpu(), **kw)
+        off = max(float(np.abs(np.asarray(getattr(on_card, h))
+                               / np.asarray(getattr(on_cpu, h)) - 1).max())
+                  for h in ("loss_history", "test_loss_history"))
+        far = max(float(np.abs(getattr(on_card, f) - getattr(on_cpu, f)).max()
+                        / np.abs(getattr(on_cpu, f)).max()) for f in "WdH")
+        print(f"(viii) CV k={CV_K} {label} at {SMALL}: held-out entries do "
+              f"not move W, d, H; card against CPU: train and test "
+              f"histories within {off:.2e}, W, d, H within {far:.2e} of "
+              f"their largest entry", flush=True)
+        check(off <= SMALL_RTOL and far <= SMALL_FACTOR_TOL,
+              f"CV {label} on the card agrees with the CPU fit: {off}, {far}")
+
+    # (ix) the gathered downdate against the weighted path
+    cfg_cv = rtt.build_config(CV_K, test_fraction=CV_FRACTION, cv_seed=1,
+                              maxit=MAXIT, tol=0, cv_patience=MAXIT + 1,
+                              seed=1)
+
+    def downdate_fit(use):
+        return nmf_cv.fit_cv_or_masked(A_pb, cfg_cv, use_downdate=use)
+
+    res_dd = downdate_fit(True)
+    check_cv_histories(res_dd, MAXIT)
+    check(same_factors(downdate_fit(False), res_cv),
+          "fit_cv_or_masked without the downdate is the fit of (ii)")
+    off = float(np.abs(np.asarray(res_dd.loss_history, np.float64)
+                       / np.asarray(res_cv.loss_history, np.float64)
+                       - 1).max())
+    off_test = float(np.abs(np.asarray(res_dd.test_loss_history, np.float64)
+                            / np.asarray(res_cv.test_loss_history,
+                                         np.float64) - 1).max())
+    print(f"(ix) use_downdate=True against the weighted path of (ii): "
+          f"train history within {off:.2e}, test history within "
+          f"{off_test:.2e}", flush=True)
+    check(off <= DOWNDATE_RTOL, f"the downdate's train history within "
+          f"{DOWNDATE_RTOL} of the weighted path's: {off}")
+
+    phase(f"16 times (CUDA events, median of {REPS} after a warm-up) on "
           f"{card}")
 
     def factors(res):
@@ -1174,6 +1692,59 @@ def main():
             times[f"{name} {label}"] = (ms, lib_ms, bound, by)
         del A16
 
+    # kernel 5 at the blocks of the masked k=128 fit's H side
+    for bc in (68, 54):
+        F, w, A_blk = wg5_inputs(MASK_K128, m_pb, bc, False, True, seed=bc)
+        k, m = F.shape
+        ms = cuda_ms(lambda: wg5(F, w, A_blk))
+        plain_ms = cuda_ms(lambda: weighted_gram.weighted_gram_plain(
+            F, w, A_blk))
+        # per entry of the block: the k (k + 1) / 2 distinct entries of a
+        # symmetric Gram, and b (k)
+        bound, by = bound_ms(4 * (k * m + 2 * m * bc + bc * k * k + k * bc),
+                             2 * m * bc * (k * (k + 1) // 2 + k))
+        print(f"weighted Gram + RHS k={k} m={m} bc={bc}: kernel {ms:.4f} ms, "
+              f"plain twin (the library calls it replaces: a batched product "
+              f"over a (bc, k, m) intermediate and a product) "
+              f"{plain_ms:.4f} ms, bound {bound:.5f} ms by {by}  [{card}]",
+              flush=True)
+        times[f"wg5 bc={bc}"] = (ms, plain_ms, bound, by, plain_ms)
+        del F, w, A_blk
+
+    # kernel 6 at the solves of the Cholesky fit: device time from a replayed
+    # CUDA graph, the time per eager call, the twin, and the calls it
+    # replaced (torch.linalg.cholesky reads its status on the host, so it
+    # cannot be captured: eager calls, back to back)
+    for label, side in (("(20, 2638) H side", "H"),
+                        ("(20, 13714) W side", "W")):
+        W_T, H = factors(res_ch)
+        F, data = (W_T, A_pb) if side == "H" else (H, A_pb.T)
+        G, B = solvers._ridged(linalg.gram(F)), linalg.rhs(F, data)
+        k, n = B.shape
+        ms = graph_ms(lambda: chol(G, B))
+        eager_ms = batch_ms(lambda: chol(G, B))
+        plain_ms = cuda_ms(lambda: cholesky_clip.cholesky_clip_plain(G, B))
+        lib_ms = batch_ms(lambda: linalg_cholesky_clip(G, B))
+        bound, by = bound_ms(4 * (k * k + 2 * k * n),
+                             k ** 3 // 3 + 2 * k * k * n)
+        print(f"cholesky_clip {label}: kernel {ms:.4f} ms (per eager call "
+              f"{eager_ms:.4f} ms), plain twin {plain_ms:.4f} ms, "
+              f"torch.linalg.cholesky + cholesky_solve + clamp per eager "
+              f"call {lib_ms:.4f} ms, bound {bound:.5f} ms by {by}  [{card}]",
+              flush=True)
+        times["chol " + label] = (ms, plain_ms, bound, by, lib_ms)
+
+    # the per-column Cholesky of the CV fit's H side (plain PyTorch, 3k
+    # steps of several launches each)
+    W_T, H = factors(res_cv)
+    Gb_cv, b_cv = linalg.weighted_gram_and_rhs(
+        W_T, (~M_pb).float(), A_pb)
+    Gb_cv = nmf_cv._rank_ridge(Gb_cv, torch.eye(CV_K, device="cuda"))
+    print(f"batched_spd_solve ({n_pb}, {CV_K}, {CV_K}): "
+          f"{cuda_ms(lambda: solvers.batched_spd_solve(Gb_cv, b_cv)):.3f} ms "
+          f"[{card}]", flush=True)
+    del Gb_cv, b_cv
+
     def fused_flops(m, n, k, maxit, ns_steps=7):
         """Operations of the whole fit, (with A, without A).  With A: the
         two products per iteration, float32 or bfloat16 as A is.  Without:
@@ -1256,6 +1827,37 @@ def main():
                   f"{cuda_ms(lambda: fused_fit(rtt, A, shape), reps=3):.3f} "
                   f"ms  [{card}]", flush=True)
 
+    with linalg_cholesky_solve():
+        print(f"fit pbmc3k k=20 MSE Cholesky through torch.linalg.cholesky "
+              f"+ cholesky_solve (the solve before cholesky_clip), {MAXIT} "
+              f"iterations: "
+              f"{cuda_ms(lambda: rtt.nmf(A_pb, PBMC['k'], maxit=MAXIT, tol=0, seed=1)):.3f}"
+              f" ms  [{card}]", flush=True)
+    cv_fits = (
+        (f"(i) pbmc3k CV k={CV_K} CD, {MAXIT} iterations",
+         lambda: cv_fit(A_pb, solver="cd"), REPS),
+        (f"(ii) pbmc3k CV k={CV_K} Cholesky per column, {MAXIT} iterations",
+         lambda: cv_fit(A_pb), REPS),
+        (f"(iii) pbmc3k masked k={MASK_K}, {MAXIT} iterations", mask_fit,
+         REPS),
+        (f"(iv) pbmc3k mask=zeros k={MASK_K}, {ZEROS_MAXIT} iterations",
+         zeros_fit, REPS),
+        (f"(v) pbmc3k counts KL CV k={CV_K}, {KL_CV_MAXIT} iterations",
+         kl_cv_fit, REPS),
+        (f"(vi) pbmc3k masked k={MASK_K128}, {K128_MAXIT} iterations (one "
+         f"run)", lambda: mask_fit(MASK_K128, K128_MAXIT), 1),
+        (f"(vii) planted sweep k={SWEEP_KS} x {len(SWEEP_SEEDS)} seeds",
+         sweep, 3),
+        ("(vii) planted k=auto with refit (one run)", auto_fit, 1),
+        (f"(ix) pbmc3k CV k={CV_K} use_downdate=True, {MAXIT} iterations",
+         lambda: downdate_fit(True), REPS),
+        (f"(ix) pbmc3k CV k={CV_K} use_downdate=False, {MAXIT} iterations",
+         lambda: downdate_fit(False), REPS))
+    for label, fit, reps in cv_fits:
+        print(f"fit {label}: {cuda_ms(fit, reps=reps, warmup=reps > 1):.3f} "
+              f"ms, peak {peak_mib(fit) if reps > 1 else float('nan'):.0f} "
+              f"MiB  [{card}]", flush=True)
+
     def entry(name, source, replaces, launches, err, rel, key,
               library=False, file="pallas_kernels.py"):
         """``max_rel_err``: the largest error over the twin's largest entry
@@ -1263,15 +1865,20 @@ def main():
         large where its relative error is 1e-5).  ``library``: the plain
         twin is one PyTorch call (``torch.matmul``) computing the same
         function; no single call computes a CD NNLS solve, the weight, Gram
-        and RHS together, or a whole fit."""
-        ms, plain_ms, bound, by = times[key]
+        and RHS together, or a whole fit.  A fifth number in ``times[key]``
+        is the time of the PyTorch calls the kernel replaced."""
+        ms, plain_ms, bound, by, *lib_ms = times[key]
+        if lib_ms:
+            library_ms = lib_ms[0]
+        else:
+            library_ms = plain_ms if library else None
         return {"name": name, "route": "cuda",
                 "source": f"rcppml_tpu_torch/csrc/{source}",
                 "replaces": f"rcppml_tpu/ops/{file}:{replaces}",
                 "launches": launches, "max_abs_err": err,
                 "max_rel_err": rel, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                "library_ms": plain_ms if library else None}
+                "library_ms": library_ms}
 
     print(json.dumps({"kernels": [
         entry("cd_nnls_shared", "cd_nnls_shared.cu", 154, launches_shared,
@@ -1291,6 +1898,13 @@ def main():
               file="pallas_experiments.py"),
         entry("rhs_tall_t", "rhs_tall.cu", 365, launches_rhs_t,
               *errs_rhs["rhs_tall_t"], "rhs_tall_t pbmc3k k=20", library=True,
+              file="pallas_experiments.py"),
+        # the masked k=128 fit's H side
+        entry("weighted_gram", "weighted_gram.cu", 29, launches_wg5, err_wg5,
+              rel_wg5, "wg5 bc=68", file="pallas_experiments.py"),
+        # the default (Cholesky) MSE fit
+        entry("cholesky_clip", "cholesky_clip.cu", 188, launches_chol,
+              err_chol, rel_chol, "chol (20, 2638) H side",
               file="pallas_experiments.py"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

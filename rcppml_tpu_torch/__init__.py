@@ -13,23 +13,32 @@ carries:
   * on dense MSE fits, the opt-in whole-fit Newton-Schulz ALS
     (``fused_vmem=True``), bfloat16 data (``bf16_data=True``), multi-restart
     (``seed=[...]``), per-iteration callbacks (``on_iteration=``) and the
-    profiled fit (``profile=True``).
+    profiled fit (``profile=True``);
+  * speckled cross-validation (``test_fraction=``, ``cv_seed=``,
+    ``cv_patience=``, row and column subsampling), masked fits (``mask=`` a
+    boolean matrix, ``"zeros"`` or ``"NA"``; ``sparse=True``; NaN entries),
+    both with every loss above, rank sweeps (``k=[...]``) and the rank search
+    (``k="auto"``).
 
-Six kernels written for Hopper run on a CUDA tensor, each with a plain
+Eight kernels written for Hopper run on a CUDA tensor, each with a plain
 PyTorch twin that runs on a CPU tensor: the shared-Gram CD NNLS solve
 (``csrc/cd_nnls_shared.cu``), the CD NNLS solve with one Gram per column that
-every IRLS inner iteration calls (``csrc/cd_nnls_batched.cu``), the fused
-IRLS weight + weighted Gram + RHS (``csrc/wgram_rhs.cu``), used when
-``RCPPML_FUSED_WGRAM`` is set in the environment, the whole-fit
-Newton-Schulz ALS (``csrc/fused_als.cu``), and the two products that read A
-once, B = F A and B = H A^T (``csrc/rhs_tall.cu``), which the whole-fit
-kernel contains and the default loop calls when A is bfloat16.
+every IRLS inner iteration and every CD-mode masked solve calls
+(``csrc/cd_nnls_batched.cu``), the fused IRLS weight + weighted Gram + RHS
+(``csrc/wgram_rhs.cu``), used when ``RCPPML_FUSED_WGRAM`` is set in the
+environment, the whole-fit Newton-Schulz ALS (``csrc/fused_als.cu``), the two
+products that read A once, B = F A and B = H A^T (``csrc/rhs_tall.cu``), which
+the whole-fit kernel contains and the default loop calls when A is bfloat16,
+the per-column weighted Gram + RHS from given weights
+(``csrc/weighted_gram.cu``), which the masked and IRLS solves call when k^2 m
+is too large for the Khatri-Rao product, and the shared-Gram Cholesky solve +
+clip (``csrc/cholesky_clip.cu``), the solve of every default MSE fit.
 
 Entry points run on the CUDA card unless the caller asks for ``device="cpu"``
 or passes a CPU tensor.  Still raising ``NotImplementedError`` with their
-ROADMAP.md item: cross-validation and masks, rank sweeps, ``profile=True``
-and callbacks with an IRLS loss, checkpoints, SVD-seeded init, streaming, multi-modal input
-and meshes.
+ROADMAP.md item: ``profile=True`` with an IRLS loss, callbacks with an IRLS
+loss, cross-validation or a mask, checkpoints, SVD-seeded init, streaming,
+multi-modal input and meshes.
 
 It imports ``torch`` and never ``jax``; kernels are built with ``nvcc`` at
 first use, never at import.

@@ -5,6 +5,13 @@ dense) or a 2-D tensor and returns an :class:`NMFResult`.  The fit runs on
 the CUDA card unless the caller passes ``device="cpu"`` or a CPU tensor.
 :func:`build_config` is the JAX package's, whole.
 
+Cross-validation and masks: ``test_fraction=`` holds out a speckled set and
+reports train and test loss per iteration; ``mask=`` (a boolean matrix,
+``"zeros"`` or ``"NA"``), ``sparse=True`` and NaN entries (masked with a
+warning) fit on the observed entries only.  ``k=[...]`` sweeps the ranks
+under cross-validation and returns one row per rank and ``cv_seed``;
+``k="auto"`` searches the rank and refits there.
+
 Losses: ``mse`` (Cholesky or CD solver) and, through the IRLS path with the
 CD solver, ``kl``, ``gp``, ``nb``, ``gamma``, ``inverse_gaussian``,
 ``tweedie``, ``huber``, ``mae`` and ``robust=`` on any of them, with
@@ -20,15 +27,18 @@ iteration, step mode) and ``profile=True`` (``res.profile``).
 
 Branches of the JAX API that are not ported yet raise
 ``NotImplementedError`` naming their ROADMAP.md item; none of them falls back
-silently: cross-validation, masks and NaN auto-masking, rank sweeps and
-``k="auto"``, ``profile=True`` and ``on_iteration`` with an IRLS loss,
-``checkpoint_path``, SVD-seeded init, ``.spz`` paths and streaming,
-multi-modal input and ``mesh=``.
+silently: ``profile=True`` with an IRLS loss, ``on_iteration`` with an IRLS
+loss, cross-validation or a mask, ``checkpoint_path``, SVD-seeded init,
+``.spz`` paths and streaming, multi-modal input and ``mesh=``.  A
+cross-validated or masked fit accepts ``profile=True`` and times no section,
+as in the JAX package.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Union
+
+import warnings
 
 import numpy as np
 import torch
@@ -59,9 +69,10 @@ def _is_sparse(data) -> bool:
     return sp.issparse(data)
 
 
-def _to_dense_f32(data):
+def _to_dense_f32(data, allow_nan: bool = False):
     """Return a dense float32 (m, n): numpy and scipy.sparse inputs become a
-    host array (NaN and Inf rejected), a tensor stays on its device."""
+    host array (Inf rejected, and NaN unless ``allow_nan``), a tensor stays
+    on its device."""
     if isinstance(data, torch.Tensor):
         if data.ndim != 2:
             raise ValueError("data must be a 2-D matrix")
@@ -72,13 +83,70 @@ def _to_dense_f32(data):
         arr = np.asarray(data, dtype=np.float32)
     if arr.ndim != 2:
         raise ValueError("data must be a 2-D matrix")
-    if np.isnan(arr).any():
-        # the JAX package masks NaN entries; masked fits are not ported
-        raise unported("NaN entries (auto-masked fits)", "Queue 1 item 7")
+    if not allow_nan and np.isnan(arr).any():
+        raise ValueError("data contains NaN/NA values; impute or mask them "
+                         "(use mask= for missing-value factorization)")
     if np.isinf(arr).any():
         raise ValueError("data contains infinite values; clip or remove "
                          "them before factorization")
     return arr
+
+
+def _resolve_mask(A, mask):
+    """NA handling + string masks, matching the reference gateway:
+
+    - ``mask="zeros"`` -> treat zeros as missing (returned as the
+      mask_zeros flag; R/nmf_thin.R mask= string form)
+    - ``mask="NA"`` -> mask the NaN entries
+    - NaN present with no mask -> warn "Detected N NA values" and mask
+      them (tests/testthat/test_masking.R:240-262)
+    - NaN outside an explicit matrix mask -> error
+
+    Returns (A, mask_or_None, mask_zeros_flag); NaN entries are zero-filled
+    so that no NaN reaches the device.  A tensor input is assumed NaN-free
+    (no scan), as the JAX package assumes of a device array.
+    """
+    if isinstance(mask, str):
+        key = mask.strip().lower()
+        if key == "zeros":
+            return A, None, True
+        if key != "na":
+            raise ValueError(f"mask={mask!r}: use 'zeros', 'NA', or a "
+                             "boolean matrix")
+        mask = None
+        explicit_na = True
+    else:
+        explicit_na = False
+    if isinstance(A, torch.Tensor):
+        if explicit_na:
+            raise ValueError("mask='NA' requires a host array (tensor "
+                             "inputs are assumed NaN-free)")
+        return A, mask, False
+    nan_mask = np.isnan(A)
+    n_nan = int(nan_mask.sum())
+    if n_nan == 0:
+        return A, mask, False
+    A = np.where(nan_mask, np.float32(0), A)
+    if mask is None:
+        if not explicit_na:
+            warnings.warn(f"Detected {n_nan} NA values in data; treating "
+                          "them as masked (missing)")
+        return A, nan_mask, False
+    mask = _host_mask(mask)
+    if (nan_mask & ~mask).any():
+        raise ValueError("data contains NaN entries outside the supplied "
+                         "mask; mask them or impute")
+    return A, mask, False
+
+
+def _host_mask(mask) -> np.ndarray:
+    """A user mask (array, scipy sparse matrix or tensor) as a host bool
+    array."""
+    if isinstance(mask, torch.Tensor):
+        return mask.detach().cpu().numpy().astype(bool)
+    if _is_sparse(mask):
+        return np.asarray(mask.todense()).astype(bool)
+    return np.asarray(mask, dtype=bool)
 
 
 def build_config(
@@ -285,8 +353,9 @@ def _multi_restart(data, k, seeds, kwargs, rest):
     structural."""
     row_names, col_names, data = _extract_dimnames(data)
     if isinstance(data, np.ndarray):
-        A = _to_dense_f32(data)
-        data = device_matrix(A, fit_device(A, rest["device"]))
+        A = _to_dense_f32(data, allow_nan=True)
+        if not np.isnan(A).any():       # NaN data is masked by each nmf()
+            data = device_matrix(A, fit_device(A, rest["device"]))
     runs = [nmf(data, k, **rest, **{**kwargs, "seed": s}) for s in seeds]
     losses = [float(r.train_loss) for r in runs]
     best_ix = int(np.nanargmin(losses))
@@ -305,13 +374,21 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
     """Fit A ~ W diag(d) H.  The main entry point (R/nmf_thin.R:219).
 
     ``data``: numpy array, scipy sparse matrix or 2-D tensor.  ``k``: an
-    int.  ``device``: where the fit runs; by default a tensor's own device,
-    and the CUDA card for a host array (numpy, scipy sparse, DataFrame).
-    Without a card that raises a ``RuntimeError``; pass ``device="cpu"`` to
-    fit on the CPU.  ``seed=[...]`` fits once per seed and returns the
-    restart with the best train loss (``misc["all_inits"]`` lists them all).
+    int; a list of ints (a cross-validated sweep: one row per rank and
+    ``cv_seed`` entry is returned, not a fit); or ``"auto"`` (the rank search
+    of ``models.rank_cv.find_optimal_rank``, with ``cv_k_range=(lo, hi)``,
+    then a refit at the rank found).  ``mask``: a boolean matrix (True =
+    missing), ``"zeros"`` or ``"NA"``; ``sparse=True`` is ``mask="zeros"``.
+    NaN entries of a host array are masked, with a warning unless a mask
+    covers them.  ``device``: where the fit runs; by default a tensor's own
+    device, and the CUDA card for a host array (numpy, scipy sparse,
+    DataFrame).  Without a card that raises a ``RuntimeError``; pass
+    ``device="cpu"`` to fit on the CPU.  ``seed=[...]`` fits once per seed
+    and returns the restart with the best train loss
+    (``misc["all_inits"]`` lists them all).
     ``on_iteration(iter, train_loss, nan)`` is called after every iteration
-    of a dense MSE fit (with an IRLS loss it raises).  Other keywords are
+    of a dense MSE fit (with an IRLS loss, cross-validation or a mask it
+    raises).  Other keywords are
     those of :func:`build_config`.
     """
     if isinstance(data, (list, tuple, dict)) and not _is_sparse(data):
@@ -340,11 +417,15 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
                  on_iteration=on_iteration, mesh=mesh,
                  checkpoint_path=checkpoint_path,
                  checkpoint_every=checkpoint_every, device=device))
-    if isinstance(k, str) or not np.isscalar(k):
-        raise unported(f"k={k!r} (rank sweep / auto-rank)", "Queue 1 item 7")
-    if mask is not None or kwargs.get("sparse") or kwargs.get("mask_zeros"):
-        raise unported("masks (mask=, sparse=True, mask_zeros=True)",
-                       "Queue 1 item 7")
+    if isinstance(k, str) and k != "auto":
+        raise ValueError(f"k={k!r}: use an int, a list of ints or 'auto'")
+    if isinstance(mask, str) and mask.strip().lower() == "zeros":
+        # R string form mask="zeros" == mask_zeros=True (R/nmf_thin.R)
+        mask = None
+        kwargs.setdefault("mask_zeros", True)
+    if kwargs.pop("sparse", False):
+        # R sparse=TRUE: treat zeros as missing (R/parse_dots.R:65)
+        kwargs.setdefault("mask_zeros", True)
     if isinstance(data, str) or streaming:
         raise unported(".spz files, file paths and streaming=True",
                        "Queue 1 item 11")
@@ -355,20 +436,51 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
 
     row_names, col_names, data = _extract_dimnames(data)
     sparse_input = _is_sparse(data)
-    A = _to_dense_f32(data)
+    A = _to_dense_f32(data, allow_nan=True)
+    A, mask, mask_zeros = _resolve_mask(A, mask)
+    if mask_zeros:
+        kwargs.setdefault("mask_zeros", True)
     if kwargs.get("symmetric") and A.shape[0] != A.shape[1]:
         raise ValueError(f"symmetric NMF requires a square matrix, got "
                          f"{A.shape[0]} x {A.shape[1]}")
+    if kwargs.get("mask_zeros") and not float(kwargs.get("test_fraction", 0)):
+        # non-CV mask="zeros": zeros are missing, an exact masked fit where
+        # zero entries leave Gram and RHS.  Under speckled CV the flag
+        # instead restricts the holdout to nonzeros (models/nmf_cv.py).
+        if isinstance(A, torch.Tensor):
+            zm = A == 0
+            if mask is not None:
+                zm = zm | torch.from_numpy(_host_mask(mask)).to(A.device)
+            mask = zm
+        else:
+            zm = A == 0
+            mask = zm if mask is None else (_host_mask(mask) | zm)
+
+    # multi-rank CV sweep / auto-rank dispatch (R/nmf_thin.R:922-1094)
+    if isinstance(k, str):
+        from .models.rank_cv import find_optimal_rank
+        if "cv_k_range" in kwargs:      # R cv_k_range = c(lo, hi)
+            lo, hi = kwargs.pop("cv_k_range")
+            kwargs.setdefault("k_init", int(lo))
+            kwargs.setdefault("max_k", int(hi))
+        return find_optimal_rank(A, mask=mask, device=device, **kwargs)
+    if not np.isscalar(k):
+        from .models.nmf_cv import cv_sweep
+        return cv_sweep(A, list(k), mask=mask, device=device, **kwargs)
+
     cfg = build_config(int(k),
+                       has_mask=mask is not None,
                        has_graph_W=graph_W is not None,
                        has_graph_H=graph_H is not None,
                        has_target_H=target_H is not None,
                        has_target_W=target_W is not None,
                        **kwargs)
 
-    if on_iteration is not None and cfg.requires_irls():
+    masked = cfg.is_cv() or mask is not None
+    if on_iteration is not None and (cfg.requires_irls() or masked):
         # the JAX package accepts the callback there and never calls it
-        raise unported("on_iteration with an IRLS loss", "Queue 1 item 6")
+        raise unported("on_iteration with an IRLS loss, cross-validation "
+                       "or a mask", "Queue 1 item 6")
 
     aux = {}
     if graph_W is not None:
@@ -387,9 +499,15 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
     if cfg.verbose:
         print(f"[nmf] {A.shape[0]} x {A.shape[1]}  k={cfg.rank}  "
               f"loss={cfg.loss.value}  solver={cfg.solver.name.lower()}")
-    res = nmf_fit(A, cfg, w_init=w_init, h_init=h_init, aux=aux,
-                  device=device, sparse_zeros=sparse_input,
-                  on_iteration=on_iteration)
+    if masked:
+        from .models.nmf_cv import fit_cv_or_masked
+        res = fit_cv_or_masked(A, cfg, mask=mask, aux=aux, w_init=w_init,
+                               h_init=h_init, sparse_zeros=sparse_input,
+                               device=device)
+    else:
+        res = nmf_fit(A, cfg, w_init=w_init, h_init=h_init, aux=aux,
+                      device=device, sparse_zeros=sparse_input,
+                      on_iteration=on_iteration)
     res.misc["config"] = cfg
     res.row_names, res.col_names = row_names, col_names
     if cfg.verbose:

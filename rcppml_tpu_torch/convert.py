@@ -15,6 +15,7 @@ import torch
 
 from . import config as cfg_mod
 from .models.nmf import FitState, init_fit_state
+from .models.nmf_cv import CVState
 from .models.nmf_irls import IRLSState
 
 
@@ -71,10 +72,56 @@ def irls_state_from_numpy(W_T, H, d, *, disp_row, disp_col, pi_row, pi_col,
         final_tol=base.final_tol, loss_hist=base.loss_hist)
 
 
+def cv_state_from_numpy(W_T, H, d, *, disp_row, disp_col, pi_row, pi_col,
+                        device, max_iter: int, it: int = 0, A_imp=None,
+                        prev_conv_loss=None, patience_ctr: int = 0,
+                        train_hist=None, test_hist=None, best_test_loss=None,
+                        best_iter: int = 0) -> CVState:
+    """The numpy fields of the JAX package's ``CVState`` (W_T (k, m),
+    H (k, n), d (k,), the dispersion vectors, the ZI dropouts, and, for a
+    state from the middle of a fit, the loss histories and counters) as the
+    port's loop state after ``it`` iterations, on ``device``, with room for
+    ``max_iter`` losses.  With the defaults it is the state before the first
+    iteration, so one iteration of both loops can start from the same
+    factors.  ``A_imp``: the (m, n) imputed matrix of a ZI fit."""
+    f32 = torch.float32
+    fmax = float(torch.finfo(f32).max)
+
+    def dev(x):
+        return torch.from_numpy(np.array(x, np.float32, order="C")).to(device)
+
+    def scalar(v, dtype=f32):
+        return torch.tensor(v, dtype=dtype, device=device)
+
+    def hist(h):
+        out = torch.full((max_iter,), float("nan"), dtype=f32, device=device)
+        if h is not None:
+            h = np.asarray(h, np.float32)[:max_iter]
+            out[:len(h)] = torch.from_numpy(np.array(h)).to(device)
+        return out
+
+    return CVState(
+        W_T=dev(W_T), H=dev(H), d=dev(d), disp_row=dev(disp_row),
+        disp_col=dev(disp_col), it=int(it),
+        prev_conv_loss=scalar(fmax if prev_conv_loss is None
+                              else float(prev_conv_loss)),
+        patience_ctr=scalar(int(patience_ctr), torch.int32),
+        converged=scalar(False, torch.bool),
+        final_tol=scalar(float("nan")),
+        train_hist=hist(train_hist), test_hist=hist(test_hist),
+        best_test_loss=scalar(fmax if best_test_loss is None
+                              else float(best_test_loss)),
+        best_iter=scalar(int(best_iter), torch.int32),
+        pi_row=dev(pi_row), pi_col=dev(pi_col),
+        A_imp=None if A_imp is None else dev(A_imp))
+
+
 def result_to_numpy(res) -> dict:
     """A result of either package as plain numpy arrays and scalars:
-    W, d, H, loss_history, iterations, converged, train_loss, and the IRLS
-    fit's theta, dispersion, pi_row, pi_col (None where not estimated)."""
+    W, d, H, loss_history, iterations, converged, train_loss, the IRLS
+    fit's theta, dispersion, pi_row, pi_col (None where not estimated), and
+    the cross-validated fit's test_loss, test_loss_history, best_iter and
+    best_test_loss (None where the fit had no holdout)."""
     def arr(x):
         return None if x is None else np.asarray(x)
 
@@ -83,5 +130,9 @@ def result_to_numpy(res) -> dict:
             "iterations": int(res.iterations),
             "converged": bool(res.converged),
             "train_loss": float(res.train_loss),
+            "test_loss": float(res.test_loss),
+            "test_loss_history": arr(res.test_loss_history),
+            "best_iter": int(res.best_iter),
+            "best_test_loss": res.misc.get("best_test_loss"),
             "theta": arr(res.theta), "dispersion": arr(res.dispersion),
             "pi_row": arr(res.pi_row), "pi_col": arr(res.pi_col)}

@@ -26,16 +26,13 @@
 //
 // Design.  The TPU grid's sequential m dimension becomes a loop over m-tiles
 // inside the block, so every output is summed by one thread in one fixed
-// order: no atomics, the same inputs give the same bits.  A block owns 32
-// columns and 8 rows k1 of every column's Gram; grid = (ceil(bc / 32),
-// ceil(k / 8), ceil(k / 64)).  Each block recomputes mu and w for its column
-// tile (k / 8 times the weight arithmetic over the grid, against k^2 / 8
-// multiply-adds per element for the Gram rows it owns).  A thread
-// (tx, ty, tz) owns column tx, the 8 Gram columns k2 = 8 * ty .. 8 * ty + 7
-// (plus 64 * blockIdx.z: only k > 64 needs a second slab of Gram columns)
-// and the 4 Gram rows k1 = 8 * blockIdx.y + 4 * tz .. + 3: 32 accumulators in
-// registers, fed by four shared-memory loads per m-row (w, one float4 of F at
-// k1, two float4 of F at k2).  The threads that own k2 = 0 also carry b.
+// order: no atomics, the same inputs give the same bits.  The tiling, the
+// accumulation and the store are wgram_tile.cuh's, shared with
+// weighted_gram.cu: a block owns 32 columns and 8 rows k1 of every column's
+// Gram; grid = (ceil(bc / 32), ceil(k / 8), ceil(k / 64)).  Each block
+// recomputes mu and w for its column tile (k / 8 times the weight arithmetic
+// over the grid, against k^2 / 8 multiply-adds per element for the Gram rows
+// it owns).
 //
 // Bound on the H100: float32 multiply-adds outside the tensor cores.  The
 // function needs 2 * m * bc * (k (k + 1) / 2 + 2k) operations (mu, the
@@ -45,18 +42,11 @@
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "wgram_tile.cuh"
 
-constexpr int kTileJ = 32;   // columns per block (one warp wide)
-constexpr int kTileM = 32;   // rows of A per step of the m loop
-constexpr int kRowsPerBlock = 8;
-constexpr int kRowsPerThread = 4;
-constexpr int kColsPerThread = 8;
-// 32 * 8 * 2 = 512 threads at most: at about 75 registers a thread, 1024
-// threads would pass the 65,536 registers of an SM and the launch be refused
-constexpr int kMaxThreadsY = 8;
-constexpr int kMaxThreads =
-    kTileJ * kMaxThreadsY * (kRowsPerBlock / kRowsPerThread);
+using namespace wgram_tile;
+
+namespace {
 
 enum LossKind { kKl = 0, kPower = 1, kNb = 2 };
 enum ThetaMode { kThetaNone = 0, kThetaRow = 1, kThetaCol = 2 };
@@ -90,50 +80,33 @@ wgram_rhs_kernel(const float* __restrict__ F, const float* __restrict__ X,
                  int bc, int kp, int loss_kind, float power, int sparse_zeros,
                  int theta_mode, float w_cap) {
   extern __shared__ __align__(16) float smem[];
-  const int fs = kp + 4;
+  const int fs = f_stride(kp);
   float* Fs = smem;
   float* Xs = Fs + kTileM * fs;
   float* Ws = Xs + kp * kTileJ;
   float* WAs = Ws + kTileM * kTileJ;
 
-  const int tx = threadIdx.x, ty = threadIdx.y, tz = threadIdx.z;
-  const int nthreads = blockDim.x * blockDim.y * blockDim.z;
-  const int tid = (tz * blockDim.y + ty) * blockDim.x + tx;
-  const int j0 = blockIdx.x * kTileJ;
-  const int k1_0 = blockIdx.y * kRowsPerBlock + tz * kRowsPerThread;
-  const int k2_0 = (blockIdx.z * kMaxThreadsY + ty) * kColsPerThread;
-  const bool owns_b = k2_0 == 0;
-  const size_t sm = static_cast<size_t>(m);
+  const Owner o = owner();
   const size_t sbc = static_cast<size_t>(bc);
 
   // X tile, zero beyond k and beyond bc
-  for (int idx = tid; idx < kp * kTileJ; idx += nthreads) {
+  for (int idx = o.tid; idx < kp * kTileJ; idx += o.nthreads) {
     const int c = idx / kTileJ, jj = idx % kTileJ;
-    const int j = j0 + jj;
+    const int j = o.j0 + jj;
     Xs[idx] = (c < k && j < bc) ? X[c * sbc + j] : 0.f;
   }
 
-  float acc[kRowsPerThread][kColsPerThread];
-  float bacc[kRowsPerThread];
-#pragma unroll
-  for (int a = 0; a < kRowsPerThread; ++a) {
-    bacc[a] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kColsPerThread; ++c) acc[a][c] = 0.f;
-  }
+  Acc acc;
+  clear(acc);
 
   for (int r0 = 0; r0 < m; r0 += kTileM) {
     __syncthreads();  // the previous step's readers are done (and Xs is set)
-    // F tile: Fs[r][c] = F[c, r0 + r]; consecutive threads, consecutive r
-    for (int idx = tid; idx < kp * kTileM; idx += nthreads) {
-      const int c = idx / kTileM, r = idx % kTileM;
-      Fs[r * fs + c] = (c < k && r0 + r < m) ? F[c * sm + r0 + r] : 0.f;
-    }
+    load_f_tile(F, Fs, k, kp, m, r0, o);
     __syncthreads();
     // mu, w and w * a for the (kTileM, kTileJ) tile
-    for (int idx = tid; idx < kTileM * kTileJ; idx += nthreads) {
+    for (int idx = o.tid; idx < kTileM * kTileJ; idx += o.nthreads) {
       const int r = idx / kTileJ, jj = idx % kTileJ;
-      const int row = r0 + r, j = j0 + jj;
+      const int row = r0 + r, j = o.j0 + jj;
       float w = 0.f, wa = 0.f;
       if (row < m && j < bc) {
         float mu = 0.f;
@@ -158,49 +131,9 @@ wgram_rhs_kernel(const float* __restrict__ F, const float* __restrict__ X,
       WAs[idx] = wa;
     }
     __syncthreads();
-    // accumulate this tile into the thread's Gram entries (and b)
-    if (k1_0 < k && k2_0 < k) {
-#pragma unroll 4
-      for (int r = 0; r < kTileM; ++r) {
-        const float w = Ws[r * kTileJ + tx];
-        const float4 f1 = *reinterpret_cast<const float4*>(Fs + r * fs + k1_0);
-        const float4 fa = *reinterpret_cast<const float4*>(Fs + r * fs + k2_0);
-        const float4 fb =
-            *reinterpret_cast<const float4*>(Fs + r * fs + k2_0 + 4);
-        const float f1v[kRowsPerThread] = {f1.x, f1.y, f1.z, f1.w};
-        const float f2v[kColsPerThread] = {fa.x, fa.y, fa.z, fa.w,
-                                           fb.x, fb.y, fb.z, fb.w};
-#pragma unroll
-        for (int a = 0; a < kRowsPerThread; ++a) {
-          const float fw = f1v[a] * w;
-#pragma unroll
-          for (int c = 0; c < kColsPerThread; ++c)
-            acc[a][c] = fmaf(fw, f2v[c], acc[a][c]);
-        }
-        if (owns_b) {
-          const float wa = WAs[r * kTileJ + tx];
-#pragma unroll
-          for (int a = 0; a < kRowsPerThread; ++a)
-            bacc[a] = fmaf(f1v[a], wa, bacc[a]);
-        }
-      }
-    }
+    accumulate_tile(Fs, Ws, WAs, k, kp, o, acc);
   }
-
-  const int j = j0 + tx;
-  if (j >= bc) return;
-  const size_t sk = static_cast<size_t>(k);
-#pragma unroll
-  for (int a = 0; a < kRowsPerThread; ++a) {
-    const int k1 = k1_0 + a;
-    if (k1 >= k) continue;
-#pragma unroll
-    for (int c = 0; c < kColsPerThread; ++c) {
-      const int k2 = k2_0 + c;
-      if (k2 < k) Gb[(j * sk + k1) * sk + k2] = acc[a][c];
-    }
-    if (owns_b) b[k1 * sbc + j] = bacc[a];
-  }
+  store_tile(Gb, b, k, bc, o, acc);
 }
 
 }  // namespace
@@ -218,10 +151,10 @@ extern "C" int wgram_rhs_launch(const float* F, const float* X, const float* A,
   if (loss_kind < kKl || loss_kind > kNb) return static_cast<int>(cudaErrorInvalidValue);
   if (loss_kind == kNb && (theta_mode == kThetaNone || theta == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int kp = (k + kColsPerThread - 1) / kColsPerThread * kColsPerThread;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(kTileM) * (kp + 4) +
-                                       static_cast<size_t>(kp) * kTileJ +
-                                       2u * kTileM * kTileJ);
+  const int kp = padded_k(k);
+  const size_t smem =
+      sizeof(float) * (static_cast<size_t>(kTileM) * f_stride(kp) +
+                       static_cast<size_t>(kp) * kTileJ + 2u * kTileM * kTileJ);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -236,13 +169,8 @@ extern "C" int wgram_rhs_launch(const float* F, const float* X, const float* A,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const int chunks = kp / kColsPerThread;
-  const int ny = chunks < kMaxThreadsY ? chunks : kMaxThreadsY;
-  const dim3 block(kTileJ, ny, kRowsPerBlock / kRowsPerThread);
-  const dim3 grid((bc + kTileJ - 1) / kTileJ,
-                  (k + kRowsPerBlock - 1) / kRowsPerBlock,
-                  (chunks + kMaxThreadsY - 1) / kMaxThreadsY);
-  wgram_rhs_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+  wgram_rhs_kernel<<<grid_shape(k, bc, kp), block_shape(kp), smem,
+                     static_cast<cudaStream_t>(stream)>>>(
       F, X, A, theta, Gb, b, k, m, bc, kp, loss_kind, power, sparse_zeros,
       theta_mode, w_cap);
   return static_cast<int>(cudaGetLastError());

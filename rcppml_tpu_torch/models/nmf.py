@@ -59,10 +59,9 @@ def unported(what: str, item: str) -> NotImplementedError:
 
 def check_ported(cfg: NMFConfig) -> None:
     """Raise NotImplementedError for the config branches not ported yet:
-    cross-validation and masks, and SVD-seeded init.  (``profile=True`` with
-    an IRLS loss raises in ``nmf_irls.fit_irls``.)"""
-    if cfg.is_cv() or cfg.has_mask or cfg.mask_zeros:
-        raise unported("cross-validation and masked fits", "Queue 1 item 7")
+    SVD-seeded init.  (``profile=True`` with an IRLS loss raises in
+    ``nmf_irls.fit_irls``.)  Cross-validated and masked fits do not come
+    here: ``api.nmf`` sends them to ``models.nmf_cv.fit_cv_or_masked``."""
     if cfg.init_mode in (1, 2):
         raise unported("SVD-seeded init (seed='lanczos'/'irlba')",
                        "Queue 1 item 9")

@@ -1,6 +1,6 @@
 """Core linear-algebra primitives of the ALS loop.
 
-The port of ``rcppml_tpu/ops/linalg.py:35-174``:
+The port of ``rcppml_tpu/ops/linalg.py:35-206``:
 
   * :func:`gram` — ``G = F @ F.T`` plus the reference's ``TINY_NUM``
     diagonal guard (gram.hpp:30-62);
@@ -10,10 +10,15 @@ The port of ``rcppml_tpu/ops/linalg.py:35-174``:
   * :func:`gram_trick_loss` and :func:`mse_loss_from_saved` — the O(k^2)
     Frobenius loss (nmf/fit_cpu.hpp:17-20, 1710-1753);
   * :func:`kr_product` and :func:`weighted_gram_and_rhs` — the per-column
-    weighted Gram and RHS of the IRLS solves (nnls_batch_irls.hpp:459-516).
+    weighted Gram and RHS of the IRLS and masked solves
+    (nnls_batch_irls.hpp:459-516);
+  * :func:`gathered_gram_downdate` — the per-column Gram downdate from
+    gathered excluded rows (cv_detail.hpp:67-84).
 
 These are plain large products outside any TPU kernel, so they go to
-``torch.matmul``.  Float32 products run in full float32 once
+``torch.matmul``; the one exception is the blocked branch of
+:func:`weighted_gram_and_rhs`, which is :mod:`.weighted_gram`'s kernel.
+Float32 products run in full float32 once
 :func:`rcppml_tpu_torch.device.set_fp32_precision` has been called, as every
 fit does.  With a bfloat16 A (``bf16_data``) ``rhs`` needs bfloat16 operands
 and a float32 sum, which ``torch.matmul`` does not give in one call; it goes
@@ -27,6 +32,7 @@ import torch
 from .. import constants
 from ..config import Norm
 from .rhs_tall import rhs_tall, rhs_tall_t
+from .weighted_gram import weighted_gram
 
 
 def gram(F: torch.Tensor) -> torch.Tensor:
@@ -89,7 +95,7 @@ def mse_loss_from_saved(trAtA, W_T, d, B_w, G_w):
 
 
 # Khatri-Rao operand budget (floats): beyond k^2 * m of this size the
-# blocked batched product runs instead (k=200, m=1e6 would need 4e10 floats)
+# blocked per-column product runs instead (k=200, m=1e6 would need 4e10 floats)
 KR_BUDGET_FLOATS = 1.5e8
 
 
@@ -117,18 +123,36 @@ def weighted_gram_and_rhs(F: torch.Tensor, w: torch.Tensor,
     ``KR``: an optional precomputed :func:`kr_product` of F; a caller that
     solves many column blocks against one F builds it once.  While the KR
     operand fits ``KR_BUDGET_FLOATS`` the Gram batch is one large product
-    ``KR @ w``; beyond it the blocked batched product ``(F * w_j) F^T`` runs,
-    which holds a (bc, k, m) intermediate that the caller's block size has
-    to allow for.
+    ``KR @ w``; beyond it :func:`rcppml_tpu_torch.ops.weighted_gram.
+    weighted_gram` runs: its kernel on a CUDA tensor, and on a CPU tensor the
+    blocked batched product ``(F * w_j) F^T``, which holds a (bc, k, m)
+    intermediate that the caller's block size has to allow for.
     """
     k, m = F.shape
     if KR is None and k * k * m <= KR_BUDGET_FLOATS:
         KR = kr_product(F)
-    if KR is not None:
-        G_flat = KR @ w                                       # (k^2, bc)
-        Gb = G_flat.reshape(k, k, -1).permute(2, 0, 1).contiguous()
-    else:
-        Fw = F[None, :, :] * w.T[:, None, :]                  # (bc, k, m)
-        Gb = Fw @ F.T
+    if KR is None:
+        return weighted_gram(F, w, A_blk)
+    G_flat = KR @ w                                           # (k^2, bc)
+    Gb = G_flat.reshape(k, k, -1).permute(2, 0, 1).contiguous()
     b = F @ (w * A_blk)
     return Gb, b
+
+
+def gathered_gram_downdate(F: torch.Tensor, idx: torch.Tensor,
+                           val: torch.Tensor) -> torch.Tensor:
+    """Per-column Gram downdate from gathered excluded rows.
+
+    For 0/1 train masks the per-column Gram is ``G_j = G_full - sum over the
+    excluded rows r of column j of F[:, r] F[:, r]^T``, the reference's
+    per-column rank update (cv_detail.hpp:67-84).  With T = the most excluded
+    rows of any column << m this costs k^2 T n operations instead of the
+    weighted path's k^2 m n.
+
+    F (k, m), idx (T, bc) integer row indices, val (T, bc) 0/1 validity
+    (padding slots carry val 0 and any index).  Returns (bc, k, k), the term
+    to subtract from the full Gram; float32 on every device.
+    """
+    Fg = F[:, idx]                                    # (k, T, bc)
+    Fgv = Fg * val[None, :, :]
+    return torch.einsum("itc,ltc->cil", Fgv, Fg)

@@ -4,16 +4,18 @@ Gram per column.
 The port of ``rcppml_tpu/ops/solvers.py:32-330``:
 
   * :func:`cholesky_clip_batch` — unconstrained Cholesky solve, then clip
-    (primitives/cpu/cholesky_clip.hpp:129-164).  No TPU kernel stood here:
-    it maps to ``torch.linalg.cholesky`` + ``torch.cholesky_solve``.
+    (primitives/cpu/cholesky_clip.hpp:129-164).  A CUDA tensor goes through
+    :func:`rcppml_tpu_torch.ops.cholesky_clip.cholesky_clip` (one launch for
+    factorization, substitutions and clip, no host read); a CPU tensor to
+    ``torch.linalg.cholesky`` + ``torch.cholesky_solve``.
   * :func:`cd_nnls_batch` / :func:`cd_nnls_batch_traced` — coordinate-descent
     NNLS (primitives/cpu/nnls_batch.hpp:71-225) through
     :func:`rcppml_tpu_torch.ops.cd_nnls.cd_nnls_shared`: the CUDA kernel for
     a CUDA tensor, its plain twin for a CPU tensor.
   * :func:`batched_gram_matvec`, :func:`batched_spd_solve`,
     :func:`cholesky_clip_batched_gram`, :func:`cd_nnls_batched_gram` — the
-    per-column-Gram variants behind the IRLS weighted solves (and, later, the
-    CV Gram downdates).  The CD variant goes through
+    per-column-Gram variants behind the IRLS weighted solves and the masked
+    and cross-validated MSE solves.  The CD variant goes through
     :func:`rcppml_tpu_torch.ops.cd_nnls_batched.cd_nnls_batched`.
 """
 
@@ -24,19 +26,21 @@ import torch
 from .. import constants
 from .cd_nnls import cd_nnls_shared
 from .cd_nnls_batched import cd_nnls_batched
+from .cholesky_clip import cholesky_clip
+
+
+def _ridged(G: torch.Tensor) -> torch.Tensor:
+    """G plus a trace-relative ridge (1e-6 / k * tr(G)), which keeps the fp32
+    factorization finite when G is numerically rank-deficient."""
+    k = G.shape[0]
+    ridge = (1e-6 / k) * torch.trace(G)
+    return G + ridge * torch.eye(k, dtype=G.dtype, device=G.device)
 
 
 def _chol_solve(G: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """Solve G X = B via Cholesky (G symmetric positive definite, k x k).
-
-    A trace-relative ridge (1e-6 / k * tr(G)) keeps the fp32 factorization
-    finite when G is numerically rank-deficient.
-    """
-    k = G.shape[0]
-    ridge = (1e-6 / k) * torch.trace(G)
-    L = torch.linalg.cholesky(
-        G + ridge * torch.eye(k, dtype=G.dtype, device=G.device))
-    return torch.cholesky_solve(B, L)
+    """Solve G X = B via Cholesky (G symmetric positive definite, k x k),
+    with the ridge of :func:`_ridged`."""
+    return torch.cholesky_solve(B, torch.linalg.cholesky(_ridged(G)))
 
 
 def cholesky_clip_batch(G: torch.Tensor, B: torch.Tensor, *,
@@ -46,7 +50,14 @@ def cholesky_clip_batch(G: torch.Tensor, B: torch.Tensor, *,
 
     B must already carry L1 (subtracted) and G must carry L2: features are
     applied upstream, as in the reference (features/sparsity.hpp:41-48).
+    The trace-relative ridge is added here on every device.  A CUDA tensor
+    then takes one launch of :func:`cholesky_clip`, which floors a
+    non-positive pivot where ``torch.linalg.cholesky`` raises; a CPU tensor
+    takes the ``torch.linalg`` calls.
     """
+    if B.is_cuda:
+        return cholesky_clip(_ridged(G), B, nonneg=nonneg,
+                             upper_bound=upper_bound)
     X = _chol_solve(G, B)
     if nonneg:
         X = torch.clamp_min(X, 0.0)

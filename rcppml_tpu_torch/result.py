@@ -25,7 +25,10 @@ class NMFResult:
     converged: bool = False
     final_tol: float = float("nan")
     train_loss: float = float("nan")
+    test_loss: float = float("nan")
+    best_iter: int = -1
     loss_history: Optional[np.ndarray] = None       # per-iteration train loss
+    test_loss_history: Optional[np.ndarray] = None  # per-iteration test loss (CV)
     theta: Optional[np.ndarray] = None              # GP theta / NB size
     dispersion: Optional[np.ndarray] = None         # Gamma/IG/Tweedie phi
     pi_row: Optional[np.ndarray] = None             # ZI dropout probs per row

@@ -1,21 +1,26 @@
-"""SplitMix64 RNG on the host: deterministic factor initialization.
+"""SplitMix64 RNG: deterministic factor initialization and holdout masks.
 
-The host half of ``rcppml_tpu/rng.py`` (``:37-74``), copied so that this
-package never imports JAX (that module imports ``jax.numpy`` at top level).
-It reproduces the reference's RNG contract
-(``inst/include/FactorNet/rng/rng.hpp:60-221``): the same integer seed gives
-the same W/H initialization as the JAX package, bit for bit.
+The host half of ``rcppml_tpu/rng.py`` (``:37-113``, ``:167-182``,
+``:251-256``), copied so that this package never imports JAX (that module
+imports ``jax.numpy`` at top level).  It reproduces the reference's RNG
+contract (``inst/include/FactorNet/rng/rng.hpp:60-221``): the same integer
+seed gives the same W/H initialization as the JAX package, bit for bit, and a
+cross-validation holdout mask is a pure function of ``(seed, i, j)``.
 
 The sequential stream's state after ``t`` draws is ``seed + t * GOLDEN``, so
 the whole stream is generated vectorized in numpy uint64 (exact).  The
-holdout-mask hashes wait for the CV slice (ROADMAP.md Queue 1 item 7).
+position hash is evaluated on the host in numpy uint64 (:func:`holdout_mask`)
+and on the fit's device in torch int64 (:func:`is_holdout`, the counterpart
+of the JAX package's ``is_holdout_traced``); the two agree bit for bit.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _GOLDEN = np.uint64(0x9E3779B97F4A7C15)
+_COLMIX = np.uint64(0x6C62272E07BB0142)
 _MIX1 = np.uint64(0xBF58476D1CE4E5B9)
 _MIX2 = np.uint64(0x94D049BB133111EB)
 _U64_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -60,3 +65,114 @@ def fill_uniform(seed: int, rows: int, cols: int, *, offset: int = 0,
     # float cast of UINT64_MAX rounds to 2^64 in both C++ and numpy
     u = z.astype(dtype) / dtype(float(int(_U64_MAX)))
     return u.reshape(cols, rows).T
+
+
+def position_hash(seed: int, i: np.ndarray, j: np.ndarray) -> np.ndarray:
+    """Pure position hash (rng.hpp:129-138): ``hash(seed, i, j)``.
+
+    ``i``/``j`` broadcast; uint32 semantics on the indices (matching the
+    reference's uint32_t parameters).  The seed is remapped like an engine's
+    (0 -> 12345), as ``SplitMix64(seed).is_holdout(...)`` does
+    (rng.hpp:178-182).
+    """
+    s = _canon_seed(seed)
+    i64 = np.asarray(i).astype(np.uint32).astype(np.uint64)
+    j64 = np.asarray(j).astype(np.uint32).astype(np.uint64)
+    with np.errstate(over="ignore"):
+        h = s + i64 * _GOLDEN + j64 * _COLMIX
+    return _finalize(h)
+
+
+def holdout_mask(seed: int, rows, cols, inv_prob: int) -> np.ndarray:
+    """Dense boolean holdout mask on the host: True where (i, j) is held out.
+
+    ``hash(seed,i,j) < UINT64_MAX / inv_prob`` (rng.hpp:164-170).
+    ``rows``/``cols`` may be ints (meaning ``arange``) or index arrays.
+    """
+    ii = (np.arange(rows, dtype=np.uint32) if np.isscalar(rows)
+          else np.asarray(rows, np.uint32))
+    jj = (np.arange(cols, dtype=np.uint32) if np.isscalar(cols)
+          else np.asarray(cols, np.uint32))
+    if inv_prob <= 0:
+        return np.zeros((len(ii), len(jj)), dtype=bool)
+    h = position_hash(seed, ii[:, None], jj[None, :])
+    thresh = _U64_MAX // np.uint64(inv_prob)
+    return h < thresh
+
+
+def subsample_mask_1d(seed: int, count: int, frac: float,
+                      use_col_constant: bool = True) -> np.ndarray:
+    """Row/column subsample eligibility (speckled_cv.hpp:80-104):
+    1-D SplitMix hash with the dedicated subsample seed
+    ``seed ^ 0xDEADBEEFCAFEBABE``; columns use the golden-ratio constant,
+    rows the column-mix constant, to avoid correlation."""
+    if frac >= 1.0:
+        return np.ones(count, dtype=bool)
+    sub_seed = _canon_seed(seed) ^ np.uint64(0xDEADBEEFCAFEBABE)
+    mult = _GOLDEN if use_col_constant else _COLMIX
+    idx = np.arange(count, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        h = sub_seed + idx * mult
+    h = _finalize(h)
+    thresh = np.uint64(frac * float(int(_U64_MAX)))
+    return h < thresh
+
+
+def seed_to_u32_pair(seed: int) -> np.ndarray:
+    """Canonical seed as a (lo32, hi32) uint32 array."""
+    s = int(_canon_seed(seed))
+    return np.asarray([s & 0xFFFFFFFF, (s >> 32) & 0xFFFFFFFF],
+                      dtype=np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# The holdout test on the fit's device.  torch has no uint64: the hash runs
+# in int64, whose multiply and add wrap like uint64's; ``>>`` is arithmetic
+# there, so the shifted-in sign bits are masked off, and ``<`` is signed, so
+# both sides have their sign bit flipped first.
+# ---------------------------------------------------------------------------
+
+_SIGN = -(1 << 63)
+# rows hashed at once: bounds the int64 temporaries to a few hundred MB
+_HASH_CHUNK_ELEMS = 1 << 24
+
+
+def _i64(v: int) -> int:
+    """A 64-bit pattern as the Python int of the int64 that holds it."""
+    v &= 0xFFFFFFFFFFFFFFFF
+    return v - (1 << 64) if v >= (1 << 63) else v
+
+
+def _lshr(z: torch.Tensor, n: int) -> torch.Tensor:
+    """Logical right shift of int64 bit patterns."""
+    return (z >> n) & ((1 << (64 - n)) - 1)
+
+
+def _finalize_i64(z: torch.Tensor) -> torch.Tensor:
+    z = (z ^ _lshr(z, 30)) * _i64(int(_MIX1))
+    z = (z ^ _lshr(z, 27)) * _i64(int(_MIX2))
+    return z ^ _lshr(z, 31)
+
+
+def is_holdout(seed: int, m: int, n: int, inv_prob: int,
+               device) -> torch.Tensor:
+    """The (m, n) boolean holdout mask computed on ``device``, bit for bit
+    :func:`holdout_mask` ``(seed, m, n, inv_prob)``: nothing is uploaded.
+    The counterpart of ``rcppml_tpu.rng.is_holdout_traced`` over
+    ``arange(m) x arange(n)``."""
+    device = torch.device(device)
+    if inv_prob <= 0:
+        return torch.zeros((m, n), dtype=torch.bool, device=device)
+    s = _i64(int(_canon_seed(seed)))
+    thresh = _i64(0xFFFFFFFFFFFFFFFF // int(inv_prob)) ^ _SIGN
+    tj = (torch.arange(n, dtype=torch.int64, device=device)
+          * _i64(int(_COLMIX)))[None, :]
+    out = torch.empty((m, n), dtype=torch.bool, device=device)
+    rows = max(1, _HASH_CHUNK_ELEMS // max(n, 1))
+    for r0 in range(0, m, rows):
+        r1 = min(r0 + rows, m)
+        ti = (torch.arange(r0, r1, dtype=torch.int64, device=device)
+              * _i64(int(_GOLDEN)) + s)[:, None]
+        h = _finalize_i64(ti + tj)
+        out[r0:r1] = (h ^ _SIGN) < thresh
+    return out

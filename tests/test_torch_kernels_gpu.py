@@ -16,7 +16,10 @@ tall-skinny products sum in another order than cuBLAS and are held within
 after one iteration in float32 (H also with bfloat16 data; W and d, which see
 H rounded to bfloat16, within 2^-7) and within 1e-3 in loss after twenty
 (1e-2 with bfloat16 data, whose rounding flips ALS amplifies at these small
-sizes).  All three repeat bit for bit.
+sizes).  All three repeat bit for bit.  The per-column weighted Gram + RHS
+kernel sums over m in row order and is held within 2e-5 of its twin's largest
+entry; the Cholesky solve + clip kernel keeps its twin's order of operations
+with ``_rn`` intrinsics and equals it bit for bit.
 """
 
 import numpy as np
@@ -365,3 +368,192 @@ def test_bf16_data_fit_launches_the_tall_products(cuda):
     on_cpu = rtt.nmf(A.cpu(), 8, bf16_data=True, maxit=6, tol=0, seed=1)
     np.testing.assert_allclose(res.loss_history, on_cpu.loss_history,
                                rtol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# Per-column weighted Gram + RHS, and the Cholesky solve + clip
+# ---------------------------------------------------------------------------
+
+def _wg5_inputs(k, m, bc, real, device, seed=0):
+    rs = np.random.RandomState(seed + k + m + bc)
+    F = (np.abs(rs.normal(size=(k, m))) * (rs.uniform(size=(k, m)) < 0.7)
+         ).astype(np.float32)
+    w = (rs.uniform(0.0, 2.0, size=(m, bc)) if real
+         else rs.uniform(size=(m, bc)) >= 0.1).astype(np.float32)
+    A = rs.poisson(0.4, size=(m, bc)).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (F, w, A)]
+
+
+@pytest.mark.parametrize("k,m,bc,real", [
+    (1, 50, 1, True), (7, 333, 1, False), (16, 1001, 77, False),
+    (20, 2638, 33, True), (130, 700, 40, False), (200, 300, 9, True),
+])
+def test_weighted_gram_kernel_matches_plain(cuda, k, m, bc, real):
+    from rcppml_tpu_torch.ops import weighted_gram as wg5
+    F, w, A = _wg5_inputs(k, m, bc, real, cuda)
+    before = wg5.weighted_gram.launches
+    Gb, b = wg5.weighted_gram(F, w, A)
+    Gb2, b2 = wg5.weighted_gram(F, w, A)
+    torch.cuda.synchronize()
+    assert wg5.weighted_gram.launches == before + 2
+    assert torch.equal(Gb, Gb2) and torch.equal(b, b2)
+    Gp, bp = wg5.weighted_gram_plain(F, w, A)
+    assert Gb.shape == (bc, k, k) and b.shape == (k, bc)
+    assert float((Gb - Gp).abs().max()) <= 2e-5 * float(Gp.abs().max())
+    assert float((b - bp).abs().max()) <= 2e-5 * max(float(bp.abs().max()),
+                                                     1e-30)
+
+
+def test_weighted_gram_kernel_reads_column_blocks_in_place(cuda):
+    """w and A as column blocks of wider matrices (unit column stride, a
+    longer row stride) and as transposed views (copied by the wrapper)."""
+    from rcppml_tpu_torch.ops import weighted_gram as wg5
+    F, w, A = _wg5_inputs(12, 400, 90, True, cuda)
+    whole = wg5.weighted_gram(F, w, A)
+    part = wg5.weighted_gram(F, w[:, 20:50], A[:, 20:50])
+    assert torch.equal(part[0], whole[0][20:50])
+    assert torch.equal(part[1], whole[1][:, 20:50])
+    turned = wg5.weighted_gram(F, w.T.contiguous().T, A.T.contiguous().T)
+    assert torch.equal(turned[0], whole[0]) and torch.equal(turned[1],
+                                                            whole[1])
+
+
+def test_weighted_gram_route_of_the_masked_solve(cuda, monkeypatch):
+    """Beyond the Khatri-Rao budget ``linalg.weighted_gram_and_rhs`` launches
+    the kernel on the card; within it, it launches none."""
+    from rcppml_tpu_torch.ops import linalg, weighted_gram as wg5
+    F, w, A = _wg5_inputs(9, 300, 21, False, cuda)
+    before = wg5.weighted_gram.launches
+    within = linalg.weighted_gram_and_rhs(F, w, A)
+    assert wg5.weighted_gram.launches == before
+    monkeypatch.setattr(linalg, "KR_BUDGET_FLOATS", 10.0)
+    beyond = linalg.weighted_gram_and_rhs(F, w, A)
+    assert wg5.weighted_gram.launches == before + 1
+    for a, c in zip(within, beyond):
+        assert float((a - c).abs().max()) <= 2e-5 * float(a.abs().max())
+
+
+def test_weighted_gram_refuses_what_it_cannot_launch(cuda):
+    from rcppml_tpu_torch.ops import weighted_gram as wg5
+    F, w, A = _wg5_inputs(8, 64, 5, True, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        wg5.weighted_gram(F.double(), w, A)
+    with pytest.raises(ValueError, match="do not fit"):
+        wg5.weighted_gram(F, w[:-1], A)
+    with pytest.raises(ValueError, match="is on"):
+        wg5.weighted_gram(F, w.cpu(), A)
+    # k beyond the card's shared memory for the F tile: the launch is refused
+    big = torch.ones((2000, 40), device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        wg5.weighted_gram(big, torch.ones((40, 3), device=cuda),
+                          torch.ones((40, 3), device=cuda))
+
+
+def _chol_system(k, n, device, seed=0, rank=None):
+    rs = np.random.RandomState(seed + k + n)
+    p = 4 * k if rank is None else rank
+    F = rs.normal(size=(k, p)).astype(np.float32)
+    G = (F @ F.T / p).astype(np.float32)
+    B = rs.normal(size=(k, n)).astype(np.float32)
+    return torch.from_numpy(G).to(device), torch.from_numpy(B).to(device)
+
+
+@pytest.mark.parametrize("nonneg,ub", [(True, 0.0), (False, 0.0),
+                                       (True, 0.05), (False, 0.05)])
+@pytest.mark.parametrize("k,n", [
+    (1, 1), (1, 300), (5, 1), (20, 2638), (64, 129), (138, 700),
+    (241, 50),        # L beyond the shared memory of a block, in both kernels
+    (300, 33),
+])
+def test_cholesky_clip_kernel_matches_plain_bitwise(cuda, k, n, nonneg, ub):
+    from rcppml_tpu_torch.ops import cholesky_clip as cc
+    G, B = _chol_system(k, n, cuda)
+    before = cc.cholesky_clip.launches
+    out = cc.cholesky_clip(G, B, nonneg=nonneg, upper_bound=ub)
+    torch.cuda.synchronize()
+    assert cc.cholesky_clip.launches == before + 1
+    assert torch.equal(out, cc.cholesky_clip_plain(G, B, nonneg=nonneg,
+                                                   upper_bound=ub))
+    lib = torch.cholesky_solve(B, torch.linalg.cholesky(G))
+    lib = lib.clamp_min(0.0) if nonneg else lib
+    lib = lib.clamp_max(ub) if ub > 0 else lib
+    assert float((out - lib).abs().max()) <= 1e-4 * max(
+        float(lib.abs().max()), 1e-30)
+
+
+def test_cholesky_clip_floors_a_pivot_that_is_not_positive(cuda):
+    """Where ``torch.linalg.cholesky`` raises, the kernel floors the pivot
+    at 1e-30 and returns the twin's finite solution; the fit's entry adds the
+    ridge that keeps a rank-deficient Gram solvable."""
+    from rcppml_tpu_torch.ops import cholesky_clip as cc, solvers
+    G = torch.zeros((6, 6), device=cuda)
+    B = torch.ones((6, 4), device=cuda)
+    with pytest.raises(Exception):
+        torch.linalg.cholesky(G)
+    out = cc.cholesky_clip(G, B)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, cc.cholesky_clip_plain(G, B))
+    G, B = _chol_system(20, 500, cuda, rank=10)
+    out = solvers.cholesky_clip_batch(G, B)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, cc.cholesky_clip_plain(solvers._ridged(G), B))
+
+
+def test_cholesky_clip_refuses_what_it_cannot_launch(cuda):
+    from rcppml_tpu_torch.ops import cholesky_clip as cc
+    G, B = _chol_system(8, 5, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        cc.cholesky_clip(G.double(), B)
+    with pytest.raises(ValueError, match="do not fit"):
+        cc.cholesky_clip(G[:-1], B)
+    with pytest.raises(ValueError, match="is on"):
+        cc.cholesky_clip(G.cpu(), B)
+
+
+def test_cholesky_fit_launches_the_kernel_twice_per_iteration(cuda,
+                                                              monkeypatch):
+    import rcppml_tpu_torch as rtt
+    from rcppml_tpu_torch.ops import cholesky_clip as cc
+    from rcppml_tpu_torch.utils.simulate import simulate_nmf
+    A = torch.from_numpy(simulate_nmf(400, 300, 8, seed=1)["A"]).to(cuda)
+
+    def no_linalg(*args, **kwargs):
+        raise AssertionError("torch.linalg.cholesky on the card's path")
+
+    before = cc.cholesky_clip.launches
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.linalg, "cholesky", no_linalg)
+        res = rtt.nmf(A, 8, maxit=6, tol=0, seed=1)
+    assert cc.cholesky_clip.launches == before + 2 * 6
+    on_cpu = rtt.nmf(A.cpu(), 8, maxit=6, tol=0, seed=1)
+    assert cc.cholesky_clip.launches == before + 2 * 6
+    np.testing.assert_allclose(res.loss_history, on_cpu.loss_history,
+                               rtol=1e-4)
+
+
+def test_masked_and_cv_fits_on_the_card(cuda):
+    """CV with the CD solver launches kernel 2 once per column block; the
+    holdout mask is the host's; the card's fit agrees with the CPU's."""
+    import rcppml_tpu_torch as rtt
+    from rcppml_tpu_torch import rng
+    from rcppml_tpu_torch.ops import cd_nnls_batched as cdb
+    from rcppml_tpu_torch.utils.simulate import simulate_nmf
+    for seed, inv_prob in ((0, 10), (2**63 + 5, 7)):
+        assert np.array_equal(
+            rng.is_holdout(seed, 301, 200, inv_prob, cuda).cpu().numpy(),
+            rng.holdout_mask(seed, 301, 200, inv_prob))
+    A = torch.from_numpy(simulate_nmf(400, 300, 8, noise=0.5,
+                                      seed=1)["A"]).to(cuda)
+    kw = dict(test_fraction=0.1, cv_seed=1, maxit=6, tol=0, cv_patience=7,
+              seed=1)
+    before = cdb.cd_nnls_batched.launches
+    res = rtt.nmf(A, 8, solver="cd", **kw)
+    assert cdb.cd_nnls_batched.launches == before + 2 * 6
+    assert res.misc["host_syncs"] == 6
+    for fit_kw in (dict(solver="cd"), dict()):
+        on_card = rtt.nmf(A, 8, **fit_kw, **kw)
+        on_cpu = rtt.nmf(A.cpu(), 8, **fit_kw, **kw)
+        np.testing.assert_allclose(on_card.loss_history, on_cpu.loss_history,
+                                   rtol=1e-4)
+        np.testing.assert_allclose(on_card.test_loss_history,
+                                   on_cpu.test_loss_history, rtol=1e-4)

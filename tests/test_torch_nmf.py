@@ -239,10 +239,6 @@ def test_factors_handed_across_give_the_same_first_loss(data):
 # ---------------------------------------------------------------------------
 
 UNPORTED = {
-    "cv": dict(test_fraction=0.1),
-    "mask_matrix": dict(mask=np.zeros((120, 90), bool)),
-    "mask_zeros": dict(mask="zeros"),
-    "sparse_zeros": dict(sparse=True),
     "profile_irls": dict(profile=True, loss="kl"),
     "checkpoint": dict(checkpoint_path="fit.ckpt"),
     "multi_restart_checkpoint": dict(seed=[1, 2], checkpoint_path="fit.ckpt"),
@@ -264,6 +260,10 @@ PORTED = {
     "profile": dict(profile=True),
     "on_iteration": dict(on_iteration=lambda *a: None),
     "multi_restart": dict(seed=[1, 2]),
+    "cv": dict(test_fraction=0.1, cv_patience=7),
+    "mask_matrix": dict(mask=np.zeros((120, 90), bool)),
+    "mask_zeros": dict(mask="zeros"),
+    "sparse_zeros": dict(sparse=True),
 }
 
 
@@ -276,6 +276,9 @@ def test_ported_branch_runs(branch, data):
     assert np.isfinite(res.loss_history).all()
     assert res.loss_history[-1] < res.loss_history[0]
     assert res.W.shape == (120, K) and res.H.shape == (K, 90)
+    if branch in ("cv", "mask_matrix", "mask_zeros", "sparse_zeros"):
+        assert res.test_loss_history.shape == (6,)
+        assert res.misc["config"].is_cv() == (branch == "cv")
 
 
 # ---------------------------------------------------------------------------
@@ -395,15 +398,35 @@ def test_profile_matches_reference(kw, data):
 
 @pytest.mark.parametrize("args", [
     ("data", [2, 3]), ("data", "auto"), ("x.spz", 3), ("list", 3),
-    ("nan", 3)], ids=["k_list", "k_auto", "spz_path", "multimodal", "nan"])
+    ("nan", 3), ("dict", 3)],
+    ids=["k_list", "k_auto", "spz_path", "multimodal", "nan",
+         "multimodal_dict"])
 def test_unported_inputs_raise(args, data):
+    """Inputs that are not ported raise NotImplementedError naming their
+    ROADMAP item.  A list of ranks, ``"auto"`` and NaN entries did so until
+    cross-validation and masks were ported; now a list of ranks gives one row
+    per rank, ``"auto"`` a fit at the rank it chose, NaN entries a masked fit
+    and a warning."""
     what, k = args
-    A = {"data": data, "x.spz": "x.spz", "list": [data, data]}.get(what)
-    if what == "nan":
+    if what == "data" and k == "auto":
+        res = rtt.nmf(data, "auto", cv_k_range=(2, 6), maxit=4, device="cpu")
+        assert res.k == res.misc["rank_search"]["k_optimal"]
+        assert 2 <= res.k <= 6 and np.isfinite(res.loss_history).all()
+    elif what == "data":
+        rows = rtt.nmf(data, k, maxit=4, device="cpu")
+        assert [r["k"] for r in rows] == k
+        assert all(np.isfinite(r["test_mse"]) for r in rows)
+    elif what == "nan":
         A = data.copy()
         A[0, 0] = np.nan
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rtt.nmf(A, k, device="cpu")
+        with pytest.warns(UserWarning, match="Detected 1 NA values"):
+            res = rtt.nmf(A, k, maxit=4, device="cpu")
+        assert np.isfinite(res.W).all() and res.test_loss_history.shape == (4,)
+    else:
+        A = {"x.spz": "x.spz", "list": [data, data],
+             "dict": {"a": data, "b": data}}[what]
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            rtt.nmf(A, k, device="cpu")
 
 
 def test_invalid_inputs_raise_value_errors(data):
@@ -413,6 +436,8 @@ def test_invalid_inputs_raise_value_errors(data):
         rtt.nmf(data, K, symmetric=True, device="cpu")   # not square
     bad = data.copy()
     bad[0, 0] = np.inf
+    with pytest.raises(ValueError):
+        rtt.nmf(bad, K, mask="zeros", device="cpu")
     with pytest.raises(ValueError):
         rtt.nmf(bad, K, device="cpu")
     with pytest.raises(ValueError):
