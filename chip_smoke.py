@@ -87,10 +87,15 @@ WGRAM_RTOL = 1e-4
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
-# tall-skinny products: every k at both data shapes and one odd shape, within
-# this share of the twin's largest entry (float32 sums in another order)
-RHS_KS = (1, 20, 50, 128)
+# tall-skinny products: every k (below, at and past a multiple of 8, and
+# past the 128 rows of one pass) at both data shapes, one odd shape and one
+# shape for each alignment of A's rows that the data shapes miss (n = 3 mod
+# 4, n = 0 mod 8; 610 and 2638 are 2 mod 4, 77 is 1), below and one past
+# the 128 columns of a tile, within this share of the twin's largest entry
+# (float32 sums in another order, 3xTF32 products)
+RHS_KS = (1, 7, 20, 50, 128, 150)
 RHS_ODD_SHAPE = (1001, 77)
+RHS_ALIGN_SHAPES = {"n = 3 mod 4": (129, 259), "n = 0 mod 8": (127, 512)}
 RHS_RTOL = 1e-5
 # whole-fit kernel against its twin.  After one iteration: this share of the
 # largest entry of W_T, H, d.  With bfloat16 data W_T and d come from H
@@ -1200,11 +1205,11 @@ def main():
     phase(f"9 tall-skinny product kernels against their twins (within "
           f"{RHS_RTOL} of the twin's largest entry)")
     rs = np.random.RandomState(11)
-    A_odd = torch.from_numpy(
-        (rs.rand(*RHS_ODD_SHAPE) * (rs.rand(*RHS_ODD_SHAPE) < 0.3)).astype(
-            np.float32)).cuda()
-    errs_rhs = check_rhs_kernels(
-        {"movielens": A_ml, "pbmc3k": A_pb, "odd": A_odd})
+    rhs_shapes = {"odd": RHS_ODD_SHAPE, **RHS_ALIGN_SHAPES}
+    A_rhs = {label: torch.from_numpy((rs.rand(*shape) * (rs.rand(*shape) < 0.3))
+                                     .astype(np.float32)).cuda()
+             for label, shape in rhs_shapes.items()}
+    errs_rhs = check_rhs_kernels({"movielens": A_ml, "pbmc3k": A_pb, **A_rhs})
     for name, (err, rel) in errs_rhs.items():
         print(f"{name}, largest float32 error: {rel:.3e} relative, "
               f"{err:.3e} absolute", flush=True)
@@ -1649,7 +1654,10 @@ def main():
     # BATCH calls replayed (a product of tens of microseconds is otherwise
     # timed by the host's launch path), and beside it the time per call of
     # BATCH eager calls back to back.  A matrix that fits in L2 stays there,
-    # as it does between the iterations of a fit
+    # as it does between the iterations of a fit.  With a bfloat16 A the
+    # yardstick is torch.matmul of the rounded small operand and the
+    # bfloat16 A, whose output is bfloat16 (no single PyTorch call gives
+    # the float32 sum the kernel writes)
     BATCH = 20
 
     def batch_ms(fn):
@@ -1671,25 +1679,39 @@ def main():
         F = torch.from_numpy(rs.rand(k, m).astype(np.float32)).cuda()
         H = torch.from_numpy(rs.rand(k, n).astype(np.float32)).cuda()
         A16 = A32.to(torch.bfloat16)
-        for name, fn, plain_fn, X, J in (
-                ("rhs_tall", rhs_f, rhs_tall.rhs_tall_plain, F, n),
-                ("rhs_tall_t", rhs_t, rhs_tall.rhs_tall_t_plain, H, m)):
+        sms = rhs_tall.device_sms(A32.device)
+        for name, fn, plain_fn, X, J, A16_mm in (
+                ("rhs_tall", rhs_f, rhs_tall.rhs_tall_plain, F, n, A16),
+                ("rhs_tall_t", rhs_t, rhs_tall.rhs_tall_t_plain, H, m,
+                 A16.T)):
+            X16 = X.to(torch.bfloat16)
             ms = graph_ms(lambda: fn(X, A32))
             lib_ms = graph_ms(lambda: plain_fn(X, A32))
             ms16 = graph_ms(lambda: fn(X, A16))
+            lib16_ms = graph_ms(lambda: X16 @ A16_mm)
             bound, by = bound_ms(4 * (m * n + X.numel() + k * J),
                                  2 * k * m * n)
             # products of bfloat16 values: the tensor cores' rate
             bound16, by16 = bound_ms(2 * m * n + 4 * (X.numel() + k * J), 0,
                                      2 * k * m * n)
+            plans = []
+            for bf16 in (False, True):
+                blocks = rhs_tall.plan_tall(m + n - J, J, k, bf16, sms)
+                runs = rhs_tall.tall_runs(m + n - J, J, bf16, blocks)
+                stages = sorted({sum(c for _, _, c in run) for run in runs})
+                plans.append(f"{-(-J // rhs_tall.TALL_COLS)} tiles cut into "
+                             f"{blocks} runs of {' or '.join(map(str, stages))} "
+                             f"stages")
             print(f"{name} {label}: kernel {ms:.4f} ms, torch.matmul (the "
                   f"plain twin and the library call) {lib_ms:.4f} ms, bound "
                   f"{bound:.5f} ms by {by}; bfloat16 A: kernel {ms16:.4f} ms, "
-                  f"bound {bound16:.5f} ms by {by16}; per eager call "
-                  f"{batch_ms(lambda: fn(X, A32)):.4f} ms against "
-                  f"{batch_ms(lambda: plain_fn(X, A32)):.4f} ms  [{card}]",
-                  flush=True)
+                  f"torch.matmul of bfloat16 operands (bfloat16 output) "
+                  f"{lib16_ms:.4f} ms, bound {bound16:.5f} ms by {by16}; per "
+                  f"eager call {batch_ms(lambda: fn(X, A32)):.4f} ms against "
+                  f"{batch_ms(lambda: plain_fn(X, A32)):.4f} ms; float32 "
+                  f"{plans[0]}, bfloat16 {plans[1]}  [{card}]", flush=True)
             times[f"{name} {label}"] = (ms, lib_ms, bound, by)
+            times[f"{name} {label} bf16"] = (ms16, lib16_ms, bound16, by16)
         del A16
 
     # kernel 5 at the blocks of the masked k=128 fit's H side
@@ -1859,14 +1881,15 @@ def main():
               f"MiB  [{card}]", flush=True)
 
     def entry(name, source, replaces, launches, err, rel, key,
-              library=False, file="pallas_kernels.py"):
+              library=False, file="pallas_kernels.py", bf16_key=None):
         """``max_rel_err``: the largest error over the twin's largest entry
         (the fused kernel's Grams reach 1e9, so its absolute error is
         large where its relative error is 1e-5).  ``library``: the plain
         twin is one PyTorch call (``torch.matmul``) computing the same
         function; no single call computes a CD NNLS solve, the weight, Gram
         and RHS together, or a whole fit.  A fifth number in ``times[key]``
-        is the time of the PyTorch calls the kernel replaced."""
+        is the time of the PyTorch calls the kernel replaced.  ``bf16_key``:
+        the same kernel's times with a bfloat16 A, as extra keys."""
         ms, plain_ms, bound, by, *lib_ms = times[key]
         if lib_ms:
             library_ms = lib_ms[0]
@@ -1878,7 +1901,10 @@ def main():
                 "launches": launches, "max_abs_err": err,
                 "max_rel_err": rel, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                "library_ms": library_ms}
+                "library_ms": library_ms,
+                **({} if bf16_key is None else dict(zip(
+                    ("bf16_ms", "bf16_library_ms", "bf16_bound_ms"),
+                    times[bf16_key][:3])))}
 
     print(json.dumps({"kernels": [
         entry("cd_nnls_shared", "cd_nnls_shared.cu", 154, launches_shared,
@@ -1895,10 +1921,12 @@ def main():
         # the default loop with bf16_data; times at float32, beside matmul
         entry("rhs_tall", "rhs_tall.cu", 319, launches_rhs,
               *errs_rhs["rhs_tall"], "rhs_tall pbmc3k k=20", library=True,
-              file="pallas_experiments.py"),
+              file="pallas_experiments.py",
+              bf16_key="rhs_tall pbmc3k k=20 bf16"),
         entry("rhs_tall_t", "rhs_tall.cu", 365, launches_rhs_t,
               *errs_rhs["rhs_tall_t"], "rhs_tall_t pbmc3k k=20", library=True,
-              file="pallas_experiments.py"),
+              file="pallas_experiments.py",
+              bf16_key="rhs_tall_t pbmc3k k=20 bf16"),
         # the masked k=128 fit's H side
         entry("weighted_gram", "weighted_gram.cu", 29, launches_wg5, err_wg5,
               rel_wg5, "wg5 bc=68", file="pallas_experiments.py"),

@@ -27,8 +27,11 @@
 // host reads nothing and decides nothing until the call returns; the stream's
 // order is the only synchronisation between phases, so no phase reads what
 // another block of the same phase writes.  The products that read A are the
-// device code of rhs_tall.cuh (kernels 7 and 8); the Grams and Ginv . B use
-// the same tiles.  The k x k work (ridge, seed, rescale, Newton-Schulz) runs
+// tall product of rhs_tall.cuh (kernels 7 and 8: tensor cores, a cp.async
+// ring fed by producer warps); the row normalisation that writes a factor also
+// writes it prepared as the next product's small operand (rounded to
+// bfloat16, or split into TF32 parts for a float32 A).
+// The Grams and Ginv . B are rhs_tall.cuh's float32 FMA tile.  The k x k work (ridge, seed, rescale, Newton-Schulz) runs
 // in one block with G, X and a scratch matrix in shared memory; the warm
 // starts live in device memory between iterations.  A factor row's sum, its
 // division and its share of the loss's cross term belong to one block, and
@@ -212,12 +215,16 @@ __global__ void __launch_bounds__(kKxkThreads)
 // One block per factor row i.  out[i] = max(U[i], 0) / max(sum, 1e-15) with
 // the sum over the clipped row (no clip unless nonneg).  With d != null the
 // clamped sum goes to d[i]; with saved != null, cross_row[i] = sum over the
-// row of (scale out) saved, the row's share of the loss's cross term.
+// row of (scale out) saved, the row's share of the loss's cross term.  Row i
+// of out also goes, prepared as the tall product's small operand, to row i
+// of `small` (row stride lds, the columns from len to lds zero, planes of
+// gridDim.x rows: rhs_tall::store_small).
 __global__ void __launch_bounds__(kRowThreads)
     row_normalize_kernel(const float* __restrict__ U, float* __restrict__ out,
                          int len, int nonneg, float* __restrict__ d,
                          const float* __restrict__ saved,
-                         float* __restrict__ cross_row) {
+                         float* __restrict__ cross_row, void* __restrict__ small,
+                         int lds, int bf16) {
   __shared__ float scratch[kRowThreads];
   const size_t base = static_cast<size_t>(blockIdx.x) * len;
   float s = 0.f;
@@ -233,7 +240,13 @@ __global__ void __launch_bounds__(kRowThreads)
     if (nonneg) v = fmaxf(v, 0.f);
     const float w = v / scale;
     out[base + r] = w;
+    rhs_tall::store_small(w, small, static_cast<size_t>(blockIdx.x) * lds + r,
+                          static_cast<size_t>(gridDim.x) * lds, bf16 != 0);
     if (saved != nullptr) c += (scale * w) * saved[base + r];
+  }
+  for (int r = len + threadIdx.x; r < lds; r += blockDim.x) {
+    rhs_tall::store_small(0.f, small, static_cast<size_t>(blockIdx.x) * lds + r,
+                          static_cast<size_t>(gridDim.x) * lds, bf16 != 0);
   }
   if (saved != nullptr) {
     c = block_sum(c, scratch);
@@ -312,8 +325,10 @@ cudaError_t enqueue_refine(const float* P, int splits, int k, float ridge_scale,
 
 // Buffers of the workspace, as offsets (in floats) into `work`.
 enum Buffer {
-  kPartB = 0,     // (splits_fwd, k, n) partials of W A
-  kPartBw,        // (splits_trp, k, m) partials of H A^T
+  kSmallW = 0,    // W prepared as the small operand (rhs_tall::store_small)
+  kSmallH,        // H prepared the same way
+  kPartB,         // (2 blocks_fwd, k, 128) pieces of W A
+  kPartBw,        // (2 blocks_trp, k, 128) pieces of H A^T
   kPartGramW,     // (splits_gw, k, k) partials of W W^T
   kPartGramH,     // (splits_gh, k, k) partials of H H^T
   kRhsH,          // (k, n) W A - l1_h
@@ -331,8 +346,9 @@ enum Buffer {
 // (maxit,) the loss of every iteration.  A (m, n) holds float32, or bfloat16
 // with a_bf16 != 0.  ginv_h and ginv_w are (k, k) scratch for the warm
 // starts.  `offsets` (kBufferCount entries) places the buffers above in
-// `work`; `plan` holds (splits, chunk) for W A, H A^T, W W^T and H H^T in
-// that order.  trata points to tr(A^T A) on the device.  *launched gets the
+// `work`; kSmallW holds W prepared on entry.  `plan` holds the blocks of
+// W A and of H A^T (rhs_tall::launch_tall; each followed by a 0) and the
+// (splits, chunk) of W W^T and H H^T, in that order.  trata points to tr(A^T A) on the device.  *launched gets the
 // number of kernels enqueued.  Returns the cudaError_t of the first launch
 // that failed (0 on success).  Nothing is read back and nothing waits.
 extern "C" int fused_als_launch(
@@ -351,11 +367,16 @@ extern "C" int fused_als_launch(
 
   float* buf[kBufferCount];
   for (int b = 0; b < kBufferCount; ++b) buf[b] = work + offsets[b];
-  const int s_fwd = plan[0], c_fwd = plan[1], s_trp = plan[2], c_trp = plan[3];
+  const int b_fwd = plan[0], b_trp = plan[2];
   const int s_gw = plan[4], c_gw = plan[5], s_gh = plan[6], c_gh = plan[7];
   const int k_chunk = (k + rhs_tall::kRT - 1) / rhs_tall::kRT * rhs_tall::kRT;
   const bool bf16 = a_bf16 != 0;
   const float* rhs_w = l1_w != 0.f ? buf[kRhsWShifted] : buf[kRhsW];
+  // the small operands of the products with A: the factors prepared
+  const int ldw = rhs_tall::small_ld(m, bf16);
+  const int ldh = rhs_tall::small_ld(n, bf16);
+  void* w_small = buf[kSmallW];
+  void* h_small = buf[kSmallH];
 
 #define ENQUEUED(call)                                  \
   do {                                                  \
@@ -364,8 +385,8 @@ extern "C" int fused_als_launch(
     ++*launched;                                        \
   } while (0)
 #define GRAM(F, len, splits, chunk, out)                                    \
-  ENQUEUED(rhs_tall::launch_product(F, len, F, len, false, true, out, k, k, \
-                                    len, splits, chunk, s))
+  ENQUEUED(rhs_tall::launch_small(F, len, F, len, true, out, k, k, len, \
+                                  splits, chunk, s))
 #define REFINE(part, splits, l2, seed, ginv, g_free)                        \
   ENQUEUED(enqueue_refine(part, splits, k, ridge_scale, l2, seed, ginv,     \
                           g_free, ns_steps, s))
@@ -379,29 +400,30 @@ extern "C" int fused_als_launch(
   for (int it = 0; it < maxit; ++it) {
     // H update; W W^T's partials are those of the seed or of the last loss
     REFINE(buf[kPartGramW], s_gw, l2_h, 0, ginv_h, nullptr);
-    ENQUEUED(rhs_tall::launch_product(W, m, A, n, bf16, false, buf[kPartB], k,
-                                      n, m, s_fwd, c_fwd, s));
-    ENQUEUED(rhs_tall::launch_reduce(buf[kPartB], s_fwd,
-                                     static_cast<size_t>(k) * n, l1_h, nullptr,
-                                     buf[kRhsH], s));
-    ENQUEUED(rhs_tall::launch_product(ginv_h, k, buf[kRhsH], n, false, false,
-                                      buf[kSolvedH], k, n, k, 1, k_chunk, s));
+    ENQUEUED(rhs_tall::launch_tall(w_small, ldw, A, n, bf16, false,
+                                   buf[kPartB], k, n, m, b_fwd, s));
+    ENQUEUED(rhs_tall::launch_tall_reduce(buf[kPartB], b_fwd, k, n, m, bf16,
+                                          l1_h, nullptr, buf[kRhsH], s));
+    ENQUEUED(rhs_tall::launch_small(ginv_h, k, buf[kRhsH], n, false,
+                                    buf[kSolvedH], k, n, k, 1, k_chunk, s));
     row_normalize_kernel<<<k, kRowThreads, 0, s>>>(buf[kSolvedH], H, n, nonneg,
-                                                   nullptr, nullptr, nullptr);
+                                                   nullptr, nullptr, nullptr,
+                                                   h_small, ldh, a_bf16);
     ENQUEUED(cudaGetLastError());
 
     // W update
     GRAM(H, n, s_gh, c_gh, buf[kPartGramH]);
     REFINE(buf[kPartGramH], s_gh, l2_w, 0, ginv_w, buf[kGramFree]);
-    ENQUEUED(rhs_tall::launch_product(H, n, A, n, bf16, true, buf[kPartBw], k,
-                                      m, n, s_trp, c_trp, s));
-    ENQUEUED(rhs_tall::launch_reduce(
-        buf[kPartBw], s_trp, static_cast<size_t>(k) * m, l1_w, buf[kRhsW],
+    ENQUEUED(rhs_tall::launch_tall(h_small, ldh, A, n, bf16, true,
+                                   buf[kPartBw], k, m, n, b_trp, s));
+    ENQUEUED(rhs_tall::launch_tall_reduce(
+        buf[kPartBw], b_trp, k, m, n, bf16, l1_w, buf[kRhsW],
         l1_w != 0.f ? buf[kRhsWShifted] : nullptr, s));
-    ENQUEUED(rhs_tall::launch_product(ginv_w, k, rhs_w, m, false, false,
-                                      buf[kSolvedW], k, m, k, 1, k_chunk, s));
+    ENQUEUED(rhs_tall::launch_small(ginv_w, k, rhs_w, m, false,
+                                    buf[kSolvedW], k, m, k, 1, k_chunk, s));
     row_normalize_kernel<<<k, kRowThreads, 0, s>>>(
-        buf[kSolvedW], W, m, nonneg, d, buf[kRhsW], buf[kCrossRow]);
+        buf[kSolvedW], W, m, nonneg, d, buf[kRhsW], buf[kCrossRow], w_small,
+        ldw, a_bf16);
     ENQUEUED(cudaGetLastError());
 
     // saved-matrix Gram-trick loss

@@ -7,10 +7,13 @@ Replaces the TPU kernel ``rcppml_tpu/ops/pallas_kernels.py::fused_als_vmem``
 enqueues a fixed sequence of that file's own kernels for all ``maxit``
 iterations on the current stream (4 launches to seed the two inverses, 13 per
 iteration) and returns; the host reads nothing and decides nothing in between.
-The two products that read A are the device code of ``csrc/rhs_tall.cuh``
-(:mod:`.rhs_tall`), the k x k Newton-Schulz work runs in one block's shared
-memory, and every sum across blocks is a set of partials added in a fixed
-order, so two runs agree bit for bit.
+The two products that read A are the tall product of ``csrc/rhs_tall.cuh``
+(:mod:`.rhs_tall`: tensor cores, a ring of ``cp.async`` stages; the kernel
+that normalises a factor also writes it prepared as the next product's small
+operand, and the starting W is prepared here before the call), the Grams and
+Ginv B are that header's float32 FMA tile, the k x k Newton-Schulz work runs
+in one block's shared memory, and every sum across blocks is a set of
+partials added in a fixed order, so two runs agree bit for bit.
 
 The TPU kernel pins A in VMEM and its gate counts VMEM bytes.  An H100 keeps
 A in device memory (it stays in the 50 MB L2 when it is small enough), so the
@@ -36,7 +39,8 @@ import numpy as np
 import torch
 
 from . import _build
-from .rhs_tall import H100_SMS, device_sms, plan_splits
+from .rhs_tall import (H100_SMS, device_sms, pieces_floats, plan_splits,
+                       plan_tall, prepare_small, small_floats)
 
 KERNEL = "fused_als"
 RIDGE_REL = 1e-6
@@ -62,15 +66,22 @@ def kxk_shared_bytes(k: int) -> int:
     return (3 * k * (k | 1) + 2 * k) * 4
 
 
-def _workspace(m: int, n: int, k: int, shifted_w: bool, sms: int):
-    """The products' splits and the workspace's layout: ``(plan, offsets,
-    total)`` with ``plan`` the (splits, chunk) of W A, H A^T, W W^T, H H^T,
+def _workspace(m: int, n: int, k: int, shifted_w: bool, a_bf16: bool,
+               sms: int):
+    """The products' plans and the workspace's layout: ``(plan, offsets,
+    total)`` with ``plan`` the (blocks, 0) of W A and H A^T and the (splits,
+    chunk) of W W^T and H H^T,
     ``offsets`` the start of each buffer in floats (the order of ``enum
-    Buffer`` in the source) and ``total`` the floats in all."""
-    plan = [plan_splits(m, n, k, sms), plan_splits(n, m, k, sms),
+    Buffer`` in the source) and ``total`` the floats in all.  W and H
+    prepared as the products' small operands come first, so that their
+    16-byte rows start on 16 bytes."""
+    plan = [(plan_tall(m, n, k, a_bf16, sms), 0),
+            (plan_tall(n, m, k, a_bf16, sms), 0),
             plan_splits(m, k, k, sms, GRAM_MAX_SPLITS),
             plan_splits(n, k, k, sms, GRAM_MAX_SPLITS)]
-    sizes = [plan[0][0] * k * n, plan[1][0] * k * m, plan[2][0] * k * k,
+    sizes = [small_floats(k, m, a_bf16), small_floats(k, n, a_bf16),
+             pieces_floats(k, plan[0][0]), pieces_floats(k, plan[1][0]),
+             plan[2][0] * k * k,
              plan[3][0] * k * k, k * n, k * n, k * m,
              k * m if shifted_w else 0, k * m, k * k, k]
     offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
@@ -85,7 +96,7 @@ def fused_vmem_bytes(m: int, n: int, k: int, a_bf16: bool, maxit: int,
     workspace of partial sums and right-hand sides."""
     a_bytes = m * n * (2 if a_bf16 else 4)
     factors = (2 * (k * m + k * n) + k + maxit + 2 * k * k) * 4
-    return a_bytes + factors + _workspace(m, n, k, True, sms)[2] * 4
+    return a_bytes + factors + _workspace(m, n, k, True, a_bf16, sms)[2] * 4
 
 
 def _card(device) -> bool:
@@ -294,8 +305,11 @@ def fused_als(A: torch.Tensor, W_T0: torch.Tensor, H0: torch.Tensor, *,
     d = torch.empty((k,), dtype=f32, device=dev)
     hist = torch.empty((maxit,), dtype=f32, device=dev)
     ginv = torch.empty((2, k, k), dtype=f32, device=dev)
-    plan, offsets, total = _workspace(m, n, k, l1_w != 0.0, device_sms(dev))
+    plan, offsets, total = _workspace(m, n, k, l1_w != 0.0, a_bf16,
+                                      device_sms(dev))
     work = torch.empty((total,), dtype=f32, device=dev)
+    # the starting W prepared as the first product's small operand
+    prepare_small(W_T0, a_bf16, work[:offsets[1]])
     c_offsets = (ctypes.c_longlong * len(offsets))(*offsets.tolist())
     c_plan = (ctypes.c_int * 8)(*[v for pair in plan for v in pair])
     launched = ctypes.c_int(0)

@@ -186,6 +186,83 @@ def test_plan_splits_covers_the_reduction(R, J, k):
     assert capped <= 4
 
 
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("R,J,k", [(13714, 2638, 20), (2638, 13714, 20),
+                                   (3867, 610, 50), (610, 3867, 50),
+                                   (77, 1001, 1), (1001, 77, 128),
+                                   (13714, 20, 20), (100000, 64, 150)])
+def test_plan_tall_covers_the_reduction(R, J, k, bf16):
+    """Stream-K: the runs of the blocks cover every (tile, stage) unit once,
+    in order, in lengths that differ by at most one, and touch at most two
+    tiles each."""
+    depth = rhs_tall.TALL_DEPTH[torch.bfloat16 if bf16 else torch.float32]
+    blocks = rhs_tall.plan_tall(R, J, k, bf16)
+    assert blocks == rhs_tall.plan_tall(R, J, k, bf16)
+    tiles, spt = -(-J // rhs_tall.TALL_COLS), -(-R // depth)
+    assert tiles <= blocks <= max(tiles, 2 * rhs_tall.H100_SMS)
+    assert blocks <= tiles * spt
+    runs = rhs_tall.tall_runs(R, J, bf16, blocks)
+    units = [(t, f + i) for pieces in runs for t, f, n in pieces
+             for i in range(n)]
+    assert units == [(t, s) for t in range(tiles) for s in range(spt)]
+    lengths = [sum(n for _, _, n in pieces) for pieces in runs]
+    assert max(lengths) - min(lengths) <= 1 and min(lengths) >= 1
+    assert max(len(pieces) for pieces in runs) <= 2
+    # the same number of blocks on every multiprocessor: two at the pbmc3k
+    # shape (runs that follow the 21 tiles of B = F A, runs across the 108
+    # of B = H A^T), one at the movielens shape, whose runs would otherwise
+    # be two or three stages long
+    sms = rhs_tall.H100_SMS
+    want = {(13714, 2638): 2 * sms - 12, (2638, 13714): 2 * sms,
+            (3867, 610): sms - 2, (610, 3867): sms - 8}
+    if (R, J) in want:
+        assert blocks == want[(R, J)]
+    if blocks % tiles == 0:
+        assert all(len(pieces) == 1 for pieces in runs)
+    assert rhs_tall.pieces_floats(k, blocks) == 2 * blocks * k * 128
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_small_ld_gives_whole_stages(bf16):
+    size = 2 if bf16 else 4
+    for R in (1, 3, 7, 8, 9, 2638, 13714):
+        ld = rhs_tall.small_ld(R, bf16)
+        # whole stages of 256 bytes
+        assert ld >= R and (ld * size) % 256 == 0 and (ld - R) * size < 256
+        assert rhs_tall.small_floats(5, R, bf16) * 4 == \
+            (1 if bf16 else 2) * 5 * ld * size
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_prepare_small_is_what_the_product_reads(bf16):
+    """The small operand prepared for the tall product: rounded to bfloat16
+    to nearest even, or split into TF32 parts that add up to it."""
+    rs = np.random.RandomState(4)
+    X = rs.normal(size=(5, 37)).astype(np.float32)
+    # ties of bfloat16 and of TF32 (10 fraction bits)
+    X[0, :4] = [1 + 2.0 ** -8, 1 + 3 * 2.0 ** -8, 1 + 2.0 ** -11,
+                -(1 + 3 * 2.0 ** -11)]
+    ld = rhs_tall.small_ld(37, bf16)
+    buf = rhs_tall.prepare_small(torch.from_numpy(X), bf16)
+    assert buf.shape == (rhs_tall.small_floats(5, 37, bf16),)
+    if bf16:
+        rows = buf.view(torch.bfloat16).view(5, ld)
+        assert not rows[:, 37:].float().any()
+        got = rows[:, :37]
+        assert torch.equal(got, torch.from_numpy(X).to(torch.bfloat16))
+        assert got[0, :2].float().tolist() == [1.0, 1 + 2.0 ** -6]
+        return
+    assert not buf.view(2, 5, ld)[:, :, 37:].any()
+    hi, lo = buf.view(2, 5, ld)[:, :, :37]
+    for part in (hi, lo):
+        assert not (part.numpy().view(np.uint32) & 0x1FFF).any()
+    # to nearest, ties away from zero
+    assert hi[0, 2:4].tolist() == [1 + 2.0 ** -10, -(1 + 2 * 2.0 ** -10)]
+    assert np.all(np.abs(hi.numpy() - X) <= 2.0 ** -11 * np.abs(X))
+    assert np.all(np.abs(hi.numpy().astype(np.float64) + lo.numpy() - X)
+                  <= 2.0 ** -22 * np.abs(X))
+
+
 # ---------------------------------------------------------------------------
 # Kernel 3: the plain twin against _ns_als_xla
 # ---------------------------------------------------------------------------
@@ -222,16 +299,30 @@ def test_fused_als_checks_its_operands():
 
 def test_phase_count_and_workspace_layout():
     assert fused_als.phase_count(20) == 264
-    plan, offsets, total = fused_als._workspace(13714, 2638, 20, True, 132)
-    assert len(plan) == 4 and len(offsets) == 11
-    assert all(s * c >= R for (s, c), R in zip(plan, (13714, 2638, 13714,
-                                                      2638)))
+    m, n, k = 13714, 2638, 20
+    plan, offsets, total = fused_als._workspace(m, n, k, True, False, 132)
+    assert len(plan) == 4 and len(offsets) == 13
+    assert all(s * c >= R for (s, c), R in zip(plan[2:], (m, n)))
+    assert plan[:2] == [(rhs_tall.plan_tall(m, n, k, False, 132), 0),
+                        (rhs_tall.plan_tall(n, m, k, False, 132), 0)]
+    assert offsets[3] - offsets[2] == rhs_tall.pieces_floats(k, plan[0][0])
     assert plan[2][0] <= fused_als.GRAM_MAX_SPLITS
     assert offsets[0] == 0 and np.all(np.diff(offsets) >= 0)
     assert total > offsets[-1]
     # without an L1 shift on W its shifted right-hand side takes no room
-    assert fused_als._workspace(13714, 2638, 20, False, 132)[2] \
-        == total - 20 * 13714
+    assert fused_als._workspace(m, n, k, False, False, 132)[2] \
+        == total - k * m
+    # the factors prepared as the products' small operands come first, each
+    # row on 16 bytes: two planes of TF32 parts, or bfloat16 values
+    assert offsets[1] == rhs_tall.small_floats(k, m, False)
+    assert offsets[2] - offsets[1] == rhs_tall.small_floats(k, n, False)
+    plan_b, offsets_b, total_b = fused_als._workspace(m, n, k, True, True,
+                                                      132)
+    assert plan_b[:2] == [(rhs_tall.plan_tall(m, n, k, True, 132), 0),
+                          (rhs_tall.plan_tall(n, m, k, True, 132), 0)]
+    assert offsets_b[1] == rhs_tall.small_floats(k, m, True)
+    assert offsets_b[2] - offsets_b[1] == rhs_tall.small_floats(k, n, True)
+    assert offsets_b[1] % 4 == 0 and offsets_b[2] % 4 == 0
 
 
 # ---------------------------------------------------------------------------

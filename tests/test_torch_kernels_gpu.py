@@ -218,7 +218,11 @@ def test_kl_fit_launches_the_batched_kernel_once_per_inner_iteration(
 @pytest.mark.parametrize("k,m,n", [
     (1, 1001, 77), (20, 1001, 77), (50, 3867, 610), (128, 700, 333),
     (150, 300, 260),                 # beyond 128 rows: a second pass
-    (20, 13714, 2638), (7, 31, 5000), (7, 5000, 31)])
+    (20, 13714, 2638), (7, 31, 5000), (7, 5000, 31),
+    # each alignment of A's rows (n = 1, 2, 3 mod 4 and 0 mod 8), k not a
+    # multiple of 8, m and n below one tile of 128 and one past it
+    (7, 100, 90), (20, 129, 129), (50, 127, 259), (1, 129, 258),
+    (150, 131, 512), (128, 257, 515)])
 def test_rhs_tall_kernels_match_plain(cuda, k, m, n, dtype):
     from rcppml_tpu_torch.ops import rhs_tall as rt_
     rs = np.random.RandomState(k + m + n)
@@ -238,6 +242,22 @@ def test_rhs_tall_kernels_match_plain(cuda, k, m, n, dtype):
         assert out.shape == plain.shape and out.dtype == torch.float32
         assert float((out - plain).abs().max()) <= \
             1e-5 * float(plain.abs().max())
+
+
+@pytest.mark.parametrize("k,n", [(7, 77), (20, 258), (150, 515)])
+def test_rhs_tall_rounds_the_small_operand_as_the_twin(cuda, k, n):
+    """Against a bfloat16 identity both products return the small operand
+    as they rounded it: bit for bit ``_round_small``'s rounding."""
+    from rcppml_tpu_torch.ops import rhs_tall as rt_
+    rs = np.random.RandomState(k + n)
+    eye = torch.eye(n, device=cuda, dtype=torch.bfloat16)
+    X = torch.from_numpy(rs.normal(size=(k, n)).astype(np.float32)).to(cuda)
+    # ties between two bfloat16 values round to the even one
+    X[0, :4] = torch.tensor([1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8,
+                             -1.0 - 2.0 ** -8, 2.0 ** -8 * (1 + 2 ** -8)])
+    want = rt_._round_small(X, eye)
+    assert torch.equal(rt_.rhs_tall(X, eye), want)
+    assert torch.equal(rt_.rhs_tall_t(X, eye), want)
 
 
 def test_rhs_tall_refuses_a_strided_matrix(cuda):
