@@ -10,18 +10,22 @@ the card, and times kernels, twins and fits with CUDA events:
 
   * the MSE fit with both solvers at the pbmc3k (13,714 x 2,638, k=20) and
     movielens (3,867 x 610, k=50) shapes: the shared-Gram CD NNLS kernel,
-    bit for bit against its twin;
+    bit for bit against its twin at the main path's shapes and at the edges
+    of its lane-group design, and a rank-1 fit that ends finite on the card
+    and on the CPU;
   * the IRLS fit at the pbmc3k shape: KL at k=16 for 20 iterations, the same
     with the fused weighted-Gram kernel switched on (``RCPPML_FUSED_WGRAM``),
     and NB with zero inflation per row at k=20 for 5 iterations: the
-    per-column-Gram CD NNLS kernel, bit for bit against its twin, and the
+    per-column-Gram CD NNLS kernel, bit for bit against its twin (the same
+    edges), and the
     fused weight + Gram + RHS kernel, within 1e-4 of its twin's largest
     entry;
   * the whole-fit Newton-Schulz ALS (``fused_vmem=True``) at both shapes,
     with float32 and bfloat16 data: the tall-skinny products B = F A and
     B = H A^T within 1e-5 of ``torch.matmul``, the whole-fit kernel within
     1e-4 of its twin after one iteration and within 1e-3 in loss after
-    twenty, all three bitwise repeatable; and the default loop with
+    twenty, every half step within 1e-4 also at k=150 (its k x k section in
+    device memory), all three bitwise repeatable; and the default loop with
     ``bf16_data=True``, multi-restart, callbacks and ``profile=True``;
   * cross-validated and masked fits at the pbmc3k shape (speckled holdout
     at k=16 with both solvers and with the KL loss, a 10% mask at k=20,
@@ -116,18 +120,34 @@ FUSED_PENALTIES = dict(l1_w=0.01, l1_h=0.02, l2_w=0.05, l2_h=0.03)
 CONVERGED_MAXIT, CONVERGED_RTOL = 100, 1e-2
 # (k, n, L1, upper_bound, dead coordinate): every k at every n of the main
 # path's solves, with and without L1, then the special cases; k=128 puts G
-# above 48 KB of shared memory and k=256 beyond it (read-only cache path)
+# above 48 KB of shared memory and k=256 beyond it (read from device memory)
 CD_CASES = [(k, n, l1, 0.0, False) for k in (8, 20, 50, 100, 128)
             for n in (610, 2638, 13714) for l1 in (0.0, 0.25)]
 CD_CASES += [(20, 2638, 0.0, 0.0, True), (50, 610, 0.25, 0.0, True),
              (20, 2638, 0.0, 2.0, False), (100, 610, 0.25, 2.0, False),
              (256, 610, 0.0, 0.0, False)]
+# the lane-group design's edges (csrc/cd_nnls.cuh): one lane; a group of 16
+# (two columns a warp) and one past it; a warp, one and two registers of rows
+# a lane; at a single column, one warp and one lane past it, and a column
+# past a block; plain, and with L1, upper_bound and a dead coordinate
+CD_EDGE_KS = (1, 2, 15, 16, 17, 31, 32, 33, 64, 65)
+CD_EDGE_NS = (1, 33, 2639)
+CD_EDGES = [(k, n, l1, ub, dead) for k in CD_EDGE_KS for n in CD_EDGE_NS
+            for l1, ub, dead in ((0.0, 0.0, False), (0.25, 2.0, True))]
+# past kernel 1's shared-memory route (k <= 241) and past 8 rows a lane
+# (k > 256: the loop variant)
+CD_CASES += CD_EDGES + [(242, 2639, 0.25, 2.0, True), (300, 610, 0.0, 0.0,
+                                                        False)]
 # the same for the per-column-Gram kernel; at k=100 the Gram batch of
-# n=13,714 columns is 549 MB
+# n=13,714 columns is 549 MB; past its shared-memory route (k <= 83) and
+# past 8 rows a lane
 CDB_CASES = [(k, n, l1, 0.0, False) for k in (8, 16, 20, 50, 100)
              for n in (610, 2638, 13714) for l1 in (0.0, 0.25)]
 CDB_CASES += [(16, 2638, 0.0, 0.0, True), (50, 610, 0.25, 0.0, True),
               (16, 2638, 0.0, 2.0, False), (20, 13714, 0.25, 2.0, False)]
+CDB_CASES += CD_EDGES + [(83, 2639, 0.25, 2.0, True),
+                         (84, 2639, 0.25, 2.0, True),
+                         (300, 610, 0.0, 0.0, False)]
 # fused weighted-Gram kernel: (loss_kind, power, theta per "row"/"col"/None)
 WG_KINDS = [("kl", 0.0, None), ("power", 2.0, None), ("power", 3.0, None),
             ("power", 1.5, None), ("nb", 0.0, "row"), ("nb", 0.0, "col")]
@@ -147,6 +167,11 @@ WG5_CASES = [(128, 13714, 68, False, True), (128, 13714, 54, False, True),
              (200, 1001, 7, False, False), (13, 257, 40, True, True),
              (1, 33, 3, True, False)]
 MASK_K128 = 128
+# the rank-deficient fit held card against CPU: (m, n) and k
+RANK1, RANK1_K = (200, 150), 10
+# the whole-fit kernel past the k x k section's shared memory (k > 138: a
+# device-memory scratch), on the movielens matrix
+FUSED_WIDE_K = 150
 # Cholesky solve + clip (kernel 6) against its twin (units in the last
 # place: the kernel keeps the twin's order of operations with _rn
 # intrinsics) and against torch.linalg.cholesky + cholesky_solve + clamp on
@@ -391,6 +416,46 @@ def cd_batched_system(k, n, seed, dead=False):
     return Gb, b - solvers.batched_gram_matvec(Gb, X0), X0
 
 
+def check_cd_kernel(kernel, plain_fn, plan_cd, system, cases):
+    """A CD kernel against its twin in every case: bitwise equal, and a
+    second launch bitwise equal to the first.  Returns the largest absolute
+    difference (0.0 when every case is equal)."""
+    worst = 0.0
+    for k, n, l1, ub, dead in cases:
+        G, B_res, X0 = system(k, n, seed=k * 100003 + n, dead=dead)
+        kw = dict(nonneg=True, maxit=100, upper_bound=ub)
+        out, again = kernel(G, B_res, X0, l1, 5e-6, **kw), \
+            kernel(G, B_res, X0, l1, 5e-6, **kw)
+        torch.cuda.synchronize()
+        plain, sweeps = plain_fn(G, B_res, X0, l1, 5e-6, return_sweeps=True,
+                                 **kw)
+        check(bool(torch.isfinite(out).all()), "finite CD solution")
+        equal = torch.equal(out, plain)
+        worst = max(worst, float((out - plain).abs().max()))
+        plan = plan_cd(k, n)
+        print(f"k={k:3d} n={n:5d} L1={l1} ub={ub} dead={dead}: "
+              f"{'bitwise equal' if equal else f'max {max_ulp(out, plain)} ulp'}"
+              f", {float((out > 0).float().mean()):.3f} of x > 0, sweeps "
+              f"{float(sweeps.float().mean()):.1f} mean {int(sweeps.max())} "
+              f"max; {plan.lanes} lanes x {plan.rows or 'loop'} rows, Gram in "
+              f"{'shared' if plan.gram_shared else 'device'} memory",
+              flush=True)
+        check(equal, f"kernel bitwise equal to the twin at k={k} n={n} "
+              f"L1={l1} ub={ub} dead={dead}")
+        check(torch.equal(out, again),
+              "a second launch on the same inputs is bitwise equal")
+        if dead:
+            # its step is 0: it keeps its warm start, moved onto the bound
+            # where it lies above it (x + (ub - x) may round a last bit off)
+            x0 = X0[k // 2]
+            check(torch.equal(out[k // 2], x0) if ub == 0 else
+                  torch.allclose(out[k // 2], x0.clamp(max=ub), rtol=1e-6,
+                                 atol=0),
+                  "a dead coordinate keeps its warm start")
+        del G, B_res, X0, out, again, plain
+    return worst
+
+
 def wgram_inputs(k, m, bc, seed, theta):
     """Operands of one weight + Gram + RHS call: a nonnegative factor and
     warm start (numpy, seeded), counts with about two thirds zeros (torch
@@ -624,6 +689,37 @@ def check_fused_kernel(cells):
                       f"{label} {name} pen={pen}: {far}")
     return worst_abs, worst_rel
 
+
+
+def check_fused_wide(A, k):
+    """Kernel 3 at a k whose k x k section works in device memory: every
+    half step of MAXIT iterations within FUSED_RTOL_ONE of the twin fed the
+    kernel's state, float32 and bfloat16, with and without L1/L2; MAXIT
+    iterations in one call bitwise repeatable with a finite loss history."""
+    from rcppml_tpu_torch.ops import fused_als as fa
+    shape = dict(m=A.shape[0], n=A.shape[1], k=k)
+    check(fa.kxk_scratch_floats(k) > 0, f"k={k} takes the device-memory route")
+    W0, H0 = fused_start(shape)
+    for bf16 in (False, True):
+        for pen in (False, True):
+            kw = dict(a_bf16=bf16, **(FUSED_PENALTIES if pen else {}))
+            steps = fused_half_steps(A, W0, H0, MAXIT, **kw)
+            out, again = fa.fused_als(A, W0, H0, maxit=MAXIT, **kw), \
+                fa.fused_als(A, W0, H0, maxit=MAXIT, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(out, again)),
+                  "two runs of the whole-fit kernel are bitwise equal")
+            check(bool(torch.isfinite(out[3]).all()),
+                  f"finite loss history: {out[3]}")
+            print(f"{A.shape[0]}x{A.shape[1]} k={k} "
+                  f"{'bf16' if bf16 else 'fp32'} A{', L1/L2' if pen else ''}: "
+                  f"every half step of {MAXIT} within "
+                  f"{max(steps.values()):.2e} of the twin fed the kernel's "
+                  f"state; loss {float(out[3][0]):.6g} -> "
+                  f"{float(out[3][-1]):.6g}; bitwise repeatable", flush=True)
+            check(max(steps.values()) <= FUSED_RTOL_ONE,
+                  f"every half step within {FUSED_RTOL_ONE} of the twin at "
+                  f"k={k} bf16={bf16} pen={pen}: {steps}")
 
 
 @contextlib.contextmanager
@@ -938,28 +1034,9 @@ def main():
         profile_fits(rtt, card)
         return
 
-    phase("3 shared-Gram CD kernel against its plain twin")
-    err_shared = 0.0
-    for k, n, l1, ub, dead in CD_CASES:
-        G, B_res, X0 = cd_system(k, n, seed=k * 100003 + n, dead=dead)
-        out = cd_shared(G, B_res, X0, l1, 5e-6, nonneg=True, maxit=100,
-                        upper_bound=ub)
-        torch.cuda.synchronize()
-        plain = cd_nnls.cd_nnls_shared_plain(G, B_res, X0, l1, 5e-6,
-                                             nonneg=True, maxit=100,
-                                             upper_bound=ub)
-        check(bool(torch.isfinite(out).all()), "finite CD solution")
-        equal = torch.equal(out, plain)
-        ulp = 0 if equal else max_ulp(out, plain)
-        err_shared = max(err_shared, float((out - plain).abs().max()))
-        print(f"k={k:3d} n={n:5d} L1={l1} ub={ub} dead={dead}: "
-              f"{'bitwise equal' if equal else f'max {ulp} ulp'}, "
-              f"{float((out > 0).float().mean()):.3f} of x > 0", flush=True)
-        check(ulp <= ULP_LIMIT, f"kernel within {ULP_LIMIT} ulp of the twin at "
-              f"k={k} n={n} L1={l1} ub={ub} dead={dead}: {ulp}")
-        if dead:
-            check(torch.equal(out[k // 2], X0[k // 2]),
-                  "a dead coordinate keeps its warm start")
+    phase("3 shared-Gram CD kernel against its plain twin (bitwise)")
+    err_shared = check_cd_kernel(cd_shared, cd_nnls.cd_nnls_shared_plain,
+                                 cd_nnls.plan_cd, cd_system, CD_CASES)
 
     phase("4 MSE path, CD solver")
     A_pb = simulated(PBMC)
@@ -1015,33 +1092,27 @@ def main():
           f"cholesky_clip, no torch.linalg.cholesky; loss "
           f"{hist[0]:.6g} -> {hist[-1]:.6g}; mse {mse:.6g} < var(A) "
           f"{var:.6g}", flush=True)
+    # a rank-1 matrix, whose ridged fp32 Grams are close to singular: the
+    # card (kernel 6) and the CPU (cholesky_ex, or kernel 6's twin where
+    # LAPACK refuses) both run to the end with finite losses
+    rs = np.random.default_rng(0)
+    A_r1 = np.outer(rs.random(RANK1[0]), rs.random(RANK1[1])).astype(
+        np.float32)
+    r1 = {dev: rtt.nmf(A_r1, RANK1_K, maxit=10, tol=0, seed=1, device=dev)
+          for dev in ("cuda", "cpu")}
+    for dev, res in r1.items():
+        print(f"rank-1 {RANK1[0]}x{RANK1[1]}, k={RANK1_K}, on the {dev}: "
+              f"loss {res.loss_history[0]:.6g} -> {res.loss_history[-1]:.6g}",
+              flush=True)
+    check(all(np.isfinite(res.loss_history).all() and np.isfinite(res.W).all()
+              and np.isfinite(res.H).all() for res in r1.values()),
+          "the rank-1 fit ends finite on the card and on the CPU")
 
-    phase("6 per-column-Gram CD kernel against its plain twin")
-    err_batched = 0.0
-    for k, n, l1, ub, dead in CDB_CASES:
-        Gb, B_res, X0 = cd_batched_system(k, n, seed=k * 100003 + n,
-                                          dead=dead)
-        out = cd_batched(Gb, B_res, X0, l1, 5e-6, nonneg=True, maxit=100,
-                         upper_bound=ub)
-        torch.cuda.synchronize()
-        plain, sweeps = cd_nnls_batched.cd_nnls_batched_plain(
-            Gb, B_res, X0, l1, 5e-6, nonneg=True, maxit=100, upper_bound=ub,
-            return_sweeps=True)
-        check(bool(torch.isfinite(out).all()), "finite CD solution")
-        equal = torch.equal(out, plain)
-        ulp = 0 if equal else max_ulp(out, plain)
-        err_batched = max(err_batched, float((out - plain).abs().max()))
-        print(f"k={k:3d} n={n:5d} L1={l1} ub={ub} dead={dead}: "
-              f"{'bitwise equal' if equal else f'max {ulp} ulp'}, "
-              f"{float((out > 0).float().mean()):.3f} of x > 0, sweeps "
-              f"{float(sweeps.float().mean()):.1f} mean {int(sweeps.max())} "
-              f"max", flush=True)
-        check(ulp <= ULP_LIMIT, f"kernel within {ULP_LIMIT} ulp of the twin at "
-              f"k={k} n={n} L1={l1} ub={ub} dead={dead}: {ulp}")
-        if dead:
-            check(torch.equal(out[k // 2], X0[k // 2]),
-                  "a dead coordinate keeps its warm start")
-        del Gb, B_res, X0, out, plain
+    phase("6 per-column-Gram CD kernel against its plain twin (bitwise)")
+    err_batched = check_cd_kernel(cd_batched,
+                                  cd_nnls_batched.cd_nnls_batched_plain,
+                                  cd_nnls_batched.plan_cd, cd_batched_system,
+                                  CDB_CASES)
 
     phase("7 fused weight + Gram + RHS kernel against its plain twin "
           f"(within {WGRAM_RTOL} of the twin's largest entry)")
@@ -1217,9 +1288,11 @@ def main():
     phase("10 whole-fit Newton-Schulz ALS kernel against its twin (one "
           f"iteration, and every half step of {MAXIT}, within "
           f"{FUSED_RTOL_ONE}; {MAXIT} iterations in one call: loss within "
-          f"{FUSED_LOSS_RTOL}, float32 factors within {FUSED_FACTOR_TOL})")
+          f"{FUSED_LOSS_RTOL}, float32 factors within {FUSED_FACTOR_TOL}; "
+          f"half steps also at k={FUSED_WIDE_K})")
     cells = {"movielens": (A_ml, MOVIELENS), "pbmc3k": (A_pb, PBMC)}
     err_fused, rel_fused = check_fused_kernel(cells)
+    check_fused_wide(A_ml, FUSED_WIDE_K)
 
     phase("11 fused_vmem path, bf16_data, multi-restart, callbacks, profile")
     phases = fused_als.phase_count(MAXIT)
@@ -1573,20 +1646,25 @@ def main():
         return G, B - G @ X0, X0
 
     def cd_report(label, k, n, gram_floats, ms, plain_ms, sweeps):
-        """Print one solve's times beside its bound; returns the bound."""
+        """Print one solve's times beside its bound and the time of one
+        coordinate step of the slowest column (time / (max sweeps x k));
+        returns the bound and that step."""
         col_sweeps = int(sweeps.sum())
         bound, by = bound_ms(4 * (gram_floats + 3 * k * n),
                              2 * k * k * col_sweeps)
+        step_us = ms * 1e3 / (int(sweeps.max()) * k)
         print(f"solve {label}: kernel {ms:.4f} ms, plain twin "
               f"{plain_ms:.4f} ms, bound {bound:.5f} ms by {by}; sweeps "
-              f"{col_sweeps / n:.2f} mean {int(sweeps.max())} max  [{card}]",
+              f"{col_sweeps / n:.2f} mean {int(sweeps.max())} max; "
+              f"{step_us:.4f} us a step of the slowest column  [{card}]",
               flush=True)
-        return bound, by
+        return bound, by, step_us
 
     times = {}
     for label, res, A, side in (("(20, 2638) H side", res_cd, A_pb, "H"),
                                 ("(20, 13714) W side", res_cd, A_pb, "W"),
-                                ("(50, 610) H side", res_ml, A_ml, "H")):
+                                ("(50, 610) H side", res_ml, A_ml, "H"),
+                                ("(50, 3867) W side", res_ml, A_ml, "W")):
         G, B_res, X0 = solve_inputs(res, A, side)
         ms = cuda_ms(lambda: cd_shared(G, B_res, X0, 0.0, 5e-6, nonneg=True,
                                        maxit=100))
@@ -1625,6 +1703,10 @@ def main():
         B_res = b - solvers.batched_gram_matvec(Gb, X)
         ms = cuda_ms(lambda: cd_batched(Gb, B_res, X, 0.0, 5e-6, nonneg=True,
                                         maxit=100))
+        held_mib = torch.cuda.memory_allocated() / 2**20
+        solve_mib = peak_mib(lambda: cd_batched(Gb, B_res, X, 0.0, 5e-6,
+                                                nonneg=True, maxit=100)) \
+            - held_mib
         plain_ms = cuda_ms(lambda: cd_nnls_batched.cd_nnls_batched_plain(
             Gb, B_res, X, 0.0, 5e-6, nonneg=True, maxit=100))
         _, sweeps = cd_nnls_batched.cd_nnls_batched_plain(
@@ -1633,6 +1715,9 @@ def main():
         times["batched " + label] = (ms, plain_ms, *cd_report(
             "cd_nnls_batched " + label, k, bc, bc * k * k, ms, plain_ms,
             sweeps))
+        print(f"  peak device memory of the solve above what was held "
+              f"before it: {solve_mib:.1f} MiB (the Gram batch "
+              f"{bc * k * k * 4 / 2**20:.1f} MiB)", flush=True)
         if "movielens" in label:
             continue
         ms = cuda_ms(lambda: wg(F, X, A_blk, **kw))
@@ -1805,6 +1890,15 @@ def main():
                   f"  [{card}]", flush=True)
             if not bf16:
                 times[f"fused_als {label}"] = (ms, plain_ms, bound, by)
+    # past k = 138: the k x k section in device memory
+    wide = dict(MOVIELENS, k=FUSED_WIDE_K)
+    W0, H0 = fused_start(wide)
+    ms = cuda_ms(lambda: fused(A_ml, W0, H0, maxit=MAXIT))
+    plain_ms = cuda_ms(lambda: fused_als.fused_als_plain(A_ml, W0, H0,
+                                                         maxit=MAXIT), reps=3)
+    print(f"fused_als movielens k={FUSED_WIDE_K} float32 A, {MAXIT} "
+          f"iterations (k x k section in device memory): kernel sequence "
+          f"{ms:.3f} ms, plain twin {plain_ms:.3f} ms  [{card}]", flush=True)
 
     fits = ((f"pbmc3k k=20 MSE CD, {MAXIT} iterations",
              lambda: mse_cd_fit(rtt, A_pb)),
@@ -1890,9 +1984,13 @@ def main():
         and RHS together, or a whole fit.  A fifth number in ``times[key]``
         is the time of the PyTorch calls the kernel replaced.  ``bf16_key``:
         the same kernel's times with a bfloat16 A, as extra keys."""
-        ms, plain_ms, bound, by, *lib_ms = times[key]
-        if lib_ms:
-            library_ms = lib_ms[0]
+        ms, plain_ms, bound, by, *extra = times[key]
+        step = {}
+        if name.startswith("cd_nnls"):
+            # the CD kernels' fifth number: a step of the slowest column
+            step = {"step_us": extra.pop(0)}
+        if extra:
+            library_ms = extra[0]
         else:
             library_ms = plain_ms if library else None
         return {"name": name, "route": "cuda",
@@ -1901,7 +1999,7 @@ def main():
                 "launches": launches, "max_abs_err": err,
                 "max_rel_err": rel, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                "library_ms": library_ms,
+                "library_ms": library_ms, **step,
                 **({} if bf16_key is None else dict(zip(
                     ("bf16_ms", "bf16_library_ms", "bf16_bound_ms"),
                     times[bf16_key][:3])))}

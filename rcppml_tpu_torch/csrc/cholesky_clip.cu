@@ -26,8 +26,11 @@
 // in its own column, coalesced across the warp.
 //
 // A pivot that is not above 1e-30 (G not positive definite, or NaN) is
-// replaced by 1e-30: the solve ends with finite or NaN garbage in X instead
-// of hanging or raising, as the per-column solver batched_spd_solve does.
+// replaced by G's own diagonal entry, or by 1e-30 where that is not above it
+// either: the solve ends with a finite, damped X (NaN only from a NaN in G)
+// instead of hanging or raising.  A rank-deficient fp32 Gram can meet this
+// even with the fit's ridge, where rounding leaves a pivot at or below zero;
+// a floor of 1e-30 alone then divides by 1e-15 and the fit ends in NaN.
 //
 // Bound on the H100: float32 operations outside the tensor cores, k^3 / 3 for
 // the factorization plus 2 k^2 n for the substitutions, against one read of
@@ -64,7 +67,10 @@ chol_factor_kernel(const float* __restrict__ G, float* L, int k, int ld,
 
   for (int j = 0; j < k; ++j) {
     float piv = S[j * sld + j];
-    piv = piv > kPivotFloor ? piv : kPivotFloor;
+    if (!(piv > kPivotFloor)) {
+      const float g = G[static_cast<size_t>(j) * k + j];
+      piv = g > kPivotFloor ? g : kPivotFloor;
+    }
     const float d = __fsqrt_rn(piv);
     __syncthreads();  // every thread has read the pivot
     for (int a = j + tid; a < k; a += nthreads)

@@ -31,9 +31,11 @@
 // ring fed by producer warps); the row normalisation that writes a factor also
 // writes it prepared as the next product's small operand (rounded to
 // bfloat16, or split into TF32 parts for a float32 A).
-// The Grams and Ginv . B are rhs_tall.cuh's float32 FMA tile.  The k x k work (ridge, seed, rescale, Newton-Schulz) runs
-// in one block with G, X and a scratch matrix in shared memory; the warm
-// starts live in device memory between iterations.  A factor row's sum, its
+// The Grams and Ginv . B are rhs_tall.cuh's float32 FMA tile.  The k x k
+// work (ridge, seed, rescale, Newton-Schulz) runs in one block with G, X and
+// a scratch matrix in shared memory (k <= 138), or beyond that in a
+// device-memory scratch the wrapper allocates; the warm starts live in
+// device memory between iterations.  A factor row's sum, its
 // division and its share of the loss's cross term belong to one block, and
 // every sum across blocks (Gram, row sums, cross, recon) is a set of partials
 // added in the order of their index: no atomics, the same bits every run.
@@ -48,7 +50,7 @@
 namespace {
 
 constexpr int kKxkThreads = 1024;
-constexpr int kKxkColsMax = 5;   // 32-column groups per lane: k <= 160
+constexpr int kKxkColsMax = 5;   // 32-column groups per lane and pass
 constexpr int kRowThreads = 256;
 
 
@@ -66,12 +68,13 @@ __device__ float block_sum(float v, float* scratch) {
   return total;
 }
 
-// Out = A . B for k x k matrices in shared memory with row stride ld, or
-// Out = 2 I - A . B.  A warp owns kRows rows at a time, a lane the kCols
-// columns lane + 32 c (kCols = ceil(k / 32)).  Rows and columns beyond k are
-// computed on a clamped index and never written, so the inner loop has no
-// branch.  Out may be A itself: a warp reads only its own rows of A and
-// writes them after its last read.
+// Out = A . B for k x k matrices with row stride ld (in shared memory, or in
+// the device-memory scratch), or Out = 2 I - A . B.  A warp owns kRows rows
+// at a time, a lane the kCols columns c0 + lane + 32 c of a pass over the
+// columns from c0 (one pass while k <= 32 kCols).  Rows and columns beyond k
+// are computed on a clamped index and never written, so the inner loop has
+// no branch.  Out may be A itself while one pass covers k: a warp reads only
+// its own rows of A and writes them after its last read.
 template <int kCols, int kRows>
 __device__ __forceinline__ void kxk_product(const float* A, const float* B,
                                             float* Out, int k, int ld,
@@ -79,41 +82,44 @@ __device__ __forceinline__ void kxk_product(const float* A, const float* B,
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const int warps = blockDim.x / 32;
-  int col[kCols];
+  for (int c0 = 0; c0 < k; c0 += 32 * kCols) {
+    int col[kCols];
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) col[c] = min(lane + 32 * c, k - 1);
-  for (int ib = kRows * warp; ib < k; ib += kRows * warps) {
-    const float* row[kRows];
+    for (int c = 0; c < kCols; ++c) col[c] = min(c0 + lane + 32 * c, k - 1);
+    for (int ib = kRows * warp; ib < k; ib += kRows * warps) {
+      const float* row[kRows];
 #pragma unroll
-    for (int q = 0; q < kRows; ++q) row[q] = A + min(ib + q, k - 1) * ld;
-    float acc[kRows][kCols];
-#pragma unroll
-    for (int q = 0; q < kRows; ++q)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[q][c] = 0.f;
-#pragma unroll 4
-    for (int l = 0; l < k; ++l) {
-      float a[kRows], b[kCols];
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) a[q] = row[q][l];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) b[c] = B[l * ld + col[c]];
+      for (int q = 0; q < kRows; ++q) row[q] = A + min(ib + q, k - 1) * ld;
+      float acc[kRows][kCols];
 #pragma unroll
       for (int q = 0; q < kRows; ++q)
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[q][c] = fmaf(a[q], b[c], acc[q][c]);
-    }
-    __syncwarp();
+        for (int c = 0; c < kCols; ++c) acc[q][c] = 0.f;
+#pragma unroll 4
+      for (int l = 0; l < k; ++l) {
+        float a[kRows], b[kCols];
 #pragma unroll
-    for (int q = 0; q < kRows; ++q) {
-      const int i = ib + q;
+        for (int q = 0; q < kRows; ++q) a[q] = row[q][l];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int j = lane + 32 * c;
-        if (i < k && j < k) {
-          float v = acc[q][c];
-          if (two_i_minus) v = (i == j ? 2.f : 0.f) - v;
-          Out[i * ld + j] = v;
+        for (int c = 0; c < kCols; ++c) b[c] = B[l * ld + col[c]];
+#pragma unroll
+        for (int q = 0; q < kRows; ++q)
+#pragma unroll
+          for (int c = 0; c < kCols; ++c)
+            acc[q][c] = fmaf(a[q], b[c], acc[q][c]);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) {
+        const int i = ib + q;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          const int j = c0 + lane + 32 * c;
+          if (i < k && j < k) {
+            float v = acc[q][c];
+            if (two_i_minus) v = (i == j ? 2.f : 0.f) - v;
+            Out[i * ld + j] = v;
+          }
         }
       }
     }
@@ -149,19 +155,23 @@ __device__ float norm_product(const float* M, int k, int ld, float* sums) {
 // refined from the warm start in `ginv` (or, with seed != 0, from
 // G^T / (|G|_1 |G|_inf)) and written back to `ginv`.  With g_free != null the
 // ridge goes on first, that Gram (free of l2) is written to g_free for the
-// loss, and l2 is added after.
+// loss, and l2 is added after.  G, X and T live in shared memory, or, with
+// scratch != null (k x k matrices too large for it), in `scratch` with a
+// fourth matrix U that takes X T out of place; the 2k sums stay in shared
+// memory.  Each entry sees the same operations in the same order either way.
 template <int kCols>
 __global__ void __launch_bounds__(kKxkThreads)
     kxk_refine_kernel(const float* __restrict__ P, int splits, int k,
                       float ridge_scale, float l2, int seed,
                       float* __restrict__ ginv, float* __restrict__ g_free,
-                      int ns_steps) {
+                      int ns_steps, float* scratch) {
   extern __shared__ float shared[];
   const int ld = k | 1;   // odd: a walk down a column meets every bank
-  float* G = shared;
+  float* G = scratch != nullptr ? scratch : shared;
   float* X = G + k * ld;
   float* T = X + k * ld;
-  float* sums = T + k * ld;
+  float* U = scratch != nullptr ? T + k * ld : nullptr;
+  float* sums = scratch != nullptr ? shared : T + k * ld;
   const int tid = threadIdx.x;
   const int kk = k * k;
   // rows of a k x k product that a warp computes at a time: 2 keep all 32
@@ -207,7 +217,14 @@ __global__ void __launch_bounds__(kKxkThreads)
   __syncthreads();
   for (int step = 0; step < ns_steps; ++step) {
     kxk_product<kCols, kRows>(G, X, T, k, ld, true);    // T = 2 I - G X
-    kxk_product<kCols, kRows>(X, T, X, k, ld, false);   // X = X T, in place
+    if (U == nullptr) {
+      kxk_product<kCols, kRows>(X, T, X, k, ld, false);  // X = X T, in place
+    } else {
+      kxk_product<kCols, kRows>(X, T, U, k, ld, false);  // U = X T
+      float* swap = X;
+      X = U;
+      U = swap;
+    }
   }
   for (int e = tid; e < kk; e += blockDim.x) ginv[e] = X[(e / k) * ld + e % k];
 }
@@ -284,40 +301,45 @@ size_t kxk_shared_bytes(int k) {
   return (static_cast<size_t>(3) * k * (k | 1) + 2 * k) * sizeof(float);
 }
 
+// `scratch` is null where kxk_shared_bytes(k) fits one block's shared
+// memory, else 4 k (k | 1) floats of device memory.
 template <int kCols>
 cudaError_t launch_refine(const float* P, int splits, int k, float ridge_scale,
                           float l2, int seed, float* ginv, float* g_free,
-                          int ns_steps, cudaStream_t stream) {
-  const size_t shared = kxk_shared_bytes(k);
+                          int ns_steps, float* scratch, cudaStream_t stream) {
+  const size_t shared = scratch != nullptr ? 2 * k * sizeof(float)
+                                           : kxk_shared_bytes(k);
   cudaError_t err = cudaFuncSetAttribute(
       kxk_refine_kernel<kCols>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(shared));
   if (err != cudaSuccess) return err;
   kxk_refine_kernel<kCols><<<1, kKxkThreads, shared, stream>>>(
-      P, splits, k, ridge_scale, l2, seed, ginv, g_free, ns_steps);
+      P, splits, k, ridge_scale, l2, seed, ginv, g_free, ns_steps, scratch);
   return cudaGetLastError();
 }
 
-// The refine with as many 32-column groups as k needs.
+// The refine with as many 32-column groups as k needs (passes of
+// kKxkColsMax groups beyond).
 cudaError_t enqueue_refine(const float* P, int splits, int k, float ridge_scale,
                            float l2, int seed, float* ginv, float* g_free,
-                           int ns_steps, cudaStream_t stream) {
+                           int ns_steps, float* scratch, cudaStream_t stream) {
   switch ((k + 31) / 32) {
     case 1:
       return launch_refine<1>(P, splits, k, ridge_scale, l2, seed, ginv,
-                              g_free, ns_steps, stream);
+                              g_free, ns_steps, scratch, stream);
     case 2:
       return launch_refine<2>(P, splits, k, ridge_scale, l2, seed, ginv,
-                              g_free, ns_steps, stream);
+                              g_free, ns_steps, scratch, stream);
     case 3:
       return launch_refine<3>(P, splits, k, ridge_scale, l2, seed, ginv,
-                              g_free, ns_steps, stream);
+                              g_free, ns_steps, scratch, stream);
     case 4:
       return launch_refine<4>(P, splits, k, ridge_scale, l2, seed, ginv,
-                              g_free, ns_steps, stream);
+                              g_free, ns_steps, scratch, stream);
     default:
       return launch_refine<kKxkColsMax>(P, splits, k, ridge_scale, l2, seed,
-                                        ginv, g_free, ns_steps, stream);
+                                        ginv, g_free, ns_steps, scratch,
+                                        stream);
   }
 }
 
@@ -345,21 +367,22 @@ enum Buffer {
 // factors; on return they hold the fitted ones, d (k,) the scaling and hist
 // (maxit,) the loss of every iteration.  A (m, n) holds float32, or bfloat16
 // with a_bf16 != 0.  ginv_h and ginv_w are (k, k) scratch for the warm
-// starts.  `offsets` (kBufferCount entries) places the buffers above in
-// `work`; kSmallW holds W prepared on entry.  `plan` holds the blocks of
+// starts.  kxk_scratch is null while the k x k section fits one block's
+// shared memory, else 4 k (k | 1) floats.  `offsets` (kBufferCount entries)
+// places the buffers above in `work`; kSmallW holds W prepared on entry.  `plan` holds the blocks of
 // W A and of H A^T (rhs_tall::launch_tall; each followed by a 0) and the
 // (splits, chunk) of W W^T and H H^T, in that order.  trata points to tr(A^T A) on the device.  *launched gets the
 // number of kernels enqueued.  Returns the cudaError_t of the first launch
 // that failed (0 on success).  Nothing is read back and nothing waits.
 extern "C" int fused_als_launch(
     const void* A, int a_bf16, float* W, float* H, float* d, float* hist,
-    float* ginv_h, float* ginv_w, float* work, const long long* offsets,
+    float* ginv_h, float* ginv_w, float* work, float* kxk_scratch,
+    const long long* offsets,
     const int* plan, const float* trata, int k, int m, int n, int maxit,
     int nonneg, int ns_steps, float l1_w, float l1_h, float l2_w, float l2_h,
     float ridge_scale, int* launched, void* stream) {
   *launched = 0;
-  if (k <= 0 || m <= 0 || n <= 0 || maxit <= 0 || ns_steps < 0 ||
-      k > 32 * kKxkColsMax) {
+  if (k <= 0 || m <= 0 || n <= 0 || maxit <= 0 || ns_steps < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -389,7 +412,7 @@ extern "C" int fused_als_launch(
                                   splits, chunk, s))
 #define REFINE(part, splits, l2, seed, ginv, g_free)                        \
   ENQUEUED(enqueue_refine(part, splits, k, ridge_scale, l2, seed, ginv,     \
-                          g_free, ns_steps, s))
+                          g_free, ns_steps, kxk_scratch, s))
 
   // the first inverses, from the starting factors
   GRAM(W, m, s_gw, c_gw, buf[kPartGramW]);

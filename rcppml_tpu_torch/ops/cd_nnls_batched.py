@@ -3,12 +3,23 @@ plain PyTorch twin.
 
 Replaces the TPU kernel ``rcppml_tpu/ops/pallas_kernels.py::
 cd_nnls_pallas_batched`` (body ``_make_cd_kernel(batched=True)``).  The CUDA
-source is ``csrc/cd_nnls_batched.cu``: one thread per column, which leaves
-its loop when its column freezes.  What bounds it on the H100 is the Gram
-traffic, n * k * k floats read again by every sweep: the wrapper transposes
-the batch once to (k, k, n) so that a warp reads neighbouring floats (that
-copy is part of the kernel's measured time), and the kernel streams it from
-L2 or device memory.
+source is ``csrc/cd_nnls_batched.cu`` with its device code in
+``csrc/cd_nnls.cuh``, which kernel 1 (:mod:`.cd_nnls`) shares: a group of
+lanes per column, each lane holding the residual and solution of its rows in
+registers for the whole solve, the owner lane of a coordinate handing the
+step to the group with one shuffle.  The Grams are read from the (n, k, k)
+batch as it lies, no transposed copy: on the main route each group copies
+its column's Gram once per solve into shared memory (row stride k | 1); a
+Gram too large for eight columns to stay resident on a multiprocessor
+(k > 83) is read from device memory at each step instead.  :func:`plan_cd`
+chooses.
+
+What bounds it on the H100 is the dependent chain of the slowest column
+(max sweeps x k coordinate steps) and the issue rate of all columns' steps;
+then one read of the n k^2 4 bytes of Grams.  The order of operations is the
+twin's (a coordinate step reduces nothing; the sweep's tol runs over the
+coordinates in order), so the kernel equals :func:`cd_nnls_batched_plain`
+bit for bit.
 
 :func:`cd_nnls_batched` launches the kernel for a CUDA tensor and runs
 :func:`cd_nnls_batched_plain` for a CPU tensor; there is no other branch.
@@ -24,9 +35,37 @@ import numpy as np
 import torch
 
 from . import _build
-from .cd_nnls import _scalars
+from .cd_nnls import (BLOCK_RESERVED, LAUNCH_ARGTYPES, SM_SHARED, CDPlan,
+                      _scalars, gram_bytes, lanes_rows, launch, loop_groups)
 
 KERNEL = "cd_nnls_batched"
+# columns that must stay resident on a multiprocessor for a Gram to be kept
+# in shared memory; threads of a block that reads its Grams from device
+# memory
+GRAM_GROUPS_PER_SM, THREADS = 8, 128
+
+
+def plan_cd(k: int, n: int) -> CDPlan:
+    """The launch of the per-column-Gram kernel for a (k, n) solve.  A
+    column's Gram goes to shared memory once per solve while eight such
+    columns fit a multiprocessor (k <= 83), in blocks of one warp: a block
+    holds its shared memory until its slowest column freezes, and one warp
+    a block hands it on soonest (measured at (50, 3,867): 1.13 ms against
+    1.24 with four warps).  Beyond, each group reads its Gram from device
+    memory at every step, in blocks of 128 threads."""
+    if k < 1 or n < 1:
+        raise ValueError(f"plan_cd: k={k} and n={n} must be positive")
+    lanes, rows = lanes_rows(k, n)
+    if rows == 0:
+        groups = loop_groups(k, THREADS // 32)
+        return CDPlan(32, 0, 32 * groups, groups * 8 * k, False,
+                      -(-n // groups))
+    per = gram_bytes(k)
+    if GRAM_GROUPS_PER_SM * (per + BLOCK_RESERVED) <= SM_SHARED:
+        groups = 32 // lanes
+        return CDPlan(lanes, rows, 32, groups * per, True, -(-n // groups))
+    return CDPlan(lanes, rows, THREADS, 0, False,
+                  -(-n // (THREADS // lanes)))
 
 
 def cd_nnls_batched_plain(Gb: torch.Tensor, B_res: torch.Tensor,
@@ -108,10 +147,7 @@ def _library() -> ctypes.CDLL:
     """The built kernel library, with its entry point's C signature."""
     lib = _build.load(KERNEL)
     fn = lib.cd_nnls_batched_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = LAUNCH_ARGTYPES
     fn.restype = ctypes.c_int
     return lib
 
@@ -130,24 +166,10 @@ def cd_nnls_batched(Gb: torch.Tensor, B_res: torch.Tensor, X0: torch.Tensor,
         return cd_nnls_batched_plain(Gb, B_res, X0, L1, cd_tol, nonneg=nonneg,
                                      maxit=maxit, upper_bound=upper_bound)
     k, n = B_res.shape
-    X = X0.clone(memory_format=torch.contiguous_format)  # solved in place
     if n == 0 or maxit <= 0:
-        return X
-    # (n, k, k) -> (k, k, n): neighbouring threads, neighbouring addresses
-    Gt = Gb.permute(1, 2, 0).contiguous()
-    B_work = B_res.clone(memory_format=torch.contiguous_format)
-    l1_, tol_, inv_k_, abs_tol_ = _scalars(k, L1, cd_tol)
-    lib = _library()
-    with torch.cuda.device(B_res.device):
-        stream = torch.cuda.current_stream(B_res.device).cuda_stream
-        err = lib.cd_nnls_batched_launch(
-            Gt.data_ptr(), B_work.data_ptr(), X.data_ptr(), k, n,
-            float(l1_), float(tol_), float(inv_k_), float(abs_tol_),
-            int(bool(nonneg)), int(maxit), float(np.float32(upper_bound)),
-            stream)
-    if err != 0:
-        raise RuntimeError(f"cd_nnls_batched kernel launch failed: CUDA error "
-                           f"{err} (k={k}, n={n})")
+        return X0.clone(memory_format=torch.contiguous_format)
+    X = launch(_library().cd_nnls_batched_launch, KERNEL, Gb, B_res, X0, L1,
+               cd_tol, nonneg, maxit, upper_bound, plan_cd(k, n))
     cd_nnls_batched.launches += 1
     return X
 

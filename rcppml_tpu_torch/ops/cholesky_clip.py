@@ -36,13 +36,18 @@ def cholesky_factor_plain(G: torch.Tensor) -> torch.Tensor:
     """L (k, k), lower triangular, with G = L L^T: k Schur-complement steps on
     the lower triangle, each an elementwise divide, multiply and subtract, in
     the kernel's order.  A pivot that is not above ``PIVOT_FLOOR`` (G not
-    positive definite, or NaN) is replaced by it."""
+    positive definite, or NaN) is replaced by G's own diagonal entry, or by
+    ``PIVOT_FLOOR`` where that is not above it either: a rank-deficient
+    fp32 Gram whose rounding drives a pivot to zero or below then gives a
+    damped, finite solution instead of dividing by 1e-15."""
     k = G.shape[0]
     S = G.clone()
     floor = torch.tensor(PIVOT_FLOOR, dtype=G.dtype, device=G.device)
+    diag = torch.diagonal(G)
+    stand_in = torch.where(diag > floor, diag, floor)
     for j in range(k):
         piv = S[j, j]
-        d = torch.sqrt(torch.where(piv > floor, piv, floor))
+        d = torch.sqrt(torch.where(piv > floor, piv, stand_in[j]))
         col = S[j + 1:, j] / d
         S[j, j] = d
         S[j + 1:, j] = col
@@ -106,12 +111,13 @@ def cholesky_clip(G: torch.Tensor, B: torch.Tensor, *, nonneg: bool = True,
     symmetric positive definite (the caller adds any ridge; only the lower
     triangle is read), B (k, n) -> X (k, n), float32, any k and n.
 
-    A pivot that is not above 1e-30 is replaced by 1e-30 instead of raising
-    as ``torch.linalg.cholesky`` would: a G that is not positive definite
-    gives a finite garbage solution (a NaN in G gives NaN), it does not hang
-    and there is no host read.  On a CUDA tensor this launches the kernels
-    (and raises if a launch fails); on a CPU tensor it runs
-    :func:`cholesky_clip_plain`.
+    A pivot that is not above 1e-30 is replaced by G's own diagonal entry
+    (or by 1e-30 where that is not above it) instead of raising as
+    ``torch.linalg.cholesky`` would: a G that is not positive definite gives
+    a finite solution (a NaN in G gives NaN), it does not hang and there is
+    no host read.  A positive definite G never meets the rule.  On a CUDA
+    tensor this launches the kernels (and raises if a launch fails); on a
+    CPU tensor it runs :func:`cholesky_clip_plain`.
     """
     _check(G, B)
     if not B.is_cuda:

@@ -18,11 +18,15 @@ partials added in a fixed order, so two runs agree bit for bit.
 The TPU kernel pins A in VMEM and its gate counts VMEM bytes.  An H100 keeps
 A in device memory (it stays in the 50 MB L2 when it is small enough), so the
 gate here counts what this kernel needs: device memory for A, the factors and
-the workspaces, and three k x k matrices in one block's shared memory, which
-admits k <= 138.  :func:`fused_vmem_bytes` and :func:`fused_vmem_fits` keep
-the TPU gate's names.  What bounds the fit on the card is two reads of A per
-iteration once A exceeds L2, the 2 k m n operations of each product below
-that, and the serial k x k section, which grows with k^3.
+the workspaces.  The k x k section keeps G, X and a scratch matrix in one
+block's shared memory while they fit (k <= 138) and beyond that works on four
+k x k matrices in a device-memory scratch, so no k is refused; the CPU twin
+takes any k too, as ``_ns_als_xla`` does.  :func:`fused_vmem_bytes` and
+:func:`fused_vmem_fits` keep the TPU gate's names.  What bounds the fit on
+the card is two reads of A per iteration once A exceeds L2, the 2 k m n
+operations of each product below that, and the serial k x k section, which
+grows with k^3 (past k = 138, out of device memory, it is slower than the
+twin's products).
 
 :func:`fused_als` launches the kernels for a CUDA tensor and runs
 :func:`fused_als_plain` for a CPU tensor; there is no other branch.
@@ -66,6 +70,14 @@ def kxk_shared_bytes(k: int) -> int:
     return (3 * k * (k | 1) + 2 * k) * 4
 
 
+def kxk_scratch_floats(k: int) -> int:
+    """Device-memory scratch of the k x k section, in floats: none while
+    :func:`kxk_shared_bytes` fits one block's shared memory, else G, X, a
+    scratch matrix and the out-of-place product's target, each k x (k | 1).
+    """
+    return 0 if kxk_shared_bytes(k) <= SHARED_LIMIT else 4 * k * (k | 1)
+
+
 def _workspace(m: int, n: int, k: int, shifted_w: bool, a_bf16: bool,
                sms: int):
     """The products' plans and the workspace's layout: ``(plan, offsets,
@@ -92,10 +104,12 @@ def fused_vmem_bytes(m: int, n: int, k: int, a_bf16: bool, maxit: int,
                      sms: int = H100_SMS) -> int:
     """Device memory the whole-fit kernel takes, in bytes: the copy of A it
     reads (bfloat16 or float32), both factors twice (the start and the
-    result), d, the loss history, the two warm-start inverses and the
-    workspace of partial sums and right-hand sides."""
+    result), d, the loss history, the two warm-start inverses, the k x k
+    section's scratch (:func:`kxk_scratch_floats`) and the workspace of
+    partial sums and right-hand sides."""
     a_bytes = m * n * (2 if a_bf16 else 4)
-    factors = (2 * (k * m + k * n) + k + maxit + 2 * k * k) * 4
+    factors = (2 * (k * m + k * n) + k + maxit + 2 * k * k
+               + kxk_scratch_floats(k)) * 4
     return a_bytes + factors + _workspace(m, n, k, True, a_bf16, sms)[2] * 4
 
 
@@ -115,20 +129,15 @@ def device_limit(device=None) -> int:
 def fused_vmem_fits(m: int, n: int, k: int, a_bf16: bool, maxit: int,
                     device=None) -> bool:
     sms = device_sms(torch.device(device)) if _card(device) else H100_SMS
-    return (kxk_shared_bytes(k) <= SHARED_LIMIT
-            and fused_vmem_bytes(m, n, k, a_bf16, maxit, sms)
+    return (fused_vmem_bytes(m, n, k, a_bf16, maxit, sms)
             <= device_limit(device))
 
 
 def check_gate(m: int, n: int, k: int, a_bf16: bool, maxit: int,
                device=None) -> None:
     """Raise ValueError, naming the limit, for a fit beyond the gate (of the
-    card ``device``, or of the reference card for the CPU)."""
-    if kxk_shared_bytes(k) > SHARED_LIMIT:
-        raise ValueError(
-            f"fused_vmem: k={k} needs {kxk_shared_bytes(k)} bytes of shared "
-            f"memory for its k x k inverse (limit {SHARED_LIMIT} bytes, "
-            "k <= 138); drop the knob")
+    card ``device``, or of the reference card for the CPU): device memory,
+    whatever k is."""
     sms = device_sms(torch.device(device)) if _card(device) else H100_SMS
     need, limit = fused_vmem_bytes(m, n, k, a_bf16, maxit, sms), \
         device_limit(device)
@@ -265,7 +274,7 @@ def _library() -> ctypes.CDLL:
     """The built kernel library, with its entry point's C signature."""
     lib = _build.load(KERNEL)
     fn = lib.fused_als_launch
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 10
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 11
                    + [ctypes.c_int] * 6 + [ctypes.c_float] * 5
                    + [ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -308,6 +317,9 @@ def fused_als(A: torch.Tensor, W_T0: torch.Tensor, H0: torch.Tensor, *,
     plan, offsets, total = _workspace(m, n, k, l1_w != 0.0, a_bf16,
                                       device_sms(dev))
     work = torch.empty((total,), dtype=f32, device=dev)
+    # the k x k section's matrices, where they do not fit shared memory
+    n_kxk = kxk_scratch_floats(k)
+    kxk = torch.empty((n_kxk,), dtype=f32, device=dev) if n_kxk else None
     # the starting W prepared as the first product's small operand
     prepare_small(W_T0, a_bf16, work[:offsets[1]])
     c_offsets = (ctypes.c_longlong * len(offsets))(*offsets.tolist())
@@ -320,6 +332,7 @@ def fused_als(A: torch.Tensor, W_T0: torch.Tensor, H0: torch.Tensor, *,
             A_k.data_ptr(), int(a_bf16), W.data_ptr(), H.data_ptr(),
             d.data_ptr(), hist.data_ptr(), ginv[0].data_ptr(),
             ginv[1].data_ptr(), work.data_ptr(),
+            kxk.data_ptr() if kxk is not None else None,
             ctypes.addressof(c_offsets), ctypes.addressof(c_plan),
             trata.data_ptr(), k, m, n,
             kw["maxit"], int(kw["nonneg"]), kw["ns_steps"],

@@ -7,7 +7,8 @@ The port of ``rcppml_tpu/ops/solvers.py:32-330``:
     (primitives/cpu/cholesky_clip.hpp:129-164).  A CUDA tensor goes through
     :func:`rcppml_tpu_torch.ops.cholesky_clip.cholesky_clip` (one launch for
     factorization, substitutions and clip, no host read); a CPU tensor to
-    ``torch.linalg.cholesky`` + ``torch.cholesky_solve``.
+    ``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve``, or to kernel 6's
+    twin where LAPACK finds the Gram not positive definite.
   * :func:`cd_nnls_batch` / :func:`cd_nnls_batch_traced` — coordinate-descent
     NNLS (primitives/cpu/nnls_batch.hpp:71-225) through
     :func:`rcppml_tpu_torch.ops.cd_nnls.cd_nnls_shared`: the CUDA kernel for
@@ -26,7 +27,7 @@ import torch
 from .. import constants
 from .cd_nnls import cd_nnls_shared
 from .cd_nnls_batched import cd_nnls_batched
-from .cholesky_clip import cholesky_clip
+from .cholesky_clip import cholesky_clip, cholesky_clip_plain
 
 
 def _ridged(G: torch.Tensor) -> torch.Tensor:
@@ -38,9 +39,20 @@ def _ridged(G: torch.Tensor) -> torch.Tensor:
 
 
 def _chol_solve(G: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """Solve G X = B via Cholesky (G symmetric positive definite, k x k),
-    with the ridge of :func:`_ridged`."""
-    return torch.cholesky_solve(B, torch.linalg.cholesky(_ridged(G)))
+    """Solve G X = B via Cholesky on the CPU, with the ridge of
+    :func:`_ridged`.
+
+    Where LAPACK factors the ridged Gram, ``cholesky_solve``.  Where it finds
+    it not positive definite (rounding can leave a rank-deficient fp32 Gram a
+    pivot at or below zero even with the ridge), the call is solved by kernel
+    6's algorithm (:func:`cholesky_clip_plain`, unclipped), which is what the
+    card computes for every Gram: it never raises.
+    """
+    Gr = _ridged(G)
+    L, info = torch.linalg.cholesky_ex(Gr)
+    if int(info) == 0:
+        return torch.cholesky_solve(B, L)
+    return cholesky_clip_plain(Gr, B, nonneg=False)
 
 
 def cholesky_clip_batch(G: torch.Tensor, B: torch.Tensor, *,
@@ -51,9 +63,9 @@ def cholesky_clip_batch(G: torch.Tensor, B: torch.Tensor, *,
     B must already carry L1 (subtracted) and G must carry L2: features are
     applied upstream, as in the reference (features/sparsity.hpp:41-48).
     The trace-relative ridge is added here on every device.  A CUDA tensor
-    then takes one launch of :func:`cholesky_clip`, which floors a
-    non-positive pivot where ``torch.linalg.cholesky`` raises; a CPU tensor
-    takes the ``torch.linalg`` calls.
+    then takes one launch of :func:`cholesky_clip`, which replaces a pivot
+    that is not positive where ``torch.linalg.cholesky`` raises; a CPU tensor
+    takes :func:`_chol_solve`, which never raises either.
     """
     if B.is_cuda:
         return cholesky_clip(_ridged(G), B, nonneg=nonneg,

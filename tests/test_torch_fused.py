@@ -491,19 +491,25 @@ def test_fused_vmem_l1_bites():
 
 def test_fused_vmem_size_gate():
     from rcppml_tpu_torch.ops.fused_als import (check_gate, fused_vmem_bytes,
-                                                fused_vmem_fits)
-    # both data sets' shapes fit, float32 and bfloat16; k <= 128 is admitted
+                                                fused_vmem_fits,
+                                                kxk_scratch_floats)
+    # both data sets' shapes fit, float32 and bfloat16; so does any k: past
+    # k = 138 the k x k section moves from shared to device memory, which
+    # the bytes count
     assert fused_vmem_fits(13714, 2638, 20, False, 1020)
     assert fused_vmem_fits(3867, 610, 50, True, 1020)
     assert fused_vmem_fits(13714, 2638, 128, False, 100)
     assert fused_vmem_fits(200, 200, 138, False, 100)
-    # the k x k inverse no longer fits one block's shared memory
-    assert not fused_vmem_fits(200, 200, 139, False, 100)
-    # nor a matrix beyond the card's memory
+    assert fused_vmem_fits(200, 200, 139, False, 100)
+    assert fused_vmem_fits(300, 200, 150, False, 100)
+    assert kxk_scratch_floats(138) == 0
+    assert kxk_scratch_floats(139) == 4 * 139 * 139
+    assert fused_vmem_bytes(200, 200, 139, False, 100) - fused_vmem_bytes(
+        200, 200, 138, False, 100) > 4 * kxk_scratch_floats(139)
+    check_gate(300, 200, 150, False, 100)
+    # a matrix beyond the card's memory is refused
     assert not fused_vmem_fits(200000, 100000, 20, False, 100)
     assert fused_vmem_fits(200000, 100000, 20, True, 100)
-    with pytest.raises(ValueError, match="shared memory"):
-        check_gate(200, 200, 139, False, 100)
     with pytest.raises(ValueError, match="device memory"):
         check_gate(200000, 100000, 20, False, 100)
     # bytes are monotone in every argument
@@ -555,11 +561,13 @@ def test_plain_half_steps_compose_to_the_twin(pen, bf16):
         W, H = Wn, Hn
 
 
-def test_fused_vmem_fit_beyond_the_gate_raises():
-    """Nothing dispatches to the default loop instead."""
+def test_fused_vmem_fit_beyond_the_gate_raises(monkeypatch):
+    """Nothing dispatches to the default loop instead: a fit beyond the
+    device-memory gate (here a gate of 1 MiB) raises on the CPU too."""
     rs = np.random.RandomState(0)
     A = rs.rand(150, 145).astype(np.float32)
-    with pytest.raises(ValueError, match="shared memory"):
+    monkeypatch.setattr(fused_als, "DEVICE_LIMIT", 2**20)
+    with pytest.raises(ValueError, match="device memory"):
         rtt.nmf(A, 140, fused_vmem=True, tol=0.0, maxit=2, device="cpu")
 
 
