@@ -25,7 +25,8 @@ the card, and times kernels, twins and fits with CUDA events:
     B = H A^T within 1e-5 of ``torch.matmul``, the whole-fit kernel within
     1e-4 of its twin after one iteration and within 1e-3 in loss after
     twenty, every half step within 1e-4 also at k=150 (its k x k section in
-    device memory), all three bitwise repeatable; and the default loop with
+    a cluster of blocks) and k=257 (in device memory), all three bitwise
+    repeatable; and the default loop with
     ``bf16_data=True``, multi-restart, callbacks and ``profile=True``;
   * cross-validated and masked fits at the pbmc3k shape (speckled holdout
     at k=16 with both solvers and with the KL loss, a 10% mask at k=20,
@@ -87,10 +88,11 @@ REPS = 5
 ULP_LIMIT = 4
 WGRAM_RTOL = 1e-4
 # the card's published peaks (H100 SXM data sheet): device memory rate,
-# float32 rate outside the tensor cores, dense bfloat16 rate
+# float32 rate outside the tensor cores, dense bfloat16 and TF32 rates
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 # tall-skinny products: every k (below, at and past a multiple of 8, and
 # past the 128 rows of one pass) at both data shapes, one odd shape and one
 # shape for each alignment of A's rows that the data shapes miss (n = 3 mod
@@ -158,7 +160,8 @@ WG_SHAPES = [(13714, 2638), (2638, 13714), (3867, 610)]   # (m, bc), all ragged
 # real-valued weights or 0/1, operands as column blocks of wider matrices).
 # k=128 at (13,714, 68) and (13,714, 54) are the blocks of the masked k=128
 # fit's H side.  Within this share of the twin's largest entry: both sum m
-# float32 products, the kernel in row order, cuBLAS in tiles
+# products, the kernel in 3xTF32 on the tensor cores in a fixed order, cuBLAS
+# in float32 tiles
 WG5_RTOL = 2e-5
 WG5_CASES = [(128, 13714, 68, False, True), (128, 13714, 54, False, True),
              (105, 13714, 83, True, False), (138, 2638, 33, True, True),
@@ -169,9 +172,11 @@ WG5_CASES = [(128, 13714, 68, False, True), (128, 13714, 54, False, True),
 MASK_K128 = 128
 # the rank-deficient fit held card against CPU: (m, n) and k
 RANK1, RANK1_K = (200, 150), 10
-# the whole-fit kernel past the k x k section's shared memory (k > 138: a
+# the whole-fit kernel past one block's k x k section (k > 128: a cluster of
+# blocks sharing it through distributed shared memory; k > 256: a
 # device-memory scratch), on the movielens matrix
 FUSED_WIDE_K = 150
+FUSED_SCRATCH_K = 257
 # Cholesky solve + clip (kernel 6) against its twin (units in the last
 # place: the kernel keeps the twin's order of operations with _rn
 # intrinsics) and against torch.linalg.cholesky + cholesky_solve + clamp on
@@ -692,13 +697,16 @@ def check_fused_kernel(cells):
 
 
 def check_fused_wide(A, k):
-    """Kernel 3 at a k whose k x k section works in device memory: every
-    half step of MAXIT iterations within FUSED_RTOL_ONE of the twin fed the
-    kernel's state, float32 and bfloat16, with and without L1/L2; MAXIT
-    iterations in one call bitwise repeatable with a finite loss history."""
+    """Kernel 3 at a k past one block's k x k section (a cluster of blocks,
+    or device memory): every half step of MAXIT iterations within
+    FUSED_RTOL_ONE of the twin fed the kernel's state, float32 and bfloat16,
+    with and without L1/L2; MAXIT iterations in one call bitwise repeatable
+    with a finite loss history."""
     from rcppml_tpu_torch.ops import fused_als as fa
     shape = dict(m=A.shape[0], n=A.shape[1], k=k)
-    check(fa.kxk_scratch_floats(k) > 0, f"k={k} takes the device-memory route")
+    ranks, rows, _, scratch = fa.refine_plan(k)
+    check(rows > 0 and (ranks > 1 or scratch > 0),
+          f"k={k} takes a cluster or the device-memory route")
     W0, H0 = fused_start(shape)
     for bf16 in (False, True):
         for pen in (False, True):
@@ -936,6 +944,9 @@ def profile_fits(rtt, card):
              False),
             ("movielens MSE fused_vmem k=50",
              lambda: fused_fit(rtt, A_ml, MOVIELENS), False),
+            (f"movielens MSE fused_vmem k={FUSED_WIDE_K}",
+             lambda: fused_fit(rtt, A_ml, dict(MOVIELENS, k=FUSED_WIDE_K)),
+             False),
             ("MSE Cholesky k=20", lambda: rtt.nmf(
                 A_pb, PBMC["k"], maxit=MAXIT, tol=0, seed=1), False),
             (f"CV k={CV_K} CD", lambda: cv(solver="cd"), False),
@@ -965,6 +976,43 @@ def profile_fits(rtt, card):
         for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"    {e.self_device_time_total / 1e3:9.2f} ms  "
                   f"{e.count:5d} x  {e.key[:90]}", flush=True)
+        if "fused_vmem" in label:
+            print(f"    kernel 3 by part: {kernel3_parts(prof)}", flush=True)
+
+
+# kernel 3's kernels by part, from their names
+KERNEL3_PARTS = (("Grams", ("cluster_gram", "small_kernel<2, true>",
+                            "small_kernel<4, true>", "small_kernel<8, true>")),
+                 ("refine", ("refine_kernel",)),
+                 ("row normalisation", ("row_normalize",)),
+                 ("products with A", ("tall_kernel", "reduce_pieces")),
+                 ("Ginv B", ("small_kernel",)),
+                 ("loss", ("loss_kernel",)))
+
+
+def kernel3_parts(prof):
+    """Device time of kernel 3's parts in one profiled fit, and the time
+    between its kernels (the span from the first to the last less their
+    sum)."""
+    from torch.autograd import DeviceType
+    spans, times = [], {part: [0.0, 0] for part, _ in KERNEL3_PARTS}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for part, keys in KERNEL3_PARTS:
+            if any(key in e.name for key in keys):
+                times[part][0] += (e.time_range.end - e.time_range.start) / 1e3
+                times[part][1] += 1
+                spans.append((e.time_range.start, e.time_range.end))
+                break
+    if not spans:
+        return "no kernel of the sequence"
+    span = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3
+    busy = sum(t for t, _ in times.values())
+    parts = ", ".join(f"{part} {t:.3f} ms ({n})" for part, (t, n)
+                      in times.items())
+    return (f"{parts}; between kernels {span - busy:.3f} ms of a "
+            f"{span:.3f} ms span")
 
 
 def same_factors(a, b):
@@ -1289,10 +1337,11 @@ def main():
           f"iteration, and every half step of {MAXIT}, within "
           f"{FUSED_RTOL_ONE}; {MAXIT} iterations in one call: loss within "
           f"{FUSED_LOSS_RTOL}, float32 factors within {FUSED_FACTOR_TOL}; "
-          f"half steps also at k={FUSED_WIDE_K})")
+          f"half steps also at k={FUSED_WIDE_K} and {FUSED_SCRATCH_K})")
     cells = {"movielens": (A_ml, MOVIELENS), "pbmc3k": (A_pb, PBMC)}
     err_fused, rel_fused = check_fused_kernel(cells)
     check_fused_wide(A_ml, FUSED_WIDE_K)
+    check_fused_wide(A_ml, FUSED_SCRATCH_K)
 
     phase("11 fused_vmem path, bf16_data, multi-restart, callbacks, profile")
     phases = fused_als.phase_count(MAXIT)
@@ -1660,7 +1709,7 @@ def main():
               flush=True)
         return bound, by, step_us
 
-    times = {}
+    times, added = {}, {}
     for label, res, A, side in (("(20, 2638) H side", res_cd, A_pb, "H"),
                                 ("(20, 13714) W side", res_cd, A_pb, "W"),
                                 ("(50, 610) H side", res_ml, A_ml, "H"),
@@ -1799,23 +1848,36 @@ def main():
             times[f"{name} {label} bf16"] = (ms16, lib16_ms, bound16, by16)
         del A16
 
-    # kernel 5 at the blocks of the masked k=128 fit's H side
+    # kernel 5 at the blocks of the masked k=128 fit's H side, beside its
+    # float32 bound, the floor of its 3xTF32 tensor-core products (three
+    # TF32 products for each float32 one), the twin, and cuBLAS on the
+    # Khatri-Rao operand (k^2 x m, 0.9 GB at k=128, built outside the timed
+    # window): KR @ w + F @ (w * A)
     for bc in (68, 54):
         F, w, A_blk = wg5_inputs(MASK_K128, m_pb, bc, False, True, seed=bc)
         k, m = F.shape
         ms = cuda_ms(lambda: wg5(F, w, A_blk))
         plain_ms = cuda_ms(lambda: weighted_gram.weighted_gram_plain(
             F, w, A_blk))
+        KR = linalg.kr_product(F)
+        lib_ms = cuda_ms(lambda: (KR @ w, F @ (w * A_blk)))
+        del KR
         # per entry of the block: the k (k + 1) / 2 distinct entries of a
         # symmetric Gram, and b (k)
+        flops = 2 * m * bc * (k * (k + 1) // 2 + k)
         bound, by = bound_ms(4 * (k * m + 2 * m * bc + bc * k * k + k * bc),
-                             2 * m * bc * (k * (k + 1) // 2 + k))
-        print(f"weighted Gram + RHS k={k} m={m} bc={bc}: kernel {ms:.4f} ms, "
-              f"plain twin (the library calls it replaces: a batched product "
-              f"over a (bc, k, m) intermediate and a product) "
-              f"{plain_ms:.4f} ms, bound {bound:.5f} ms by {by}  [{card}]",
-              flush=True)
-        times[f"wg5 bc={bc}"] = (ms, plain_ms, bound, by, plain_ms)
+                             flops)
+        floor = 3 * flops / PEAK_TF32_FLOPS * 1e3
+        wc, splits, chunk = weighted_gram.plan_weighted_gram(
+            k, m, bc, rhs_tall.device_sms(F.device))
+        print(f"weighted Gram + RHS k={k} m={m} bc={bc}: kernel {ms:.4f} ms "
+              f"({splits} splits of {chunk} rows, {wc} column pairs a "
+              f"block), plain twin (a batched product over a (bc, k, m) "
+              f"intermediate and a product) {plain_ms:.4f} ms, cuBLAS KR @ w "
+              f"+ F @ (w * A) {lib_ms:.4f} ms, bound {bound:.5f} ms by {by}, "
+              f"3xTF32 floor {floor:.5f} ms  [{card}]", flush=True)
+        times[f"wg5 bc={bc}"] = (ms, plain_ms, bound, by, lib_ms)
+        added[f"wg5 bc={bc}"] = {"floor_3xtf32_ms": floor}
         del F, w, A_blk
 
     # kernel 6 at the solves of the Cholesky fit: device time from a replayed
@@ -1890,15 +1952,22 @@ def main():
                   f"  [{card}]", flush=True)
             if not bf16:
                 times[f"fused_als {label}"] = (ms, plain_ms, bound, by)
-    # past k = 138: the k x k section in device memory
+    # past k = 128: the k x k section in a cluster of blocks
     wide = dict(MOVIELENS, k=FUSED_WIDE_K)
     W0, H0 = fused_start(wide)
     ms = cuda_ms(lambda: fused(A_ml, W0, H0, maxit=MAXIT))
     plain_ms = cuda_ms(lambda: fused_als.fused_als_plain(A_ml, W0, H0,
                                                          maxit=MAXIT), reps=3)
-    print(f"fused_als movielens k={FUSED_WIDE_K} float32 A, {MAXIT} "
-          f"iterations (k x k section in device memory): kernel sequence "
-          f"{ms:.3f} ms, plain twin {plain_ms:.3f} ms  [{card}]", flush=True)
+    m, n, k = MOVIELENS["m"], MOVIELENS["n"], FUSED_WIDE_K
+    with_a, without_a = fused_flops(m, n, k, MAXIT)
+    bound, by = bound_ms(4 * (m * n + 2 * k * (m + n) + k + MAXIT),
+                         with_a + without_a)
+    ranks = fused_als.refine_plan(k)[0]
+    print(f"fused_als movielens k={k} float32 A, {MAXIT} iterations (k x k "
+          f"section in a cluster of {ranks} blocks): kernel sequence "
+          f"{ms:.3f} ms, plain twin {plain_ms:.3f} ms, bound {bound:.4f} ms "
+          f"by {by}  [{card}]", flush=True)
+    times[f"fused_als movielens k={k}"] = (ms, plain_ms, bound, by)
 
     fits = ((f"pbmc3k k=20 MSE CD, {MAXIT} iterations",
              lambda: mse_cd_fit(rtt, A_pb)),
@@ -1999,7 +2068,7 @@ def main():
                 "launches": launches, "max_abs_err": err,
                 "max_rel_err": rel, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                "library_ms": library_ms, **step,
+                "library_ms": library_ms, **step, **added.get(key, {}),
                 **({} if bf16_key is None else dict(zip(
                     ("bf16_ms", "bf16_library_ms", "bf16_bound_ms"),
                     times[bf16_key][:3])))}

@@ -91,6 +91,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32.cuh"
+
 namespace rhs_tall {
 
 // ---------------------------------------------------------------------------
@@ -282,22 +284,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d += A (16 x 8) . B (8 x 8) in TF32
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// x rounded to TF32 (10 fraction bits, to nearest, ties away from zero:
-// cvt.rna.tf32.f32's rounding), in integer operations, which run at four
-// times the rate of the conversion unit
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
 // x as the tall product's small operand, element `at` of a prepared X:
 // with a bfloat16 A rounded to bfloat16 (to nearest even); with a float32 A
 // its TF32 high part, and `plane` elements further on its low part
@@ -306,10 +292,10 @@ __device__ __forceinline__ void store_small(float x, void* P, size_t at,
   if (bf16) {
     static_cast<__nv_bfloat16*>(P)[at] = __float2bfloat16_rn(x);
   } else {
-    const uint32_t hi = to_tf32(x);
+    const uint32_t hi = tf32::round(x);
     uint32_t* w = static_cast<uint32_t*>(P);
     w[at] = hi;
-    w[at + plane] = to_tf32(x - __uint_as_float(hi));
+    w[at + plane] = tf32::round(x - __uint_as_float(hi));
   }
 }
 
@@ -418,7 +404,7 @@ __device__ __forceinline__ void stage_f32(const unsigned char* slot,
     uint32_t ah[4], al[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      ah[q] = to_tf32(a[q]);
+      ah[q] = tf32::round(a[q]);
       al[q] = __float_as_uint(a[q] - __uint_as_float(ah[q]));
     }
 #pragma unroll
@@ -426,9 +412,9 @@ __device__ __forceinline__ void stage_f32(const unsigned char* slot,
       const int off = (8 * nt + g) * kK + r;
       const uint32_t bh0 = Xh[off], bh1 = Xh[off + 4];
       const uint32_t bl0 = Xl[off], bl1 = Xl[off + 4];
-      mma_tf32(big[nt], ah, bh0, bh1);
-      mma_tf32(small[nt], al, bh0, bh1);
-      mma_tf32(small[nt], ah, bl0, bl1);
+      tf32::mma(big[nt], ah, bh0, bh1);
+      tf32::mma(small[nt], al, bh0, bh1);
+      tf32::mma(small[nt], ah, bl0, bl1);
     }
   }
 #pragma unroll

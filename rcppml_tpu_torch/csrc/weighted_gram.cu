@@ -10,7 +10,7 @@
 // rcppml_tpu_torch/ops/weighted_gram.py::weighted_gram_plain) without its
 // (bc, k, m) intermediate F * w_j: that intermediate, k times the size of the
 // data block, is what the TPU kernel exists to avoid, and here it never
-// leaves shared memory and registers.
+// leaves registers.
 //
 // What does not carry over: the TPU kernel's padding of m and bc to its tiles
 // and its transposed (n, m) feed of w and A, both rules of the TPU's layouts.
@@ -18,99 +18,92 @@
 // (a block of columns of a wider matrix is read in place), and masks its own
 // ragged edges.
 //
-// Design.  The TPU grid's sequential m dimension becomes a loop over m-tiles
-// inside the block (wgram_tile.cuh, shared with wgram_rhs.cu): every output is
-// summed by one thread in one fixed order, so there are no atomics and the
-// same inputs give the same bits.  w and A are row-major in j, so a warp
-// stages a row of 32 columns with one coalesced load; a (32 rows x 32 columns)
-// tile of w and of w * A sits in shared memory beside the transposed F tile.
-// Only the blocks that carry b (blockIdx.z == 0) read A.
+// Design (tri_gram.cuh): one triangle of every Gram (k1 <= k2), each entry
+// written to both places, on the tensor cores in 3xTF32 (mma.sync m16n8k8),
+// F's rows staged once a stage in shared memory and reused for every column
+// of the block; the reduction over m split across blocks where the card would
+// otherwise be idle, the splits' partials added in index order by a second
+// kernel.  The TPU grid's sequential m dimension is the loop over stages
+// inside a block.
 //
-// Bound on the H100: float32 multiply-adds outside the tensor cores,
-// 2 * m * bc * (k (k + 1) / 2 + k) operations (the distinct entries of a
-// symmetric Gram, and b) against one read of w and A and one write of Gb.
-// This kernel computes both triangles, 2 * m * bc * (k^2 + k).
+// Bound on the H100: float32 operations, 2 m bc (k (k + 1) / 2 + k) of them
+// (the distinct entries of a symmetric Gram, and b), against one read of w
+// and A and one write of Gb; on the tensor cores in 3xTF32 three TF32
+// products stand for each, so their floor is 3 x 2 m bc (k (k + 1) / 2 + k)
+// operations at the TF32 rate.
 
 #include <cuda_runtime.h>
 
-#include "wgram_tile.cuh"
-
-using namespace wgram_tile;
+#include "tri_gram.cuh"
 
 namespace {
 
-// Shared memory, in floats: Fs[kTileM][fs] (F tile, transposed, zero padded
-// to kp columns), Ws[kTileM][kTileJ], WAs[kTileM][kTileJ].
-__global__ void __launch_bounds__(kMaxThreads)
-weighted_gram_kernel(const float* __restrict__ F, const float* __restrict__ w,
-                     const float* __restrict__ A, float* __restrict__ Gb,
-                     float* __restrict__ b, int k, int m, int bc, int kp,
-                     long long w_ld, long long a_ld) {
-  extern __shared__ __align__(16) float smem[];
-  float* Fs = smem;
-  float* Ws = Fs + kTileM * f_stride(kp);
-  float* WAs = Ws + kTileM * kTileJ;
-
-  const Owner o = owner();
-  const bool carries_b = blockIdx.z == 0;
-
-  Acc acc;
-  clear(acc);
-
-  for (int r0 = 0; r0 < m; r0 += kTileM) {
-    __syncthreads();  // the previous step's readers are done
-    load_f_tile(F, Fs, k, kp, m, r0, o);
-    // w and w * a for the (kTileM, kTileJ) tile, zero beyond m and bc
-    for (int idx = o.tid; idx < kTileM * kTileJ; idx += o.nthreads) {
-      const int r = idx / kTileJ, jj = idx % kTileJ;
-      const long long row = r0 + r;
-      const int j = o.j0 + jj;
-      float wv = 0.f, wa = 0.f;
-      if (row < m && j < bc) {
-        wv = w[row * w_ld + j];
-        if (carries_b) wa = wv * A[row * a_ld + j];
-      }
-      Ws[idx] = wv;
-      WAs[idx] = wa;
-    }
-    __syncthreads();
-    accumulate_tile(Fs, Ws, WAs, k, kp, o, acc);
-  }
-  store_tile(Gb, b, k, bc, o, acc);
+template <int kWc>
+cudaError_t launch_tile(const float* F, const float* w, const float* A,
+                        float* G, float* b, int k, int m, int bc,
+                        long long w_ld, long long a_ld, int splits, int chunk,
+                        cudaStream_t stream) {
+  using namespace tri_gram;
+  constexpr int kWt = kWarps / kWc;
+  const size_t smem = sizeof(float) * kStages * stage_floats(kWc);
+  cudaError_t err = cudaFuncSetAttribute(
+      tile_kernel<kWc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int pairs = (bc + 1) / 2;
+  const dim3 grid((triangle_units(k) + kWt - 1) / kWt,
+                  (pairs + kWc - 1) / kWc, splits);
+  tile_kernel<kWc><<<grid, kThreads, smem, stream>>>(F, w, A, G, b, k, m, bc,
+                                                     w_ld, a_ld, chunk);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // F (k, m) contiguous; w and A (m, bc) with unit column stride and row
 // strides w_ld and a_ld (in floats) -> Gb (bc, k, k), b (k, bc), contiguous;
-// all float32 on the current device.  Returns the cudaError_t of the launch
-// (0 on success).
+// all float32 on the current device.  The plan (rcppml_tpu_torch/ops/
+// weighted_gram.py::plan_weighted_gram): wc column pairs a block (2, 4 or
+// 8), the reduction over m in `splits` ranges of `chunk` rows (a multiple of
+// 32).  With splits > 1, `scratch` holds splits (bc k k + k bc) floats for
+// the partials.  Returns the cudaError_t of the first launch that failed (0
+// on success).
 extern "C" int weighted_gram_launch(const float* F, const float* w,
                                     const float* A, float* Gb, float* b, int k,
                                     int m, int bc, long long w_ld,
-                                    long long a_ld, void* stream) {
-  if (k <= 0 || m <= 0 || bc <= 0 || w_ld < bc || a_ld < bc)
+                                    long long a_ld, int wc, int splits,
+                                    int chunk, float* scratch, void* stream) {
+  if (k <= 0 || m <= 0 || bc <= 0 || w_ld < bc || a_ld < bc || splits <= 0 ||
+      splits > 65535 || chunk <= 0 || chunk % tri_gram::kDepth != 0 ||
+      static_cast<long long>(splits) * chunk < m ||
+      static_cast<long long>(splits - 1) * chunk >= m ||
+      (splits > 1 && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int kp = padded_k(k);
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(kTileM) * f_stride(kp) +
-                       2u * kTileM * kTileJ);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int smem_optin = 0;
-  err = cudaDeviceGetAttribute(&smem_optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > static_cast<size_t>(smem_optin))
-    return static_cast<int>(cudaErrorInvalidValue);   // k beyond about 1,700
-  err = cudaFuncSetAttribute(weighted_gram_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  weighted_gram_kernel<<<grid_shape(k, bc, kp), block_shape(kp), smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      F, w, A, Gb, b, k, m, bc, kp, w_ld, a_ld);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t n_g = static_cast<size_t>(bc) * k * k;
+  float* G = splits > 1 ? scratch : Gb;
+  float* bp = splits > 1 ? scratch + splits * n_g : b;
+  cudaError_t err;
+  switch (wc) {
+    case 2:
+      err = launch_tile<2>(F, w, A, G, bp, k, m, bc, w_ld, a_ld, splits, chunk,
+                           s);
+      break;
+    case 4:
+      err = launch_tile<4>(F, w, A, G, bp, k, m, bc, w_ld, a_ld, splits, chunk,
+                           s);
+      break;
+    case 8:
+      err = launch_tile<8>(F, w, A, G, bp, k, m, bc, w_ld, a_ld, splits, chunk,
+                           s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const size_t total = n_g + static_cast<size_t>(k) * bc;
+  const size_t blocks = (total + 255) / 256;
+  tri_gram::reduce_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096),
+                            256, 0, s>>>(scratch, bp, Gb, b, k, bc, splits);
   return static_cast<int>(cudaGetLastError());
 }

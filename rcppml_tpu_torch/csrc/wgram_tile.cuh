@@ -1,6 +1,5 @@
-// The per-column weighted Gram accumulation shared by wgram_rhs.cu (the fused
-// IRLS weight + Gram + RHS) and weighted_gram.cu (Gram + RHS from given
-// weights), for sm_90a.
+// The per-column weighted Gram accumulation of wgram_rhs.cu (the fused IRLS
+// weight + Gram + RHS, kernel 4), for sm_90a.
 //
 //   Gb[j, k1, k2] = sum_r F[k1, r] * F[k2, r] * w[r, j]
 //   b[k1, j]      = sum_r F[k1, r] * wa[r, j]

@@ -10,23 +10,27 @@ iteration) and returns; the host reads nothing and decides nothing in between.
 The two products that read A are the tall product of ``csrc/rhs_tall.cuh``
 (:mod:`.rhs_tall`: tensor cores, a ring of ``cp.async`` stages; the kernel
 that normalises a factor also writes it prepared as the next product's small
-operand, and the starting W is prepared here before the call), the Grams and
-Ginv B are that header's float32 FMA tile, the k x k Newton-Schulz work runs
-in one block's shared memory, and every sum across blocks is a set of
-partials added in a fixed order, so two runs agree bit for bit.
+operand, and the starting W is prepared here before the call).  The Grams
+are ``csrc/cluster_gram.cuh``'s (a slab of the factor a block, a partial a
+cluster of eight blocks, :func:`plan_gram`), Ginv B is ``rhs_tall.cuh``'s
+float32 FMA tile, a factor row's normalisation runs in a cluster of eight
+blocks, and the k x k Newton-Schulz work runs where :func:`refine_plan`
+puts it: one block on float32 multiply-adds up to k = 128
+(``csrc/kxk_block.cuh``), a cluster of blocks sharing G, X and T through
+distributed shared memory up to k = 256, a device-memory scratch beyond,
+both on the tensor cores in 3xTF32 (``csrc/kxk_refine.cuh``).  Every sum
+across blocks is a set of partials added in a fixed order, so two runs agree
+bit for bit.
 
 The TPU kernel pins A in VMEM and its gate counts VMEM bytes.  An H100 keeps
 A in device memory (it stays in the 50 MB L2 when it is small enough), so the
 gate here counts what this kernel needs: device memory for A, the factors and
-the workspaces.  The k x k section keeps G, X and a scratch matrix in one
-block's shared memory while they fit (k <= 138) and beyond that works on four
-k x k matrices in a device-memory scratch, so no k is refused; the CPU twin
-takes any k too, as ``_ns_als_xla`` does.  :func:`fused_vmem_bytes` and
-:func:`fused_vmem_fits` keep the TPU gate's names.  What bounds the fit on
-the card is two reads of A per iteration once A exceeds L2, the 2 k m n
+the workspaces (and the k x k scratch past k = 256), so no k is refused; the
+CPU twin takes any k too, as ``_ns_als_xla`` does.  :func:`fused_vmem_bytes`
+and :func:`fused_vmem_fits` keep the TPU gate's names.  What bounds the fit
+on the card is two reads of A per iteration once A exceeds L2, the 2 k m n
 operations of each product below that, and the serial k x k section, which
-grows with k^3 (past k = 138, out of device memory, it is slower than the
-twin's products).
+grows with k^3 (at k = 150, in a cluster, most of the fit).
 
 :func:`fused_als` launches the kernels for a CUDA tensor and runs
 :func:`fused_als_plain` for a CPU tensor; there is no other branch.
@@ -55,8 +59,17 @@ SHARED_LIMIT = 232448
 # no card to ask (the CPU twin) the same share of an 80 GiB card
 DEVICE_SHARE = 0.75
 DEVICE_LIMIT = 60 * 2**30
-# Gram partials are summed by one block: keep them few
+# Gram partials are summed by one block: keep them few.  The cluster Gram
+# (csrc/cluster_gram.cuh): columns of F a block, blocks a cluster, threads a
+# block
 GRAM_MAX_SPLITS = 32
+GRAM_CHUNK, GRAM_CLUSTER, GRAM_THREADS = 128, 8, 256
+# the k x k section: one block on float32 multiply-adds up to KXK_BLOCK_K
+# (csrc/kxk_block.cuh); beyond, csrc/kxk_refine.cuh: the cluster sizes it
+# tries, warps a block at most, output tiles a warp may hold for the
+# in-place product, floats of the small reductions beside the column sums
+KXK_BLOCK_K = 128
+KXK_RANKS, KXK_WARPS, KXK_HELD, KXK_REDUCTIONS = (2, 4), 16, 8, 64
 
 
 def phase_count(maxit: int) -> int:
@@ -64,33 +77,81 @@ def phase_count(maxit: int) -> int:
     return 4 + 13 * maxit
 
 
-def kxk_shared_bytes(k: int) -> int:
-    """Shared memory of the k x k block: G, X and a scratch matrix with an
-    odd row stride, and 2k sums."""
-    return (3 * k * (k | 1) + 2 * k) * 4
+def refine_plan(k: int) -> tuple[int, int, int, int]:
+    """Where the k x k section runs: ``(ranks, rows, threads,
+    scratch_floats)``.
+
+    Up to ``KXK_BLOCK_K`` (128) one block on float32 multiply-adds with G,
+    X and T in its shared memory (``csrc/kxk_block.cuh``; ``rows`` 0), a
+    warp an (8 ri) x 16 tile of a product (ri rows a thread: 1 up to k = 32,
+    2 up to 64, else 4), at least four warps.  Beyond, ``csrc/kxk_refine.cuh``
+    on the tensor cores, with G, X and T in rows of ``ld`` = k rounded up to
+    8, plus 4, floats: a cluster of 2 or 4 blocks each holding ``rows`` of
+    them (a multiple of 16) in shared memory, the first that fits
+    ``SHARED_LIMIT`` with the column sums and small reductions beside them
+    and at most eight of a product's 16 x 8 output tiles a warp; past k =
+    256 one block of 512 threads on four matrices of k rounded up to 16 rows
+    in a device-memory scratch of ``scratch_floats``.  A cluster's block has
+    32 threads a tile of its share of a product, from 256 to 512."""
+    if k <= KXK_BLOCK_K:
+        ri = 1 if k <= 32 else 2 if k <= 64 else 4
+        return 1, 0, 32 * max(4, -(-k // (8 * ri)) * -(-k // 16)), 0
+    kp = -(-k // 8) * 8
+    ld, k16 = kp + 4, -(-k // 16) * 16
+    for ranks in KXK_RANKS:
+        rows = -(-(-(-k16 // ranks)) // 16) * 16
+        tiles = rows // 16 * (kp // 8)
+        need = (3 * rows * ld + kp + KXK_REDUCTIONS) * 4
+        if need <= SHARED_LIMIT and tiles <= KXK_HELD * KXK_WARPS:
+            return ranks, rows, 32 * min(KXK_WARPS, max(8, tiles)), 0
+    return 1, k16, 32 * KXK_WARPS, 4 * k16 * ld
+
+
+def plan_gram(R: int, k: int, sms: int = H100_SMS) -> tuple[int, int, int]:
+    """How a Gram F F^T of kernel 3 (F (k, R)) is cut: ``(partials, chunk,
+    cluster)``.
+
+    With ``cluster`` 1 it is ``csrc/cluster_gram.cuh``'s kernel: blocks of
+    ``chunk`` columns of F (128 up to k = 64, else 64, evened out), in
+    clusters of eight, each cluster one partial Gram, at most
+    ``GRAM_MAX_SPLITS`` of them; with 0 (where a block's slab and partial
+    sums pass its shared memory, k above about 270) it is the FMA tile of
+    ``csrc/rhs_tall.cuh`` over :func:`.rhs_tall.plan_splits`, a partial a
+    split.  A function of the shapes and the card alone."""
+    chunk = GRAM_CHUNK if k <= 64 else GRAM_CHUNK // 2
+    clusters = min(GRAM_MAX_SPLITS, -(-R // (GRAM_CLUSTER * chunk)))
+    chunk = -(-R // (GRAM_CLUSTER * clusters))
+    nb = -(-k // 4) * (-(-k // 4) + 1) // 2
+    shares = 1 if nb >= GRAM_THREADS else GRAM_THREADS // nb
+    floats = -(-k // 4) * 4 * (chunk | 1) + shares * nb * 16
+    if floats * 4 <= SHARED_LIMIT:
+        return clusters, chunk, 1
+    return (*plan_splits(R, k, k, sms, GRAM_MAX_SPLITS), 0)
 
 
 def kxk_scratch_floats(k: int) -> int:
-    """Device-memory scratch of the k x k section, in floats: none while
-    :func:`kxk_shared_bytes` fits one block's shared memory, else G, X, a
-    scratch matrix and the out-of-place product's target, each k x (k | 1).
-    """
-    return 0 if kxk_shared_bytes(k) <= SHARED_LIMIT else 4 * k * (k | 1)
+    """Device-memory scratch of the k x k section, in floats: none while a
+    block or a cluster holds it in shared memory (:func:`refine_plan`), else
+    G, X, T and the out-of-place product's target."""
+    return refine_plan(k)[3]
 
 
 def _workspace(m: int, n: int, k: int, shifted_w: bool, a_bf16: bool,
                sms: int):
     """The products' plans and the workspace's layout: ``(plan, offsets,
-    total)`` with ``plan`` the (blocks, 0) of W A and H A^T and the (splits,
-    chunk) of W W^T and H H^T,
+    total)`` with ``plan`` the (blocks, 0) of W A and H A^T, the (splits,
+    chunk) of W W^T and H H^T (:func:`plan_gram`), the k x k section's
+    (ranks, rows, threads) of :func:`refine_plan` and whether each Gram is
+    the cluster kernel's,
     ``offsets`` the start of each buffer in floats (the order of ``enum
     Buffer`` in the source) and ``total`` the floats in all.  W and H
     prepared as the products' small operands come first, so that their
     16-byte rows start on 16 bytes."""
     plan = [(plan_tall(m, n, k, a_bf16, sms), 0),
             (plan_tall(n, m, k, a_bf16, sms), 0),
-            plan_splits(m, k, k, sms, GRAM_MAX_SPLITS),
-            plan_splits(n, k, k, sms, GRAM_MAX_SPLITS)]
+            plan_gram(m, k, sms)[:2], plan_gram(n, k, sms)[:2],
+            refine_plan(k)[:3],
+            (plan_gram(m, k, sms)[2], plan_gram(n, k, sms)[2])]
     sizes = [small_floats(k, m, a_bf16), small_floats(k, n, a_bf16),
              pieces_floats(k, plan[0][0]), pieces_floats(k, plan[1][0]),
              plan[2][0] * k * k,
@@ -323,7 +384,7 @@ def fused_als(A: torch.Tensor, W_T0: torch.Tensor, H0: torch.Tensor, *,
     # the starting W prepared as the first product's small operand
     prepare_small(W_T0, a_bf16, work[:offsets[1]])
     c_offsets = (ctypes.c_longlong * len(offsets))(*offsets.tolist())
-    c_plan = (ctypes.c_int * 8)(*[v for pair in plan for v in pair])
+    c_plan = (ctypes.c_int * 13)(*[v for part in plan for v in part])
     launched = ctypes.c_int(0)
     lib = _library()
     with torch.cuda.device(dev):

@@ -2,21 +2,26 @@
 plain PyTorch twin.
 
 Replaces the TPU kernel ``rcppml_tpu/ops/pallas_experiments.py::
-weighted_gram_pallas``.  The CUDA source is ``csrc/weighted_gram.cu`` (with
-``csrc/wgram_tile.cuh``, shared with the fused IRLS kernel): per column j of
-a block, ``G_j = F diag(w_j) F^T`` and ``b_j = F (w_j * a_j)``, each entry
-summed over m by one thread in a fixed order (no atomics), both triangles of
-every Gram written.  The (bc, k, m) intermediate ``F * w_j`` of the plain
-version never exists.  What bounds it on the H100 is float32 arithmetic
-outside the tensor cores: 2 m bc (k (k + 1) / 2 + k) operations against one
-read of w and A.
+weighted_gram_pallas``.  The CUDA source is ``csrc/weighted_gram.cu`` with
+its tile in ``csrc/tri_gram.cuh``: per column j of a block, ``G_j = F
+diag(w_j) F^T`` and ``b_j = F (w_j * a_j)``.  It computes one triangle of
+every Gram (k1 <= k2) and writes each entry to both places, on the tensor
+cores in 3xTF32 (each operand split into a TF32 high part and remainder,
+three products, float32 accuracy); the A operand is F's rows scaled by w_j in
+registers, so the (bc, k, m) intermediate ``F * w_j`` of the plain version
+never exists.  Where the triangle's tiles alone would leave the card idle the
+reduction over m is split across blocks, and a second kernel adds the
+splits' partials in the order of their index (:func:`plan_weighted_gram`):
+no atomics, the same bits every run.  What bounds it on the H100 is
+arithmetic: 2 m bc (k (k + 1) / 2 + k) float32 operations, three TF32
+products each on the tensor cores.
 
 :func:`weighted_gram` launches the kernel for a CUDA tensor and runs
 :func:`weighted_gram_plain` for a CPU tensor; there is no other branch.
-``weighted_gram.launches`` counts the kernel's launches.  The port reaches it
-from :func:`rcppml_tpu_torch.ops.linalg.weighted_gram_and_rhs` when the
-Khatri-Rao operand does not fit its budget (large k times m): the masked MSE
-solves and the IRLS solves both go through that function.
+``weighted_gram.launches`` counts the kernel's launches (one a call).  The
+port reaches it from :func:`rcppml_tpu_torch.ops.linalg.weighted_gram_and_rhs`
+when the Khatri-Rao operand does not fit its budget (large k times m): the
+masked MSE solves and the IRLS solves both go through that function.
 """
 
 from __future__ import annotations
@@ -27,8 +32,67 @@ import functools
 import torch
 
 from . import _build
+from .rhs_tall import H100_SMS, device_sms
 
 KERNEL = "weighted_gram"
+# the tile of csrc/tri_gram.cuh: warps a block, rows of m a stage, J tiles of
+# a triangle unit
+TILE_WARPS, TILE_DEPTH, TILE_GROUP = 8, 32, 4
+# the split plan weighs the last wave's idle slots against the partials'
+# traffic and the second launch; these rates only have to stand in the right
+# proportion (3xTF32 products at about 60% of the tensor cores' 495 TFLOP/s,
+# the partials at about 75% of 3.35 TB/s, a launch of a few microseconds)
+PLAN_FLOPS, PLAN_BYTES, PLAN_LAUNCH_S = 3e14, 2.5e12, 3e-6
+MAX_SPLITS, MIN_SPLIT_ROWS = 16, 512
+
+
+def triangle_units(k: int) -> int:
+    """Triangle units of a k x k Gram (``triangle_units`` of the source):
+    per m16 row tile I, the groups of up to four n8 column tiles from 2 I."""
+    col_tiles = -(-k // 8)
+    return sum(-(-(col_tiles - 2 * i) // TILE_GROUP)
+               for i in range(-(-k // 16)))
+
+
+def plan_weighted_gram(k: int, m: int, bc: int,
+                       sms: int = H100_SMS) -> tuple[int, int, int]:
+    """How the kernel cuts its work: ``(wc, splits, chunk)``.
+
+    A block is eight warps, each one triangle unit by one pair of columns:
+    ``wc`` pairs of columns (the smallest power of two that holds them all,
+    from 2 to 8) by ``8 / wc`` units.  The reduction over m runs in
+    ``splits`` ranges of ``chunk`` rows (a multiple of 32), one per
+    ``blockIdx.z``; ``splits`` minimises the estimated time: the products
+    over the blocks' waves (two blocks a multiprocessor, one for ``wc = 2``,
+    whose shared memory is 138 KB), plus the partials written and read again
+    and the second launch when there is more than one split.  Each split
+    keeps at least ``MIN_SPLIT_ROWS`` rows.  A function of the shapes and the
+    card alone, so a call repeats bit for bit."""
+    pairs = -(-bc // 2)
+    wc = min(8, max(2, 1 << (pairs - 1).bit_length()))
+    base = -(-triangle_units(k) // (TILE_WARPS // wc)) * -(-pairs // wc)
+    slots = sms * (2 if wc > 2 else 1)
+    work_s = 6.0 * m * bc * (k * (k + 1) // 2 + k) / PLAN_FLOPS
+    partial_bytes = 4.0 * bc * (k * k + k)
+
+    def cost(splits):
+        blocks = base * splits
+        waves = -(-blocks // slots)
+        t = work_s * waves * slots / blocks
+        if splits > 1:
+            t += (splits + 1) * partial_bytes / PLAN_BYTES + PLAN_LAUNCH_S
+        return t
+
+    top = max(1, min(MAX_SPLITS, m // MIN_SPLIT_ROWS))
+    splits = min(range(1, top + 1), key=lambda s: (cost(s), s))
+    chunk = -(-(-(-m // splits)) // TILE_DEPTH) * TILE_DEPTH
+    return wc, -(-m // chunk), chunk
+
+
+def scratch_floats(k: int, bc: int, splits: int) -> int:
+    """Floats of the partials' scratch: none for one split, else every
+    split's (bc, k, k) Gram batch and (k, bc) right-hand side."""
+    return 0 if splits == 1 else splits * bc * (k * k + k)
 
 
 def weighted_gram_plain(F: torch.Tensor, w: torch.Tensor, A_blk: torch.Tensor):
@@ -63,7 +127,8 @@ def _library() -> ctypes.CDLL:
     fn = lib.weighted_gram_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_void_p]
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -95,12 +160,18 @@ def weighted_gram(F: torch.Tensor, w: torch.Tensor, A_blk: torch.Tensor):
     if m == 0:
         return Gb.zero_(), b.zero_()
     F_c, w_r, A_r = F.contiguous(), _rows(w), _rows(A_blk)
+    wc, splits, chunk = plan_weighted_gram(k, m, bc, device_sms(F.device))
+    n_scratch = scratch_floats(k, bc, splits)
+    scratch = torch.empty((n_scratch,), dtype=torch.float32,
+                          device=F.device) if n_scratch else None
     lib = _library()
     with torch.cuda.device(F.device):
         stream = torch.cuda.current_stream(F.device).cuda_stream
         err = lib.weighted_gram_launch(
             F_c.data_ptr(), w_r.data_ptr(), A_r.data_ptr(), Gb.data_ptr(),
-            b.data_ptr(), k, m, bc, w_r.stride(0), A_r.stride(0), stream)
+            b.data_ptr(), k, m, bc, w_r.stride(0), A_r.stride(0), wc, splits,
+            chunk, scratch.data_ptr() if scratch is not None else None,
+            stream)
     if err != 0:
         raise RuntimeError(f"weighted_gram kernel launch failed: CUDA error "
                            f"{err} (k={k}, m={m}, bc={bc})")

@@ -301,8 +301,11 @@ def test_phase_count_and_workspace_layout():
     assert fused_als.phase_count(20) == 264
     m, n, k = 13714, 2638, 20
     plan, offsets, total = fused_als._workspace(m, n, k, True, False, 132)
-    assert len(plan) == 4 and len(offsets) == 13
-    assert all(s * c >= R for (s, c), R in zip(plan[2:], (m, n)))
+    assert len(plan) == 6 and len(offsets) == 13
+    assert plan[4] == fused_als.refine_plan(k)[:3]
+    # a partial Gram a cluster of blocks (or a split of the FMA tile)
+    assert all(s * c * (fused_als.GRAM_CLUSTER if cl else 1) >= R
+               for (s, c), R, cl in zip(plan[2:4], (m, n), plan[5]))
     assert plan[:2] == [(rhs_tall.plan_tall(m, n, k, False, 132), 0),
                         (rhs_tall.plan_tall(n, m, k, False, 132), 0)]
     assert offsets[3] - offsets[2] == rhs_tall.pieces_floats(k, plan[0][0])
@@ -494,18 +497,18 @@ def test_fused_vmem_size_gate():
                                                 fused_vmem_fits,
                                                 kxk_scratch_floats)
     # both data sets' shapes fit, float32 and bfloat16; so does any k: past
-    # k = 138 the k x k section moves from shared to device memory, which
-    # the bytes count
+    # k = 256 the k x k section moves from the shared memory of one block or
+    # a cluster of blocks to device memory, which the bytes count
     assert fused_vmem_fits(13714, 2638, 20, False, 1020)
     assert fused_vmem_fits(3867, 610, 50, True, 1020)
     assert fused_vmem_fits(13714, 2638, 128, False, 100)
     assert fused_vmem_fits(200, 200, 138, False, 100)
     assert fused_vmem_fits(200, 200, 139, False, 100)
     assert fused_vmem_fits(300, 200, 150, False, 100)
-    assert kxk_scratch_floats(138) == 0
-    assert kxk_scratch_floats(139) == 4 * 139 * 139
-    assert fused_vmem_bytes(200, 200, 139, False, 100) - fused_vmem_bytes(
-        200, 200, 138, False, 100) > 4 * kxk_scratch_floats(139)
+    assert kxk_scratch_floats(138) == kxk_scratch_floats(256) == 0
+    assert kxk_scratch_floats(257) == 4 * 272 * 268
+    assert fused_vmem_bytes(300, 300, 257, False, 100) - fused_vmem_bytes(
+        300, 300, 256, False, 100) > 4 * kxk_scratch_floats(257)
     check_gate(300, 200, 150, False, 100)
     # a matrix beyond the card's memory is refused
     assert not fused_vmem_fits(200000, 100000, 20, False, 100)

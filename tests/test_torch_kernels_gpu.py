@@ -17,8 +17,9 @@ after one iteration in float32 (H also with bfloat16 data; W and d, which see
 H rounded to bfloat16, within 2^-7) and within 1e-3 in loss after twenty
 (1e-2 with bfloat16 data, whose rounding flips ALS amplifies at these small
 sizes).  All three repeat bit for bit.  The per-column weighted Gram + RHS
-kernel sums over m in row order and is held within 2e-5 of its twin's largest
-entry; the Cholesky solve + clip kernel keeps its twin's order of operations
+kernel sums over m in a fixed order (3xTF32 products on the tensor cores, the
+splits' partials added in index order) and is held within 2e-5 of its twin's
+largest entry; the Cholesky solve + clip kernel keeps its twin's order of operations
 with ``_rn`` intrinsics and equals it bit for bit.
 """
 
@@ -344,8 +345,15 @@ def _half_step_errors(fa, A, W0, H0, iters, **kw):
 @pytest.mark.parametrize("m,n,k", [
     (256, 200, 6), (131, 77, 5), (1500, 900, 50), (400, 300, 128),
     (64, 50, 1),
-    (300, 260, 138),                 # the largest k x k section in shared
-    (300, 260, 150)])                # memory, and one in device memory
+    (300, 260, 138), (300, 260, 150),
+    # the k x k section's routes (ops/fused_als.py::refine_plan): one row
+    # of the block design's threads and two, the last k of one block and the
+    # first of a cluster of two, a cluster of four at its largest, device
+    # memory (at 300 x 260 the bfloat16 loss after twenty iterations parts
+    # from the twin's own trajectory by 1.6e-2 already before this design:
+    # k = 128 and 129 run on a larger matrix)
+    (200, 150, 32), (200, 150, 33), (600, 500, 128), (600, 500, 129),
+    (300, 260, 139), (600, 500, 256), (600, 500, 257)])
 def test_fused_als_kernel_matches_plain(cuda, m, n, k, pen, bf16):
     from rcppml_tpu_torch.ops import fused_als as fa
     A, W0, H0 = _fused_inputs(m, n, k, cuda)
@@ -508,11 +516,47 @@ def test_weighted_gram_refuses_what_it_cannot_launch(cuda):
         wg5.weighted_gram(F, w[:-1], A)
     with pytest.raises(ValueError, match="is on"):
         wg5.weighted_gram(F, w.cpu(), A)
-    # k beyond the card's shared memory for the F tile: the launch is refused
-    big = torch.ones((2000, 40), device=cuda)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        wg5.weighted_gram(big, torch.ones((40, 3), device=cuda),
-                          torch.ones((40, 3), device=cuda))
+    # the tile's shared memory does not grow with k: k = 2000, which the
+    # first design refused, launches and agrees with the twin
+    F, w, A = _wg5_inputs(2000, 40, 3, True, cuda)
+    Gb, b = wg5.weighted_gram(F, w, A)
+    Gp, bp = wg5.weighted_gram_plain(F, w, A)
+    assert float((Gb - Gp).abs().max()) <= 2e-5 * float(Gp.abs().max())
+    assert float((b - bp).abs().max()) <= 2e-5 * float(bp.abs().max())
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("bc", [1, 54, 68])
+@pytest.mark.parametrize("k", [1, 5, 13, 105, 138, 200])
+def test_weighted_gram_tile_edges(cuda, monkeypatch, k, bc, splits):
+    """The one-triangle tile (csrc/tri_gram.cuh) at k that is no multiple
+    of its 16 x 8 tiles, at one column and at the masked k=128 fit's blocks,
+    with the reduction over m in one range and split in three; w and A as
+    column blocks of wider matrices for odd k.  Within 2e-5 of the twin's
+    largest entry, both triangles bitwise equal, bitwise repeatable."""
+    from rcppml_tpu_torch.ops import weighted_gram as wg5
+    m = 1500
+    plan = wg5.plan_weighted_gram
+
+    def forced(k_, m_, bc_, sms=132):
+        wc, _, _ = plan(k_, m_, bc_, sms)
+        chunk = -(-(-(-m_ // splits)) // 32) * 32
+        return wc, -(-m_ // chunk), chunk
+
+    monkeypatch.setattr(wg5, "plan_weighted_gram", forced)
+    wide = bc + (40 if k % 2 else 0)
+    F, w, A = _wg5_inputs(k, m, wide, k % 3 == 0, cuda)
+    if k % 2:
+        w, A = w[:, 17:17 + bc], A[:, 17:17 + bc]
+    Gb, b = wg5.weighted_gram(F, w, A)
+    again = wg5.weighted_gram(F, w, A)
+    torch.cuda.synchronize()
+    assert torch.equal(Gb, again[0]) and torch.equal(b, again[1])
+    assert torch.equal(Gb, Gb.transpose(1, 2))
+    Gp, bp = wg5.weighted_gram_plain(F, w, A)
+    assert float((Gb - Gp).abs().max()) <= 2e-5 * float(Gp.abs().max())
+    assert float((b - bp).abs().max()) <= 2e-5 * max(float(bp.abs().max()),
+                                                     1e-30)
 
 
 def _chol_system(k, n, device, seed=0, rank=None):

@@ -78,18 +78,18 @@ VARIANTS = {
     "xsplit": [
         ("static constexpr int kXTiles = 2;",
          "static constexpr int kXTiles = 1;"),
-        ("    const uint32_t hi = to_tf32(x);\n"
+        ("    const uint32_t hi = tf32::round(x);\n"
          "    uint32_t* w = static_cast<uint32_t*>(P);\n"
          "    w[at] = hi;\n"
-         "    w[at + plane] = to_tf32(x - __uint_as_float(hi));",
+         "    w[at + plane] = tf32::round(x - __uint_as_float(hi));",
          "    static_cast<float*>(P)[at] = x;"),
         ("      const uint32_t bh0 = Xh[off], bh1 = Xh[off + 4];\n"
          "      const uint32_t bl0 = Xl[off], bl1 = Xl[off + 4];",
          "      const float x0 = __uint_as_float(Xh[off]);\n"
          "      const float x1 = __uint_as_float(Xh[off + 4]);\n"
-         "      const uint32_t bh0 = to_tf32(x0), bh1 = to_tf32(x1);\n"
-         "      const uint32_t bl0 = to_tf32(x0 - __uint_as_float(bh0));\n"
-         "      const uint32_t bl1 = to_tf32(x1 - __uint_as_float(bh1));")],
+         "      const uint32_t bh0 = tf32::round(x0), bh1 = tf32::round(x1);\n"
+         "      const uint32_t bl0 = tf32::round(x0 - __uint_as_float(bh0));\n"
+         "      const uint32_t bl1 = tf32::round(x1 - __uint_as_float(bh1));")],
     "prod4": [("constexpr int kProducers = 64;",
                "constexpr int kProducers = 128;")],
     "oneblock": [("static constexpr int kBlocksPerSm = NT <= 4 ? 2 : 1;",
