@@ -45,7 +45,7 @@ cudaError_t launch_tile(const float* F, const float* w, const float* A,
                         cudaStream_t stream) {
   using namespace tri_gram;
   constexpr int kWt = kWarps / kWc;
-  const size_t smem = sizeof(float) * kStages * stage_floats(kWc);
+  const size_t smem = shared_bytes(kWc, kGivenW, k);
   cudaError_t err = cudaFuncSetAttribute(
       tile_kernel<kWc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -53,8 +53,8 @@ cudaError_t launch_tile(const float* F, const float* w, const float* A,
   const int pairs = (bc + 1) / 2;
   const dim3 grid((triangle_units(k) + kWt - 1) / kWt,
                   (pairs + kWc - 1) / kWc, splits);
-  tile_kernel<kWc><<<grid, kThreads, smem, stream>>>(F, w, A, G, b, k, m, bc,
-                                                     w_ld, a_ld, chunk);
+  tile_kernel<kWc><<<grid, kThreads, smem, stream>>>(
+      F, w, A, G, b, k, m, bc, w_ld, a_ld, chunk, Fused{});
   return cudaGetLastError();
 }
 

@@ -16,124 +16,80 @@
 //
 // which is compute_irls_weight followed by weighted_gram_and_rhs of the plain
 // twin (rcppml_tpu_torch/ops/wgram.py::weighted_gram_rhs_plain).  mu, w and
-// w * A exist only as shared-memory tiles: they never reach device memory,
-// which is the point of the TPU kernel.
+// w * A exist only in shared memory and registers: they never reach device
+// memory, which is the point of the TPU kernel.
 //
 // What does not carry over: the TPU kernel's bf16 operands, its Khatri-Rao
 // operand KR (k^2, m) and the padding of every operand to (8, 128) tiles.
-// This kernel takes float32, forms F[k1, r] * F[k2, r] itself and masks its
-// own ragged edges.
 //
-// Design.  The TPU grid's sequential m dimension becomes a loop over m-tiles
-// inside the block, so every output is summed by one thread in one fixed
-// order: no atomics, the same inputs give the same bits.  The tiling, the
-// accumulation and the store are wgram_tile.cuh's, shared with
-// weighted_gram.cu: a block owns 32 columns and 8 rows k1 of every column's
-// Gram; grid = (ceil(bc / 32), ceil(k / 8), ceil(k / 64)).  Each block
-// recomputes mu and w for its column tile (k / 8 times the weight arithmetic
-// over the grid, against k^2 / 8 multiply-adds per element for the Gram rows
-// it owns).
+// Design: kernel 5's tile (tri_gram.cuh, shared with weighted_gram.cu) with
+// the weight formed in a prologue of every stage instead of copied: one
+// triangle of every Gram on the tensor cores in 3xTF32, F's rows staged once
+// a stage and reused for every column of the block, the reduction over m
+// split across blocks where the card would otherwise be idle
+// (rcppml_tpu_torch/ops/weighted_gram.py::plan_weighted_gram), the splits'
+// partials added in the order of their index.  No atomics: the same inputs
+// give the same bits.  mu is summed in float32 over c in order, from F's k
+// rows staged with the stage (tri_gram::kFusedStaged) or, for a k whose rows
+// do not fit shared memory, read from device memory (kFusedGlobal).
 //
-// Bound on the H100: float32 multiply-adds outside the tensor cores.  The
-// function needs 2 * m * bc * (k (k + 1) / 2 + 2k) operations (mu, the
-// distinct entries of a symmetric Gram, b) against one read of A; this kernel
-// does 2 * m * bc * (k^2 + 2k) and more, since it computes both triangles and
-// recomputes mu in every row block.
+// Bound on the H100: float32 operations, 2 m bc (k (k + 1) / 2 + 2k) of them
+// (mu, the distinct entries of a symmetric Gram, b) against one read of A;
+// the Gram's and b's products run on the tensor cores as three TF32
+// products each.
 
 #include <cuda_runtime.h>
 
-#include "wgram_tile.cuh"
-
-using namespace wgram_tile;
+#include "tri_gram.cuh"
 
 namespace {
 
-enum LossKind { kKl = 0, kPower = 1, kNb = 2 };
-enum ThetaMode { kThetaNone = 0, kThetaRow = 1, kThetaCol = 2 };
+using namespace tri_gram;
 
-__device__ __forceinline__ float irls_weight(float mu, int loss_kind, float p,
-                                             float theta, float w_cap) {
-  if (loss_kind == kKl) return 1.f / fmaxf(mu, 1e-4f);
-  const float mc = fmaxf(mu, 1e-15f);
-  if (loss_kind == kPower) {
-    float w;
-    if (p == 2.f) {
-      w = 1.f / (mc * mc);
-    } else if (p == 3.f) {
-      w = 1.f / (mc * mc * mc);
-    } else {
-      w = powf(mc, -p);
-    }
-    return fminf(w, w_cap);
-  }
-  const float t = fmaxf(theta, 1e-10f);
-  return fminf(t / (mc * (t + mc)), w_cap);
+template <int kWc, int kMode, int kJ>
+cudaError_t launch_tile(const float* F, const float* A, float* G, float* b,
+                        int k, int m, int bc, int splits, int chunk,
+                        const Fused& fz, cudaStream_t stream) {
+  constexpr int kWt = kWarps / kWc;
+  const size_t smem = shared_bytes(kWc, kMode, k);
+  cudaError_t err = cudaFuncSetAttribute(
+      tile_kernel<kWc, kMode, kJ>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int pairs = (bc + 1) / 2;
+  const dim3 grid((triangle_units(k) + kWt - 1) / kWt,
+                  (pairs + kWc - 1) / kWc, splits);
+  tile_kernel<kWc, kMode, kJ><<<grid, kThreads, smem, stream>>>(
+      F, nullptr, A, G, b, k, m, bc, 0, bc, chunk, fz);
+  return cudaGetLastError();
 }
 
-// Shared memory, in floats: Fs[kTileM][fs] (F tile, transposed, zero padded
-// to kp columns; fs = kp + 4 keeps float4 alignment), Xs[kp][kTileJ],
-// Ws[kTileM][kTileJ], WAs[kTileM][kTileJ].
-__global__ void __launch_bounds__(kMaxThreads)
-wgram_rhs_kernel(const float* __restrict__ F, const float* __restrict__ X,
-                 const float* __restrict__ A, const float* __restrict__ theta,
-                 float* __restrict__ Gb, float* __restrict__ b, int k, int m,
-                 int bc, int kp, int loss_kind, float power, int sparse_zeros,
-                 int theta_mode, float w_cap) {
-  extern __shared__ __align__(16) float smem[];
-  const int fs = f_stride(kp);
-  float* Fs = smem;
-  float* Xs = Fs + kTileM * fs;
-  float* Ws = Xs + kp * kTileJ;
-  float* WAs = Ws + kTileM * kTileJ;
+// up to k = 16 a unit holds two J tiles (kJ = 2), beyond up to four
+template <int kWc, int kMode>
+cudaError_t launch_k(const float* F, const float* A, float* G, float* b,
+                     int k, int m, int bc, int splits, int chunk,
+                     const Fused& fz, cudaStream_t s) {
+  if (k <= kRowsI)
+    return launch_tile<kWc, kMode, 2>(F, A, G, b, k, m, bc, splits, chunk,
+                                      fz, s);
+  return launch_tile<kWc, kMode, kGroup>(F, A, G, b, k, m, bc, splits, chunk,
+                                         fz, s);
+}
 
-  const Owner o = owner();
-  const size_t sbc = static_cast<size_t>(bc);
-
-  // X tile, zero beyond k and beyond bc
-  for (int idx = o.tid; idx < kp * kTileJ; idx += o.nthreads) {
-    const int c = idx / kTileJ, jj = idx % kTileJ;
-    const int j = o.j0 + jj;
-    Xs[idx] = (c < k && j < bc) ? X[c * sbc + j] : 0.f;
+template <int kMode>
+cudaError_t launch_mode(int wc, const float* F, const float* A, float* G,
+                        float* b, int k, int m, int bc, int splits, int chunk,
+                        const Fused& fz, cudaStream_t s) {
+  switch (wc) {
+    case 2:
+      return launch_k<2, kMode>(F, A, G, b, k, m, bc, splits, chunk, fz, s);
+    case 4:
+      return launch_k<4, kMode>(F, A, G, b, k, m, bc, splits, chunk, fz, s);
+    case 8:
+      return launch_k<8, kMode>(F, A, G, b, k, m, bc, splits, chunk, fz, s);
+    default:
+      return cudaErrorInvalidValue;
   }
-
-  Acc acc;
-  clear(acc);
-
-  for (int r0 = 0; r0 < m; r0 += kTileM) {
-    __syncthreads();  // the previous step's readers are done (and Xs is set)
-    load_f_tile(F, Fs, k, kp, m, r0, o);
-    __syncthreads();
-    // mu, w and w * a for the (kTileM, kTileJ) tile
-    for (int idx = o.tid; idx < kTileM * kTileJ; idx += o.nthreads) {
-      const int r = idx / kTileJ, jj = idx % kTileJ;
-      const int row = r0 + r, j = o.j0 + jj;
-      float w = 0.f, wa = 0.f;
-      if (row < m && j < bc) {
-        float mu = 0.f;
-        const float4* f4 = reinterpret_cast<const float4*>(Fs + r * fs);
-        for (int c4 = 0; c4 < kp / 4; ++c4) {
-          const float4 f = f4[c4];
-          const float* x = Xs + (4 * c4) * kTileJ + jj;
-          mu = fmaf(f.x, x[0], mu);
-          mu = fmaf(f.y, x[kTileJ], mu);
-          mu = fmaf(f.z, x[2 * kTileJ], mu);
-          mu = fmaf(f.w, x[3 * kTileJ], mu);
-        }
-        const float a = A[row * sbc + j];
-        float th = 0.f;
-        if (theta_mode == kThetaRow) th = theta[row];
-        if (theta_mode == kThetaCol) th = theta[j];
-        w = irls_weight(mu, loss_kind, power, th, w_cap);
-        if (sparse_zeros && a == 0.f) w = 1.f;
-        wa = w * a;
-      }
-      Ws[idx] = w;
-      WAs[idx] = wa;
-    }
-    __syncthreads();
-    accumulate_tile(Fs, Ws, WAs, k, kp, o, acc);
-  }
-  store_tile(Gb, b, k, bc, o, acc);
 }
 
 }  // namespace
@@ -141,37 +97,49 @@ wgram_rhs_kernel(const float* __restrict__ F, const float* __restrict__ X,
 // F (k, m), X (k, bc), A (m, bc), theta (m,) | (bc,) | null -> Gb (bc, k, k),
 // b (k, bc); all float32, contiguous, on the current device.  loss_kind: 0 kl,
 // 1 power (exponent `power`), 2 nb.  theta_mode: 0 none, 1 per row of A,
-// 2 per column of A.  Returns the cudaError_t of the launch (0 on success).
+// 2 per column of A.  The plan (rcppml_tpu_torch/ops/wgram.py::plan_wgram):
+// mode 1 (F's rows staged) or 2 (read from device memory), wc column pairs a
+// block (2, 4 or 8), the reduction over m in `splits` ranges of `chunk` rows
+// (a multiple of 32); with splits > 1, `scratch` holds splits (bc k k + k bc)
+// floats for the partials.  Returns the cudaError_t of the first launch that
+// failed (0 on success).
 extern "C" int wgram_rhs_launch(const float* F, const float* X, const float* A,
                                 const float* theta, float* Gb, float* b, int k,
                                 int m, int bc, int loss_kind, float power,
                                 int sparse_zeros, int theta_mode, float w_cap,
-                                void* stream) {
-  if (k <= 0 || m <= 0 || bc <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (loss_kind < kKl || loss_kind > kNb) return static_cast<int>(cudaErrorInvalidValue);
-  if (loss_kind == kNb && (theta_mode == kThetaNone || theta == nullptr))
+                                int mode, int wc, int splits, int chunk,
+                                float* scratch, void* stream) {
+  if (k <= 0 || m <= 0 || bc <= 0 || splits <= 0 || splits > 65535 ||
+      chunk <= 0 || chunk % kDepth != 0 ||
+      static_cast<long long>(splits) * chunk < m ||
+      static_cast<long long>(splits - 1) * chunk >= m ||
+      (splits > 1 && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int kp = padded_k(k);
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(kTileM) * f_stride(kp) +
-                       static_cast<size_t>(kp) * kTileJ + 2u * kTileM * kTileJ);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int smem_optin = 0;
-  err = cudaDeviceGetAttribute(&smem_optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > static_cast<size_t>(smem_optin))
-    return static_cast<int>(cudaErrorInvalidValue);   // k beyond about 880
-  err = cudaFuncSetAttribute(wgram_rhs_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  wgram_rhs_kernel<<<grid_shape(k, bc, kp), block_shape(kp), smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      F, X, A, theta, Gb, b, k, m, bc, kp, loss_kind, power, sparse_zeros,
-      theta_mode, w_cap);
+  if (loss_kind < kKl || loss_kind > kNb)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (theta_mode < kThetaNone || theta_mode > kThetaCol ||
+      (theta_mode != kThetaNone && theta == nullptr) ||
+      (loss_kind == kNb && theta_mode == kThetaNone))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Fused fz{X, theta, loss_kind, sparse_zeros, theta_mode, power, w_cap};
+  const size_t n_g = static_cast<size_t>(bc) * k * k;
+  float* G = splits > 1 ? scratch : Gb;
+  float* bp = splits > 1 ? scratch + splits * n_g : b;
+  cudaError_t err;
+  if (mode == kFusedStaged) {
+    err = launch_mode<kFusedStaged>(wc, F, A, G, bp, k, m, bc, splits, chunk,
+                                    fz, s);
+  } else if (mode == kFusedGlobal) {
+    err = launch_mode<kFusedGlobal>(wc, F, A, G, bp, k, m, bc, splits, chunk,
+                                    fz, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const size_t total = n_g + static_cast<size_t>(k) * bc;
+  const size_t blocks = (total + 255) / 256;
+  reduce_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256,
+                  0, s>>>(scratch, bp, Gb, b, k, bc, splits);
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,8 +36,18 @@ from .rhs_tall import H100_SMS, device_sms
 
 KERNEL = "weighted_gram"
 # the tile of csrc/tri_gram.cuh: warps a block, rows of m a stage, J tiles of
-# a triangle unit
+# a triangle unit; floats of a staged row, rows of F a unit stages, stages in
+# the ring
 TILE_WARPS, TILE_DEPTH, TILE_GROUP = 8, 32, 4
+TILE_LD, UNIT_SLOT, TILE_STAGES = 36, 112, 3
+# a block's and a multiprocessor's shared memory on sm_90, and what the
+# runtime keeps of it for each block
+SHARED_OPTIN, SM_SHARED, BLOCK_RESERVED = 232448, 233472, 1024
+# the tile's ways of getting w (tri_gram::Mode): copied (kernel 5), formed
+# from F's rows staged with the stage, or read from device memory (kernel 4)
+GIVEN_W, FUSED_STAGED, FUSED_GLOBAL = 0, 1, 2
+# kernel 4's mu, float32 multiply-adds outside the tensor cores, in the plan
+PLAN_FMA_FLOPS = 3e13
 # the split plan weighs the last wave's idle slots against the partials'
 # traffic and the second launch; these rates only have to stand in the right
 # proportion (3xTF32 products at about 60% of the tensor cores' 495 TFLOP/s,
@@ -54,8 +64,34 @@ def triangle_units(k: int) -> int:
                for i in range(-(-k // 16)))
 
 
-def plan_weighted_gram(k: int, m: int, bc: int,
-                       sms: int = H100_SMS) -> tuple[int, int, int]:
+def shared_bytes(wc: int, k: int, mode: int = GIVEN_W) -> int:
+    """Dynamic shared memory of a block (``tri_gram::shared_bytes``): three
+    stages of the units' rows of F and of w and A for 2 wc columns; kernel 4
+    adds a ring of F's k rows for mu (``FUSED_STAGED``, where k > 16: up to
+    16 the unit's rows at k1 are all of F) and X's 2 wc columns once (both
+    fused modes)."""
+    stage = (TILE_WARPS // wc) * UNIT_SLOT * TILE_LD \
+        + 2 * TILE_DEPTH * (2 * wc + 4)
+    if mode == FUSED_STAGED and k > 16:
+        stage += k * TILE_LD
+    return 4 * (TILE_STAGES * stage + (0 if mode == GIVEN_W else 2 * wc * k))
+
+
+def fused_mode(k: int, wc: int) -> int:
+    """How kernel 4 reads F for mu at this k and block width: staged with
+    the stage while that fits a block's shared memory, else from device
+    memory; raises where even X's columns do not fit."""
+    if shared_bytes(wc, k, FUSED_STAGED) <= SHARED_OPTIN:
+        return FUSED_STAGED
+    if shared_bytes(wc, k, FUSED_GLOBAL) <= SHARED_OPTIN:
+        return FUSED_GLOBAL
+    raise ValueError(f"weighted_gram_rhs: k={k} needs "
+                     f"{shared_bytes(wc, k, FUSED_GLOBAL)} bytes of shared "
+                     f"memory a block (limit {SHARED_OPTIN})")
+
+
+def plan_weighted_gram(k: int, m: int, bc: int, sms: int = H100_SMS, *,
+                       fused: bool = False) -> tuple[int, int, int]:
     """How the kernel cuts its work: ``(wc, splits, chunk)``.
 
     A block is eight warps, each one triangle unit by one pair of columns:
@@ -67,12 +103,27 @@ def plan_weighted_gram(k: int, m: int, bc: int,
     whose shared memory is 138 KB), plus the partials written and read again
     and the second launch when there is more than one split.  Each split
     keeps at least ``MIN_SPLIT_ROWS`` rows.  A function of the shapes and the
-    card alone, so a call repeats bit for bit."""
+    card alone, so a call repeats bit for bit.
+
+    ``fused``: the plan of kernel 4 (``ops/wgram.py``) on the same tile.
+    Its blocks also form mu, 2 k multiply-adds an entry of a stage, once
+    for every block of units; ``wc`` grows until F's k rows fit in every
+    stage (:func:`fused_mode`), and a multiprocessor holds two blocks where
+    their shared memory allows."""
     pairs = -(-bc // 2)
     wc = min(8, max(2, 1 << (pairs - 1).bit_length()))
-    base = -(-triangle_units(k) // (TILE_WARPS // wc)) * -(-pairs // wc)
-    slots = sms * (2 if wc > 2 else 1)
+    if fused:
+        while wc < 8 and fused_mode(k, wc) != FUSED_STAGED:
+            wc *= 2
+    unit_blocks = -(-triangle_units(k) // (TILE_WARPS // wc))
+    base = unit_blocks * -(-pairs // wc)
     work_s = 6.0 * m * bc * (k * (k + 1) // 2 + k) / PLAN_FLOPS
+    if fused:
+        block_bytes = shared_bytes(wc, k, fused_mode(k, wc)) + BLOCK_RESERVED
+        slots = sms * (2 if 2 * block_bytes <= SM_SHARED else 1)
+        work_s += 2.0 * m * bc * k * unit_blocks / PLAN_FMA_FLOPS
+    else:
+        slots = sms * (2 if wc > 2 else 1)
     partial_bytes = 4.0 * bc * (k * k + k)
 
     def cost(splits):

@@ -4,14 +4,18 @@ its plain PyTorch twin.
 Replaces the TPU kernel ``rcppml_tpu/ops/pallas_kernels.py::
 weighted_gram_rhs_padded`` (body ``_make_wgram_kernel``, wrappers
 ``weighted_gram_rhs_pallas`` and ``wgram_pad_operands``).  The CUDA source is
-``csrc/wgram_rhs.cu``: mu = F^T X, the weight w(A, mu[, theta]) and w * A live
-only in shared-memory tiles, and each Gram entry is summed over m by one
-thread in a fixed order (no atomics).  What bounds it on the H100 is float32
-arithmetic outside the tensor cores: 2 m bc (k (k + 1) / 2 + 2k) operations
-(mu, the distinct entries of a symmetric Gram, and b) against one read of A.
-The kernel computes the full Gram, k^2 entries a column.  It takes float32 operands and forms ``F[k1] * F[k2]`` itself, so
-there is neither a Khatri-Rao operand nor any padding of operands: both were
-needs of the TPU's tiles.
+``csrc/wgram_rhs.cu`` on kernel 5's tile ``csrc/tri_gram.cuh``: one triangle
+of every Gram on the tensor cores in 3xTF32, the reduction over m split
+across blocks by :func:`rcppml_tpu_torch.ops.weighted_gram.
+plan_weighted_gram` (``fused=True``) and the splits' partials added in the
+order of their index (no atomics); where kernel 5 copies w with each stage,
+this kernel forms mu = F^T X (float32, c in order), the weight w(A, mu[,
+theta]) and w * A for the stage's rows in a prologue, in shared memory and
+registers only.  What bounds it on the H100 is arithmetic: 2 m bc (k (k + 1)
+/ 2 + 2k) float32 operations (mu, the distinct entries of a symmetric Gram,
+and b) against one read of A.  It takes float32 operands and forms
+``F[k1] * F[k2] * w`` itself, so there is neither a Khatri-Rao operand nor
+any padding of operands: both were needs of the TPU's tiles.
 
 :func:`weighted_gram_rhs` launches the kernel for a CUDA tensor and runs
 :func:`weighted_gram_rhs_plain` (the default IRLS path's own arithmetic) for
@@ -29,6 +33,8 @@ import torch
 
 from ..config import Loss, NMFConfig
 from . import _build, linalg, losses
+from .rhs_tall import H100_SMS, device_sms
+from .weighted_gram import fused_mode, plan_weighted_gram, scratch_floats
 
 KERNEL = "wgram_rhs"
 LOSS_KINDS = {"kl": 0, "power": 1, "nb": 2}
@@ -98,6 +104,16 @@ def weighted_gram_rhs_plain(F, X, A, theta_row=None, theta_col=None, *,
     return linalg.weighted_gram_and_rhs(F, w, A, KR=KR)
 
 
+def plan_wgram(k: int, m: int, bc: int,
+               sms: int = H100_SMS) -> tuple[int, int, int, int]:
+    """The launch of a (k, m, bc) call: ``(mode, wc, splits, chunk)``, the
+    tile's plan (:func:`plan_weighted_gram` with ``fused=True``) and how F
+    is read for mu (:func:`fused_mode`: staged with the stage, or from
+    device memory where its k rows do not fit)."""
+    wc, splits, chunk = plan_weighted_gram(k, m, bc, sms, fused=True)
+    return fused_mode(k, wc), wc, splits, chunk
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The built kernel library, with its entry point's C signature."""
@@ -106,7 +122,8 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -120,8 +137,8 @@ def weighted_gram_rhs(F, X, A, theta_row=None, theta_col=None, *,
 
     ``loss_kind``: ``"kl"``, ``"power"`` (exponent ``power``) or ``"nb"``
     (needs a theta).  Weights are capped at ``losses._W_CAP``.  On a CUDA
-    tensor this launches the kernel (and raises if the launch fails); on a
-    CPU tensor it runs :func:`weighted_gram_rhs_plain`.
+    tensor this launches the kernel (:func:`plan_wgram`; it raises if the
+    launch fails); on a CPU tensor it runs :func:`weighted_gram_rhs_plain`.
     """
     _check(F, X, A, theta_row, theta_col, loss_kind)
     if not A.is_cuda:
@@ -132,8 +149,14 @@ def weighted_gram_rhs(F, X, A, theta_row=None, theta_col=None, *,
     bc = X.shape[1]
     Gb = torch.empty((bc, k, k), dtype=torch.float32, device=A.device)
     b = torch.empty((k, bc), dtype=torch.float32, device=A.device)
-    if bc == 0:
+    if bc == 0 or k == 0:
         return Gb, b
+    if m == 0:
+        return Gb.zero_(), b.zero_()
+    mode, wc, splits, chunk = plan_wgram(k, m, bc, device_sms(A.device))
+    n_scratch = scratch_floats(k, bc, splits)
+    scratch = torch.empty((n_scratch,), dtype=torch.float32,
+                          device=A.device) if n_scratch else None
     F_c, X_c, A_c = F.contiguous(), X.contiguous(), A.contiguous()
     theta = theta_row if theta_row is not None else theta_col
     theta_mode = 1 if theta_row is not None else 2 if theta_col is not None \
@@ -147,11 +170,13 @@ def weighted_gram_rhs(F, X, A, theta_row=None, theta_col=None, *,
             theta_c.data_ptr() if theta_c is not None else None,
             Gb.data_ptr(), b.data_ptr(), k, m, bc, LOSS_KINDS[loss_kind],
             float(np.float32(power)), int(bool(sparse_zeros)), theta_mode,
-            float(np.float32(losses._W_CAP)), stream)
+            float(np.float32(losses._W_CAP)), mode, wc, splits, chunk,
+            scratch.data_ptr() if scratch is not None else None, stream)
     if err != 0:
         raise RuntimeError(f"weighted_gram_rhs kernel launch failed: CUDA "
                            f"error {err} (k={k}, m={m}, bc={bc}, "
-                           f"loss_kind={loss_kind!r})")
+                           f"loss_kind={loss_kind!r}, plan "
+                           f"{(mode, wc, splits, chunk)})")
     weighted_gram_rhs.launches += 1
     return Gb, b
 

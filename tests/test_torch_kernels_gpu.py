@@ -8,9 +8,12 @@ without one.  The file imports no JAX, so it runs on a machine that has none:
 
 Parity contract: the two CD kernels round each operation as PyTorch's eager
 twins do (no FMA contraction, IEEE division), so their results are bitwise
-equal.  The fused weight + Gram + RHS kernel sums over m in another order
-than the twin's cuBLAS products, and is held within 1e-4 of the twin's
-largest entry; two launches on the same inputs are bitwise equal.  The two
+equal.  The fused weight + Gram + RHS kernel (kernel 5's tile, the weight
+formed in a prologue) sums mu in float32 and the Gram and RHS over m in
+3xTF32, in another order than the twin's cuBLAS products, and is held
+within 1e-4 of the twin's largest entry, with one split of m and several,
+F's rows staged and read from device memory; two launches on the same
+inputs are bitwise equal.  The two
 tall-skinny products sum in another order than cuBLAS and are held within
 1e-5 of the twin's largest entry; the whole-fit kernel within 1e-4 of its twin
 after one iteration in float32 (H also with bfloat16 data; W and d, which see
@@ -20,7 +23,9 @@ sizes).  All three repeat bit for bit.  The per-column weighted Gram + RHS
 kernel sums over m in a fixed order (3xTF32 products on the tensor cores, the
 splits' partials added in index order) and is held within 2e-5 of its twin's
 largest entry; the Cholesky solve + clip kernel keeps its twin's order of operations
-with ``_rn`` intrinsics and equals it bit for bit.
+with ``_rn`` intrinsics and equals it bit for bit on both routes (one launch
+with a lane group per column up to k = 64, two kernels beyond) and at every
+group width the plan can take.
 """
 
 import numpy as np
@@ -213,6 +218,48 @@ def test_wgram_kernel_beyond_128_factors(cuda):
         np.float32)).to(cuda)
     Gb, b = wgram.weighted_gram_rhs(F, X, A, loss_kind="kl")
     Gp, bp = wgram.weighted_gram_rhs_plain(F, X, A, loss_kind="kl")
+    assert float((Gb - Gp).abs().max()) <= 1e-4 * float(Gp.abs().max())
+    assert float((b - bp).abs().max()) <= 1e-4 * float(bp.abs().max())
+
+
+@pytest.mark.parametrize("mode", [1, 2], ids=["F_staged", "F_global"])
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("k", [1, 8, 16, 17, 50, 128, 129])
+def test_wgram_kernel_tile_edges(cuda, monkeypatch, k, splits, mode):
+    """Kernel 4 on kernel 5's tile at k that is no multiple of its 16 x 8
+    tiles, m (1,500) no multiple of its 32-row stages and odd bc (77), the
+    reduction over m in one range and in three, F's rows for mu staged with
+    the stage and read from device memory: within 1e-4 of the twin's
+    largest entry, bitwise repeatable.  A theta per row and sparse_zeros on
+    odd k, a theta per column on even k."""
+    from rcppml_tpu_torch.ops import wgram
+    plan = wgram.plan_wgram
+
+    def forced(k_, m_, bc_, sms=132):
+        _, wc, _, _ = plan(k_, m_, bc_, sms)
+        chunk = -(-(-(-m_ // splits)) // 32) * 32
+        return mode, wc, -(-m_ // chunk), chunk
+
+    monkeypatch.setattr(wgram, "plan_wgram", forced)
+    m, bc = 1500, 77
+    rs = np.random.RandomState(k + 31 * splits)
+    F = torch.from_numpy((np.abs(rs.normal(size=(k, m)))
+                          * (rs.uniform(size=(k, m)) < 0.7)).astype(
+        np.float32)).to(cuda)
+    X = torch.from_numpy((np.abs(rs.normal(size=(k, bc))) / k).astype(
+        np.float32)).to(cuda)
+    A = torch.from_numpy(rs.poisson(0.4, size=(m, bc)).astype(
+        np.float32)).to(cuda)
+    odd = k % 2 == 1
+    th = torch.from_numpy(rs.uniform(0.05, 50.0, size=(
+        m if odd else bc,)).astype(np.float32)).to(cuda)
+    args = (F, X, A, th if odd else None, None if odd else th)
+    kw = dict(loss_kind="nb", sparse_zeros=odd)
+    Gb, b = wgram.weighted_gram_rhs(*args, **kw)
+    again = wgram.weighted_gram_rhs(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(Gb, again[0]) and torch.equal(b, again[1])
+    Gp, bp = wgram.weighted_gram_rhs_plain(*args, **kw)
     assert float((Gb - Gp).abs().max()) <= 1e-4 * float(Gp.abs().max())
     assert float((b - bp).abs().max()) <= 1e-4 * float(bp.abs().max())
 
@@ -589,6 +636,66 @@ def test_cholesky_clip_kernel_matches_plain_bitwise(cuda, k, n, nonneg, ub):
     lib = lib.clamp_max(ub) if ub > 0 else lib
     assert float((out - lib).abs().max()) <= 1e-4 * max(
         float(lib.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("n", [1, 33, 2639])
+@pytest.mark.parametrize("k", [1, 2, 15, 16, 17, 31, 32, 33, 64, 65])
+def test_cholesky_clip_lane_group_edges_bitwise(cuda, k, n):
+    """The one-launch route at the edges of its design: one lane, one warp
+    of factor rows (k = 32) and one past it, the route's last k (64) and one
+    past it (two kernels); one column, one warp of columns and one past it,
+    a column past a block; with and without nonneg and upper_bound."""
+    from rcppml_tpu_torch.ops import cholesky_clip as cc
+    G, B = _chol_system(k, n, cuda, seed=1)
+    assert (cc.plan_cholesky_clip(k, n).lanes > 0) == (k <= cc.LANES_MAX_K)
+    for nonneg, ub in ((True, 0.0), (False, 0.0), (True, 0.05),
+                       (False, 0.05)):
+        out = cc.cholesky_clip(G, B, nonneg=nonneg, upper_bound=ub)
+        again = cc.cholesky_clip(G, B, nonneg=nonneg, upper_bound=ub)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        assert torch.equal(out, cc.cholesky_clip_plain(
+            G, B, nonneg=nonneg, upper_bound=ub)), (nonneg, ub)
+
+
+@pytest.mark.parametrize("k,n", [(20, 2639), (50, 610), (64, 257)])
+def test_cholesky_clip_every_plan_bitwise(cuda, monkeypatch, k, n):
+    """Every group width (1 to 32 lanes) and block (1 to 8 warps) that the
+    plan may choose, and the two-kernel route, give the twin's bits."""
+    from rcppml_tpu_torch.ops import cholesky_clip as cc
+    G, B = _chol_system(k, n, cuda, seed=2)
+    plain = cc.cholesky_clip_plain(G, B)
+    plans = [cc.CholPlan(0, 0, 128, 0, 0, -(-n // 128))]
+    for lanes in (1, 2, 4, 8, 16, 32):
+        rows = next((r for r in cc.LANE_ROWS if r >= -(-k // lanes)), None)
+        for warps in (1, 2, 4, 8):
+            threads = 32 * warps
+            ldx = cc.tile_stride(threads // lanes, lanes)
+            shared = 4 * k * ((k | 1) + ldx)
+            if rows is not None and shared <= cc.SHARED_OPTIN:
+                plans.append(cc.CholPlan(lanes, rows, threads, ldx, shared,
+                                         -(-n // (threads // lanes))))
+    for plan in plans:
+        monkeypatch.setattr(cc, "plan_cholesky_clip",
+                            lambda k_, n_, sms=132, plan=plan: plan)
+        out = cc.cholesky_clip(G, B)
+        torch.cuda.synchronize()
+        assert torch.equal(out, plain), plan
+
+
+@pytest.mark.parametrize("k", [8, 20, 50, 64, 65])
+def test_cholesky_clip_pivot_rule_on_both_routes(cuda, k):
+    """A zero Gram and a Gram of rank k / 2 (pivots at or below 1e-30,
+    replaced by G's diagonal entry or 1e-30): finite, and the twin's bits,
+    at k on both sides of the route threshold."""
+    from rcppml_tpu_torch.ops import cholesky_clip as cc
+    B = _chol_system(k, 300, cuda)[1]
+    for G in (torch.zeros((k, k), device=cuda),
+              _chol_system(k, 300, cuda, seed=3, rank=max(1, k // 2))[0]):
+        out = cc.cholesky_clip(G, B, nonneg=False)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        assert torch.equal(out, cc.cholesky_clip_plain(G, B, nonneg=False))
 
 
 def test_cholesky_clip_floors_a_pivot_that_is_not_positive(cuda):
