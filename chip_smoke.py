@@ -35,7 +35,19 @@ the card, and times kernels, twins and fits with CUDA events:
     2e-5 of its twin's largest entry, the Cholesky solve + clip kernel bit
     for bit its twin on both routes and at the edges of its lane groups,
     and within 1e-4 of ``torch.linalg``, both bitwise repeatable, and the
-    holdout mask computed on the card bit for bit the host's.
+    holdout mask computed on the card bit for bit the host's;
+  * the truncated SVD at the atlas shape (5,000 x 40,000, k=10) on a planted
+    matrix: ``rtt.svd`` with ``method="lanczos"``, ``"irlba"`` and
+    ``"randomized"`` within 1e-3 of the exact singular values (float64, on
+    the card) with orthonormal U and V, timed beside the reference's
+    published figures; ``pca``, Krylov with ``nonneg=True`` and deflation
+    at the full shape, and the same and a cross-validated SVD on a corner
+    card against CPU;
+  * the SVD-seeded NMF (``seed="lanczos"`` / ``"irlba"``) at the pbmc3k
+    shape, its init within 1e-4 of the CPU port's, the fit through the
+    Cholesky kernel; the projections ``nnls`` / ``predict`` through kernels
+    6, 1, 2 and 4, each within 1e-4 of the CPU port's and bitwise
+    repeatable; the profiled KL fit bit for bit the unprofiled one.
 
 Each phase prints its own lines and any failure raises, so the exit code is
 non-zero.  There is no CPU fallback: without a CUDA card of compute
@@ -202,6 +214,30 @@ SWEEP_KS, SWEEP_SEEDS = [4, 8, 16], [1, 2]
 # the gathered downdate against the weighted path: loss histories within
 # this (two roundings of the same per-column Grams)
 DOWNDATE_RTOL = 1e-3
+
+
+# truncated SVD at the atlas shape of the published SVD rows (BASELINE.md:
+# 17-19: 40K cells, k=10): a planted nonnegative matrix with k factors on
+# interleaved rows and columns (orthogonal), singular values top * decay^f,
+# plus uniform noise in [0, 0.01).  Every d within SVD_D_RTOL of the exact
+# leading singular values (float64 eigenvalues of A A^T on the card), U and V
+# orthonormal within SVD_ORTHO_TOL; the pca, krylov and deflation runs on a
+# corner agree card against CPU within SVD_CORNER_RTOL of the largest d
+ATLAS = dict(m=5000, n=40000, k=10, top=2000.0, decay=0.8)
+ATLAS_PUBLISHED_S = {"lanczos": 0.44, "randomized": 0.41, "irlba": 0.38}
+SVD_D_RTOL, SVD_ORTHO_TOL = 1e-3, 1e-3
+ATLAS_CORNER, SVD_CORNER_RTOL = (1000, 4000), 2e-2
+# SVD-seeded NMF and the projections at the pbmc3k shape, on a planted matrix
+# whose 20 leading singular values are well separated: on the simulate_nmf
+# matrix the spectrum past the first value is flat to 1%, its singular
+# vectors are not defined (the two packages' inits on the CPU already differ
+# by 5e-3 there).  Inits and projections within these shares of the largest
+# entry of the CPU port's; HELD_BACK more columns of the same factor model
+# for predict
+SEEDED = dict(m=13714, n=2638, k=20, top=2000.0, decay=0.85)
+SEEDED_RTOL, PROJ_RTOL, PROJ_WIDE_K, HELD_BACK = 1e-4, 1e-4, 50, 1000
+IRLS_PROFILE_KEYS = ["fused_per_iter_us", "fused_total_ms", "irls_iteration",
+                     "iterations", "mode", "section_basis"]
 
 
 # the edges of kernel 4's tile (kernel 5's, csrc/tri_gram.cuh): k no
@@ -980,6 +1016,10 @@ def profile_fits(rtt, card):
         return rtt.nmf(A_pb, CV_K, test_fraction=CV_FRACTION, cv_seed=1,
                        maxit=MAXIT, tol=0, cv_patience=MAXIT + 1, seed=1, **kw)
 
+    A_at, _ = planted_matrix(ATLAS, seed=1)
+    A_s, _ = planted_matrix(SEEDED, seed=2)
+    k_at = ATLAS["k"]
+
     fits = (("MSE CD k=20", lambda: mse_cd_fit(rtt, A_pb), False),
             (f"KL k={KL_K}", lambda: kl_fit(rtt, A_ct), False),
             (f"KL k={KL_K}, RCPPML_FUSED_WGRAM=1", lambda: kl_fit(rtt, A_ct),
@@ -1001,7 +1041,16 @@ def profile_fits(rtt, card):
             (f"CV k={CV_K} CD", lambda: cv(solver="cd"), False),
             (f"CV k={CV_K} Cholesky per column", cv, False),
             (f"masked k={MASK_K}", lambda: rtt.nmf(
-                A_pb, MASK_K, mask=M_pb, maxit=MAXIT, tol=0, seed=1), False))
+                A_pb, MASK_K, mask=M_pb, maxit=MAXIT, tol=0, seed=1), False),
+            *((f"atlas svd {method} k={k_at}", lambda method=method: rtt.svd(
+                A_at, k_at, method=method), False)
+              for method in ("lanczos", "irlba", "randomized", "deflation")),
+            (f"atlas svd krylov nonneg=True k={k_at}", lambda: rtt.svd(
+                A_at, k_at, method="krylov", nonneg=True), False),
+            (f"atlas pca k={k_at}", lambda: rtt.pca(A_at, k_at), False),
+            (f"pbmc3k-shape nmf seed='lanczos' k={SEEDED['k']}",
+             lambda: rtt.nmf(A_s, SEEDED["k"], seed="lanczos", maxit=MAXIT,
+                             tol=0), False))
     for label, fit, fused in fits:
         with fused_wgram() if fused else contextlib.nullcontext():
             fit()
@@ -1062,6 +1111,242 @@ def kernel3_parts(prof):
                       in times.items())
     return (f"{parts}; between kernels {span - busy:.3f} ms of a "
             f"{span:.3f} ms span")
+
+
+def planted_matrix(shape, seed, extra_cols=0):
+    """A nonnegative (m, n + extra_cols) float32 matrix on the card with
+    ``shape["k"]`` factors on interleaved rows and columns (row i belongs to
+    factor i mod k, so the factors are orthogonal) and singular values
+    ``top * decay^f``, plus uniform noise in [0, 0.01).  Returns the matrix
+    and the planted singular values."""
+    m, n, k = shape["m"], shape["n"] + extra_cols, shape["k"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def factor(size):
+        F = torch.zeros((size, k), device="cuda")
+        idx = torch.arange(size, device="cuda")
+        F[idx, idx % k] = torch.rand(size, generator=gen, device="cuda") + 0.5
+        return F / F.norm(dim=0)
+
+    U, V = factor(m), factor(n)
+    s = shape["top"] * shape["decay"] ** torch.arange(
+        k, device="cuda", dtype=torch.float32)
+    A = torch.rand((m, n), generator=gen, device="cuda") * 0.01
+    A.addmm_(U * s, V.T)
+    return A, s.cpu().numpy()
+
+
+def exact_singular_values(A, k):
+    """The k leading singular values of A from the float64 eigenvalues of
+    A A^T, on the card."""
+    A64 = A.double()
+    ev = torch.linalg.eigvalsh(A64 @ A64.T)
+    del A64
+    return ev.flip(0)[:k].clamp_min(0).sqrt().cpu().numpy()
+
+
+def check_svd(res, exact, label):
+    """d within SVD_D_RTOL of the exact values, U and V orthonormal within
+    SVD_ORTHO_TOL.  Returns (relative d error, orthonormality error)."""
+    k = exact.shape[0]
+    d = np.asarray(res.d, np.float64)
+    check(d.shape == (k,) and np.isfinite(d).all(), f"{label}: finite d of "
+          f"{k}: {d}")
+    d_err = float((np.abs(d - exact) / exact).max())
+    check(d_err <= SVD_D_RTOL, f"{label}: d within {SVD_D_RTOL} of the "
+          f"exact singular values: {d_err:.3e}")
+    ortho = max(float(np.abs(X.T @ X - np.eye(k)).max()) for X in (
+        np.asarray(res.U, np.float64), np.asarray(res.V, np.float64)))
+    check(ortho <= SVD_ORTHO_TOL, f"{label}: U, V orthonormal within "
+          f"{SVD_ORTHO_TOL}: {ortho:.3e}")
+    return d_err, ortho
+
+
+def timed_once(fn):
+    """(result, CUDA-event milliseconds) of one call of ``fn``."""
+    out = {}
+    ms = cuda_ms(lambda: out.__setitem__("res", fn()), reps=1, warmup=False)
+    return out["res"], ms
+
+
+def svd_phases(rtt, card, counted, reset_counts):
+    """The truncated SVD at the atlas shape: lanczos, irlba and randomized
+    against the exact spectrum and timed beside the published figures, pca,
+    krylov (nonneg) and deflation at the full shape, the same three and a
+    cross-validated fit on a corner card against CPU.  No hand-written
+    kernel runs.  Returns {label: ms}."""
+    A, planted = planted_matrix(ATLAS, seed=1)
+    m, n, k = ATLAS["m"], ATLAS["n"], ATLAS["k"]
+    t0 = time.perf_counter()
+    exact = exact_singular_values(A, k)
+    print(f"atlas {m} x {n}, planted {np.round(planted, 2).tolist()}; exact "
+          f"leading singular values (float64 eigenvalues of A A^T, "
+          f"{time.perf_counter() - t0:.2f} s) {np.round(exact, 4).tolist()}",
+          flush=True)
+    times = {}
+    reset_counts()
+    for method in ("lanczos", "irlba", "randomized"):
+        res = rtt.svd(A, k, method=method)
+        d_err, ortho = check_svd(res, exact, method)
+        ms = cuda_ms(lambda: rtt.svd(A, k, method=method), reps=3)
+        times[method] = ms
+        print(f"svd {method} k={k}: {ms / 1e3:.4f} s (median of 3 after a "
+              f"warm-up) on {card}; the reference's published time on its "
+              f"own card, an H100 NVL (BASELINE.md:17-19): "
+              f"{ATLAS_PUBLISHED_S[method]} s; d within {d_err:.2e} of the "
+              f"exact values, U, V orthonormal within {ortho:.2e}; "
+              f"{res.iterations} iterations, converged {res.converged}, "
+              f"{res.misc['host_syncs']} host syncs", flush=True)
+    full = (("pca center=True", lambda X: rtt.pca(X, k)),
+            ("krylov nonneg=True", lambda X: rtt.svd(X, k, method="krylov",
+                                                     nonneg=True)),
+            ("deflation", lambda X: rtt.svd(X, k, method="deflation")))
+    for label, fn in full:
+        res, ms = timed_once(lambda: fn(A))
+        d = np.asarray(res.d)
+        check(d.shape == (k,) and np.isfinite(d).all()
+              and np.all(np.diff(d) <= 0), f"{label}: finite sorted d {d}")
+        times[label] = ms
+        print(f"svd {label} k={k}: {ms / 1e3:.4f} s (one run) on {card}; d "
+              f"{np.round(d, 3).tolist()}; {res.iterations} iterations, "
+              f"{res.misc['host_syncs']} host syncs", flush=True)
+    check(sum(fn.launches for fn in counted) == 0,
+          "the SVD methods launch no hand-written kernel")
+    corner = A[:ATLAS_CORNER[0], :ATLAS_CORNER[1]].contiguous()
+    corner_cpu = corner.cpu()
+    for label, fn in full:
+        on_card, on_cpu = fn(corner), fn(corner_cpu)
+        off = float(np.abs(on_card.d - on_cpu.d).max() / on_cpu.d.max())
+        check(off <= SVD_CORNER_RTOL, f"{label} on the {ATLAS_CORNER} "
+              f"corner: card against CPU within {SVD_CORNER_RTOL}: {off}")
+        print(f"  {label} on the {ATLAS_CORNER} corner: d card against the "
+              f"port on the CPU within {off:.2e} of the largest", flush=True)
+    cv_card = rtt.svd(corner, k, test_fraction=0.1)
+    cv_cpu = rtt.svd(corner_cpu, k, test_fraction=0.1)
+    check(cv_card.k_selected == cv_cpu.k_selected
+          and cv_card.misc["method"] == cv_cpu.misc["method"],
+          f"SVD CV on the corner: k_selected {cv_card.k_selected} on the "
+          f"card, {cv_cpu.k_selected} on the CPU")
+    print(f"  SVD CV (test_fraction=0.1, method {cv_card.misc['method']}) on "
+          f"the corner: k_selected {cv_card.k_selected} on the card and on "
+          f"the CPU; test loss {cv_card.test_loss:.6g} / "
+          f"{cv_cpu.test_loss:.6g}", flush=True)
+    return times
+
+
+def seeded_phases(rtt, card, counted, reset_counts, chol):
+    """SVD-seeded NMF at the pbmc3k shape: the init on the card against the
+    CPU port's, then the fit through kernel 6.  Returns (the lanczos-seeded
+    fit, the matrix, HELD_BACK more columns of its factor model, the fits'
+    kernel 6 launches, {label: ms})."""
+    from rcppml_tpu_torch.models import nmf as nmf_mod
+    m, n, k = SEEDED["m"], SEEDED["n"], SEEDED["k"]
+    A_all, _ = planted_matrix(SEEDED, seed=2, extra_cols=HELD_BACK)
+    A = A_all[:, :n].contiguous()
+    held = A_all[:, n:].contiguous()
+    del A_all
+    fits, launches, times = {}, {}, {}
+    for seed in ("lanczos", "irlba"):
+        cfg = rtt.build_config(k, seed=seed)
+        on_card = nmf_mod.init_factors(cfg, m, n, A=A)
+        on_cpu = nmf_mod.init_factors(cfg, m, n, A=A.cpu())
+        err = max(float(np.abs(a - b).max() / np.abs(b).max())
+                  for a, b in zip(on_card[:2], on_cpu[:2]))
+        check(err <= SEEDED_RTOL, f"seed={seed!r}: the init on the card "
+              f"within {SEEDED_RTOL} of the CPU port's: {err:.3e}")
+        reset_counts()
+        res = rtt.nmf(A, k, seed=seed, maxit=MAXIT, tol=0)
+        launches[seed] = chol.launches
+        check(chol.launches == 2 * MAXIT
+              and sum(fn.launches for fn in counted) == chol.launches,
+              f"seed={seed!r}: {2 * MAXIT} launches of cholesky_clip and "
+              f"no other kernel: {chol.launches}")
+        hist, mse, var = check_losses(res, A, monotone=False)
+        times[seed] = cuda_ms(lambda: rtt.nmf(A, k, seed=seed, maxit=MAXIT,
+                                              tol=0), reps=3)
+        fits[seed] = res
+        print(f"nmf seed={seed!r} {m} x {n} k={k}: init within {err:.2e} of "
+              f"the CPU port's; {launches[seed]} launches of cholesky_clip; "
+              f"loss {hist[0]:.6g} -> {hist[-1]:.6g}; mse {mse:.6g} < var(A) "
+              f"{var:.6g}; {times[seed]:.3f} ms (median of 3)  [{card}]",
+              flush=True)
+    return fits["lanczos"], A, held, launches, times
+
+
+def projection_phases(rtt, card, counted, reset_counts, kernels, model, A,
+                      held):
+    """``nnls`` / ``predict`` at the pbmc3k shape through kernels 6, 1, 2
+    and 4, each against the CPU port's result and bitwise repeatable.
+    ``kernels``: the wrappers by name.  Returns {label: (launches by kernel
+    name, ms)}."""
+    W = model.W * model.d[None, :]
+    W_wide = np.abs(np.random.RandomState(PROJ_WIDE_K).normal(
+        size=(A.shape[0], PROJ_WIDE_K))).astype(np.float32)
+    routes = (
+        (f"nnls k={model.k} default (Cholesky + clip)", A, W, dict(),
+         {"cholesky_clip": 1}),
+        (f"nnls k={model.k} L1=0.01 (CD)", A, W, dict(L1=0.01),
+         {"cd_nnls_shared": 1}),
+        (f"nnls k={PROJ_WIDE_K} seeded nonnegative W (CD)", A, W_wide,
+         dict(), {"cd_nnls_shared": 1}),
+        (f"nnls k={model.k} loss='kl'", A, W, dict(loss="kl"),
+         {"cd_nnls_batched": None}),
+        (f"nnls k={model.k} loss='kl', RCPPML_FUSED_WGRAM=1", A, W,
+         dict(loss="kl", fused=True),
+         {"cd_nnls_batched": None, "weighted_gram_rhs": None}),
+        (f"predict on {HELD_BACK} held-back columns", held, None, dict(),
+         {"cholesky_clip": 1}))
+    out = {}
+    for label, data, F, kw, expect in routes:
+        kw = dict(kw)
+        fused = kw.pop("fused", False)
+
+        def run(X):
+            if F is None:
+                return rtt.predict(model, X, **kw)
+            return rtt.nnls(X, w=F, **kw)
+        with fused_wgram() if fused else contextlib.nullcontext():
+            reset_counts()
+            first = run(data)
+            got = {name: fn.launches for name, fn in kernels.items()
+                   if fn.launches}
+            again = run(data)
+            ms = cuda_ms(lambda: run(data), reps=3)
+            on_cpu = run(data.cpu())
+        check(sorted(got) == sorted(expect) and all(
+            n is None or got[name] == n for name, n in expect.items()),
+            f"{label}: launches {got}, expected {expect}")
+        if "weighted_gram_rhs" in expect:
+            check(got["weighted_gram_rhs"] == got["cd_nnls_batched"],
+                  f"{label}: one launch of kernel 4 per launch of kernel 2")
+        check(np.array_equal(first, again), f"{label}: bitwise repeatable")
+        err = float(np.abs(first - on_cpu).max() / np.abs(on_cpu).max())
+        check(np.isfinite(first).all() and err <= PROJ_RTOL,
+              f"{label}: within {PROJ_RTOL} of the CPU port's: {err:.3e}")
+        out[label] = (got, ms)
+        print(f"{label}: {first.shape}, launches {got}, within {err:.2e} of "
+              f"the CPU port's largest entry, bitwise repeatable; "
+              f"{ms:.3f} ms (median of 3)  [{card}]", flush=True)
+    return out
+
+
+def profiled_irls_phase(rtt, card, A_ct, res_kl):
+    """The KL fit with profile=True: the JAX package's profile keys and the
+    unprofiled fit's history and factors bit for bit."""
+    prof = rtt.nmf(A_ct, KL_K, loss="kl", maxit=KL_MAXIT, tol=0, seed=1,
+                   profile=True)
+    check(sorted(prof.profile) == IRLS_PROFILE_KEYS,
+          f"the profile's keys: {sorted(prof.profile)}")
+    check(np.array_equal(prof.loss_history, res_kl.loss_history)
+          and same_factors(prof, res_kl),
+          "the profiled KL fit's history and factors are the unprofiled "
+          "fit's, bit for bit")
+    print(f"KL k={KL_K} profile=True: "
+          + ", ".join(f"{key} {prof.profile[key]:.6g}"
+                      if isinstance(prof.profile[key], float)
+                      else f"{key} {prof.profile[key]}"
+                      for key in IRLS_PROFILE_KEYS[:4])
+          + f"; history bitwise the unprofiled fit's  [{card}]", flush=True)
 
 
 def same_factors(a, b):
@@ -2115,6 +2400,33 @@ def main():
               f"ms, peak {peak_mib(fit) if reps > 1 else float('nan'):.0f} "
               f"MiB  [{card}]", flush=True)
 
+    kernels = {"cd_nnls_shared": cd_shared, "cd_nnls_batched": cd_batched,
+               "weighted_gram_rhs": wg, "fused_als": fused,
+               "rhs_tall": rhs_f, "rhs_tall_t": rhs_t, "weighted_gram": wg5,
+               "cholesky_clip": chol}
+    phase(f"17 truncated SVD at the atlas shape {ATLAS['m']} x "
+          f"{ATLAS['n']}, k={ATLAS['k']}")
+    t_new = time.perf_counter()
+    svd_phases(rtt, card, counted, reset_counts)
+    phase(f"18 SVD-seeded NMF at the pbmc3k shape, k={SEEDED['k']}, "
+          f"{MAXIT} iterations")
+    model_s, A_s, held, seeded_launches, _ = seeded_phases(
+        rtt, card, counted, reset_counts, chol)
+    phase("19 projections at the pbmc3k shape (nnls, predict)")
+    proj = projection_phases(rtt, card, counted, reset_counts, kernels,
+                             model_s, A_s, held)
+    del A_s, held
+    phase(f"20 the KL fit k={KL_K} with profile=True")
+    profiled_irls_phase(rtt, card, A_ct, res_kl)
+    print(f"phases 17-20: {time.perf_counter() - t_new:.1f} s", flush=True)
+    # launches of each kernel on the seeded fits and the projections, each
+    # counted from zero
+    path_launches = {name: {label: got[name] for label, (got, _) in
+                            proj.items() if name in got}
+                     for name in kernels}
+    path_launches["cholesky_clip"].update(
+        {f"nmf seed={seed!r}": n for seed, n in seeded_launches.items()})
+
     def entry(name, source, replaces, launches, err, rel, key,
               library=False, file="pallas_kernels.py", bf16_key=None):
         """``max_rel_err``: the largest error over the twin's largest entry
@@ -2141,6 +2453,8 @@ def main():
                 "max_rel_err": rel, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                 "library_ms": library_ms, **step, **added.get(key, {}),
+                **({"launches_by_path": path_launches[name]}
+                   if path_launches.get(name) else {}),
                 **({} if bf16_key is None else dict(zip(
                     ("bf16_ms", "bf16_library_ms", "bf16_bound_ms"),
                     times[bf16_key][:3])))}

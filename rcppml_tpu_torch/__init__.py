@@ -18,7 +18,14 @@ carries:
     ``cv_patience=``, row and column subsampling), masked fits (``mask=`` a
     boolean matrix, ``"zeros"`` or ``"NA"``; ``sparse=True``; NaN entries),
     both with every loss above, rank sweeps (``k=[...]``) and the rank search
-    (``k="auto"``).
+    (``k="auto"``);
+  * SVD-seeded NMF (``seed="lanczos"`` / ``"irlba"``) and the profiled IRLS
+    fit (``profile=True`` with an IRLS loss);
+  * truncated SVD and PCA (``svd``, ``pca``: Lanczos, IRLBA, randomized,
+    Krylov-seeded projected refinement and deflation, with constraints,
+    robust fits, masks and cross-validated rank selection);
+  * the projection API (``nnls``, ``predict``, ``evaluate``, ``mse``) and
+    the generics ``reconstruct``, ``sparsity`` and ``variance_explained``.
 
 Eight kernels written for Hopper run on a CUDA tensor, each with a plain
 PyTorch twin that runs on a CPU tensor: the shared-Gram CD NNLS solve
@@ -36,9 +43,8 @@ clip (``csrc/cholesky_clip.cu``), the solve of every default MSE fit.
 
 Entry points run on the CUDA card unless the caller asks for ``device="cpu"``
 or passes a CPU tensor.  Still raising ``NotImplementedError`` with their
-ROADMAP.md item: ``profile=True`` with an IRLS loss, callbacks with an IRLS
-loss, cross-validation or a mask, checkpoints, SVD-seeded init, streaming,
-multi-modal input and meshes.
+ROADMAP.md item: checkpoints, streaming (``.spz`` paths, ``streaming_svd``,
+``nnls_streaming``), multi-modal input and meshes.
 
 It imports ``torch`` and never ``jax``; kernels are built with ``nvcc`` at
 first use, never at import.
@@ -46,10 +52,28 @@ first use, never at import.
 
 from .api import build_config, nmf
 from .config import (ZI, Dispersion, FactorConfig, Loss, NMFConfig, Norm,
-                     Solver)
+                     Solver, SVDConfig)
 from .device import kernels_available, set_fp32_precision
-from .result import NMFResult
+from .models.project import evaluate, mse, nnls, predict
+from .models.svd import pca, svd
+from .result import NMFResult, SVDResult
 
-__all__ = ["nmf", "build_config", "NMFConfig", "FactorConfig", "NMFResult",
+
+# R generics: free functions delegating to the result object
+def reconstruct(obj, *args, **kwargs):
+    return obj.reconstruct(*args, **kwargs)
+
+
+def sparsity(obj, *args, **kwargs):
+    return obj.sparsity(*args, **kwargs)
+
+
+def variance_explained(obj, *args, **kwargs):
+    return obj.variance_explained(*args, **kwargs)
+
+
+__all__ = ["nmf", "build_config", "svd", "pca", "nnls", "predict",
+           "evaluate", "mse", "reconstruct", "sparsity", "variance_explained",
+           "NMFConfig", "FactorConfig", "SVDConfig", "NMFResult", "SVDResult",
            "Loss", "Norm", "Solver", "Dispersion", "ZI", "kernels_available",
            "set_fp32_precision"]

@@ -22,16 +22,20 @@ weight and a loss over the nonzeros.
 Dense MSE fits also take ``fused_vmem=True`` (the whole fixed-``maxit`` fit
 as one call of the Newton-Schulz ALS kernels, ``tol=0``), ``bf16_data=True``
 (the products read a bfloat16 copy of A), ``seed=[...]`` (one restart per
-seed, the best train loss wins), ``on_iteration=`` (a callback per
-iteration, step mode) and ``profile=True`` (``res.profile``).
+seed, the best train loss wins) and ``on_iteration=`` (a callback per
+iteration, step mode).  ``profile=True`` fills ``res.profile`` for dense
+MSE and IRLS fits; a cross-validated or masked fit accepts it and times no
+section, and with an IRLS loss, cross-validation or a mask ``on_iteration``
+is accepted and never called, as in the JAX package.  ``seed="lanczos"`` /
+``"irlba"`` start from a truncated SVD of A (``models/svd.py``) on the
+fit's device.
 
-Branches of the JAX API that are not ported yet raise
-``NotImplementedError`` naming their ROADMAP.md item; none of them falls back
-silently: ``profile=True`` with an IRLS loss, ``on_iteration`` with an IRLS
-loss, cross-validation or a mask, ``checkpoint_path``, SVD-seeded init,
-``.spz`` paths and streaming, multi-modal input and ``mesh=``.  A
-cross-validated or masked fit accepts ``profile=True`` and times no section,
-as in the JAX package.
+The SVD (``svd``, ``pca``) and projection (``nnls``, ``predict``,
+``evaluate``, ``mse``) entry points live in ``models/svd.py`` and
+``models/project.py``.  Branches of the JAX API that are not ported yet
+raise ``NotImplementedError`` naming their ROADMAP.md item; none of them
+falls back silently: ``checkpoint_path``, ``.spz`` paths and streaming,
+multi-modal input and ``mesh=``.
 """
 
 from __future__ import annotations
@@ -387,8 +391,8 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
     and returns the restart with the best train loss
     (``misc["all_inits"]`` lists them all).
     ``on_iteration(iter, train_loss, nan)`` is called after every iteration
-    of a dense MSE fit (with an IRLS loss, cross-validation or a mask it
-    raises).  Other keywords are
+    of a dense MSE fit (with an IRLS loss, cross-validation or a mask it is
+    accepted and never called, as in the JAX package).  Other keywords are
     those of :func:`build_config`.
     """
     if isinstance(data, (list, tuple, dict)) and not _is_sparse(data):
@@ -476,11 +480,10 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
                        has_target_W=target_W is not None,
                        **kwargs)
 
+    # with an IRLS loss, cross-validation or a mask the callback is taken
+    # and never called, as in the JAX package (its nmf_fit returns the IRLS
+    # fit before the callback branch; fit_cv_or_masked takes none)
     masked = cfg.is_cv() or mask is not None
-    if on_iteration is not None and (cfg.requires_irls() or masked):
-        # the JAX package accepts the callback there and never calls it
-        raise unported("on_iteration with an IRLS loss, cross-validation "
-                       "or a mask", "Queue 1 item 6")
 
     aux = {}
     if graph_W is not None:

@@ -3,7 +3,7 @@
 The same fields, defaults and validation as ``rcppml_tpu/config.py``
 (``NMFConfig.validate`` at ``:207-289``), copied so that this package never
 imports JAX.  The configs stay frozen and hashable; nothing here depends on
-a backend.  ``SVDConfig`` is not ported yet (ROADMAP.md Queue 1 item 9).
+a backend.
 """
 
 from __future__ import annotations
@@ -250,3 +250,37 @@ class NMFConfig:
                     "fused_vmem supports the dense nonneg MSE fit "
                     "(optionally L1/L2-penalized); unsupported here: "
                     + "; ".join(blockers))
+
+
+@dataclass(frozen=True)
+class SVDConfig:
+    """Truncated SVD config (core/svd_config.hpp:32)."""
+    k: int = 10
+    tol: float = 1e-5
+    max_iter: int = 0                  # 0 = auto
+    center: bool = False
+    scale: bool = False
+    seed: int = 0
+    oversample: int = 10               # randomized SVD oversampling
+    power_iters: int = 2               # randomized SVD power iterations
+    work: int = 0                      # IRLBA working size; 0 = k + 7
+    robust_delta: float = 0.0
+    # convergence criterion for deflation/krylov (svd_config.hpp:25-29):
+    # "factor" = relative factor change, "loss" = relative sigma /
+    # variance change, "both" = either
+    convergence: str = "factor"
+
+    # Per-side constraints (krylov / deflation solvers)
+    u: FactorConfig = FactorConfig(nonneg=False)
+    v: FactorConfig = FactorConfig(nonneg=False)
+
+    # CV
+    test_fraction: float = 0.0
+    cv_seed: int = 0
+    patience: int = 3                  # auto-rank non-improving factors (R/svd.R:43)
+    # CV holdout restricted to nonzero entries (svd_config.hpp:127;
+    # recommender-style missingness)
+    mask_zeros: bool = False
+
+    def replace(self, **kw) -> "SVDConfig":
+        return dataclasses.replace(self, **kw)

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from . import config as cfg_mod
+from . import result as result_mod
 from .models.nmf import FitState, init_fit_state
 from .models.nmf_cv import CVState
 from .models.nmf_irls import IRLSState
@@ -136,3 +137,35 @@ def result_to_numpy(res) -> dict:
             "best_test_loss": res.misc.get("best_test_loss"),
             "theta": arr(res.theta), "dispersion": arr(res.dispersion),
             "pi_row": arr(res.pi_row), "pi_col": arr(res.pi_col)}
+
+
+def _numpy_fields(port_cls, ref, **override):
+    """``port_cls`` with every field of ``ref`` of the same name, arrays as
+    numpy arrays, ``misc`` copied."""
+    out = {}
+    for f in dataclasses.fields(port_cls):
+        val = getattr(ref, f.name)
+        if hasattr(val, "__array__") and not np.isscalar(val):
+            val = np.asarray(val)
+        out[f.name] = val
+    out["misc"] = dict(getattr(ref, "misc", {}) or {})
+    out.update(override)
+    return port_cls(**out)
+
+
+def nmf_result_from_reference(res) -> result_mod.NMFResult:
+    """The port's NMFResult for a result of ``rcppml_tpu`` (numpy fields):
+    a model fitted by the JAX package can go to the port's ``predict`` /
+    ``evaluate``.  A stored ``misc["config"]`` becomes the port's
+    NMFConfig."""
+    out = _numpy_fields(result_mod.NMFResult, res)
+    cfg = out.misc.get("config")
+    if cfg is not None and not isinstance(cfg, cfg_mod.NMFConfig):
+        out.misc["config"] = config_from_reference(cfg)
+    return out
+
+
+def svd_result_from_reference(res) -> result_mod.SVDResult:
+    """The port's SVDResult for a result of ``rcppml_tpu`` (numpy
+    fields)."""
+    return _numpy_fields(result_mod.SVDResult, res)

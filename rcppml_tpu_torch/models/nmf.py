@@ -57,16 +57,6 @@ def unported(what: str, item: str) -> NotImplementedError:
         "use rcppml_tpu for it")
 
 
-def check_ported(cfg: NMFConfig) -> None:
-    """Raise NotImplementedError for the config branches not ported yet:
-    SVD-seeded init.  (``profile=True`` with an IRLS loss raises in
-    ``nmf_irls.fit_irls``.)  Cross-validated and masked fits do not come
-    here: ``api.nmf`` sends them to ``models.nmf_cv.fit_cv_or_masked``."""
-    if cfg.init_mode in (1, 2):
-        raise unported("SVD-seeded init (seed='lanczos'/'irlba')",
-                       "Queue 1 item 9")
-
-
 # ---------------------------------------------------------------------------
 # Solve dispatch (fit_cpu.hpp:577-637 solver branches)
 # ---------------------------------------------------------------------------
@@ -388,7 +378,7 @@ def fit_profiled(A: torch.Tensor, cfg: NMFConfig, W_T0, H0, d0,
 # Initialization (nmf/nmf_init.hpp, fit_cpu.hpp:195-218)
 # ---------------------------------------------------------------------------
 
-def init_factors(cfg: NMFConfig, m: int, n: int,
+def init_factors(cfg: NMFConfig, m: int, n: int, A=None,
                  w_init: Optional[np.ndarray] = None,
                  h_init: Optional[np.ndarray] = None,
                  dtype=np.float32):
@@ -397,7 +387,10 @@ def init_factors(cfg: NMFConfig, m: int, n: int,
     Random init reproduces the reference's sequential SplitMix64 column-major
     fill: W_T first (k*m draws), then H (the next k*n draws)
     (nmf_init.hpp:167-186), bit for bit with ``rcppml_tpu``.  As there, an
-    ``h_init`` without a ``w_init`` is ignored.
+    ``h_init`` without a ``w_init`` is ignored.  ``init_mode`` 1 / 2 seed
+    from a truncated SVD of ``A`` (Lanczos / IRLBA, on A's device):
+    ``W_T[i,:] = |U[:,i]| sqrt(d_i)``, ``H[i,:] = |V[:,i]| sqrt(d_i)``
+    (nmf_init.hpp:45-96), the rows past the SVD's rank filled at random.
     """
     k = cfg.rank
     d0 = np.ones((k,), dtype=dtype)
@@ -409,9 +402,24 @@ def init_factors(cfg: NMFConfig, m: int, n: int,
             H = rng_mod.fill_uniform(cfg.seed if cfg.seed != 0 else 12345,
                                      k, n, dtype=dtype)
         return W_T, H, d0
-    if cfg.init_mode in (1, 2):
-        raise unported("SVD-seeded init (seed='lanczos'/'irlba')",
-                       "Queue 1 item 9")
+    if cfg.init_mode in (1, 2) and A is not None:
+        from . import svd as svd_mod
+        from ..config import SVDConfig
+        scfg = SVDConfig(k=k, tol=1e-10, center=False, seed=cfg.seed)
+        res = (svd_mod.lanczos_svd(A, scfg) if cfg.init_mode == 1
+               else svd_mod.irlba_svd(A, scfg))
+        kk = min(k, res.k_selected if res.k_selected else k)
+        W_T = np.empty((k, m), dtype=dtype)
+        H = np.empty((k, n), dtype=dtype)
+        sq = np.sqrt(np.maximum(np.asarray(res.d[:kk], dtype=np.float64), 0.0))
+        W_T[:kk] = (np.abs(np.asarray(res.U[:, :kk])) * sq[None, :]).T
+        H[:kk] = (np.abs(np.asarray(res.V[:, :kk])) * sq[None, :]).T
+        if kk < k:
+            fill_seed = 54321 if cfg.seed == 0 else cfg.seed + 999
+            W_T[kk:] = rng_mod.fill_uniform(fill_seed, k - kk, m, dtype=dtype)
+            H[kk:] = rng_mod.fill_uniform(fill_seed, k - kk, n,
+                                          offset=(k - kk) * m, dtype=dtype)
+        return W_T, H, d0
     W_T = rng_mod.fill_uniform(cfg.seed, k, m, dtype=dtype)
     H = rng_mod.fill_uniform(cfg.seed, k, n, offset=k * m, dtype=dtype)
     return W_T, H, d0
@@ -460,11 +468,12 @@ def nmf_fit(A, cfg: NMFConfig, *, w_init=None, h_init=None,
     ``sparse_zeros``: the input was sparse; an IRLS fit then gives zeros unit
     weight and sums its loss over the nonzeros (an MSE fit ignores it).
     ``on_iteration(iter, train_loss, nan)``: called after every iteration of
-    a dense MSE fit, which then runs in step mode (an IRLS fit does not call
-    it, here as in the JAX package; ``api.nmf`` refuses the combination).
+    a dense MSE fit, which then runs in step mode; an IRLS fit accepts it
+    and never calls it, as in the JAX package.  ``seed="lanczos"`` /
+    ``"irlba"`` (``cfg.init_mode`` 1 / 2) run the seeding SVD on A's
+    device.
     """
     cfg.validate()
-    check_ported(cfg)
     if np.ndim(A) != 2:
         raise ValueError("data must be a 2-D matrix")
     m, n = A.shape
@@ -475,7 +484,8 @@ def nmf_fit(A, cfg: NMFConfig, *, w_init=None, h_init=None,
     set_fp32_precision()
     A_dev = device_matrix(A, dev)
 
-    W_T0, H0, d0 = init_factors(cfg, m, n, w_init=w_init, h_init=h_init)
+    W_T0, H0, d0 = init_factors(cfg, m, n, A=A_dev, w_init=w_init,
+                                h_init=h_init)
     aux_dev = {key: torch.as_tensor(np.asarray(val, np.float32)
                                     if not isinstance(val, torch.Tensor)
                                     else val).to(A_dev.device, torch.float32)

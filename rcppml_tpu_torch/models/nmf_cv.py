@@ -526,9 +526,6 @@ def fit_cv_or_masked(A, cfg: NMFConfig, *, mask=None, aux=None, w_init=None,
     if mesh is not None:
         raise unported("mesh=", "Queue 1 item 14")
     cfg.validate()
-    if cfg.init_mode in (1, 2):
-        raise unported("SVD-seeded init (seed='lanczos'/'irlba')",
-                       "Queue 1 item 9")
     if np.ndim(A) != 2:
         raise ValueError("data must be a 2-D matrix")
     m, n = A.shape
@@ -563,7 +560,8 @@ def fit_cv_or_masked(A, cfg: NMFConfig, *, mask=None, aux=None, w_init=None,
                      ).to(dev, torch.float32)
                for key, val in (aux or {}).items()
                if val is not None and not key.endswith("_gram")}
-    W_T0, H0, d0 = init_factors(cfg, m, n, w_init=w_init, h_init=h_init)
+    W_T0, H0, d0 = init_factors(cfg, m, n, A=A_dev, w_init=w_init,
+                                h_init=h_init)
     disp_row0, disp_col0 = _init_dispersion(cfg, m, n, np.float32)
 
     weights = build_weights(cfg, A_dev, masks, sparse_zeros, is_cv)

@@ -27,6 +27,7 @@ float32 on every device.
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -38,7 +39,8 @@ from ..ops import features as feat
 from ..ops import linalg, losses, solvers
 from ..ops.wgram import weighted_gram_rhs
 from ..result import NMFResult
-from .nmf import FitState, finalize_result, init_fit_state, unported
+from .nmf import (FitState, _wait, finalize_result, init_fit_state,
+                  unported)
 
 
 @dataclass
@@ -411,10 +413,12 @@ def _posthoc(X, fc):
 
 
 def run_irls(cfg: NMFConfig, A: torch.Tensor, aux: dict, state: IRLSState,
-             sparse_zeros: bool) -> IRLSState:
+             sparse_zeros: bool, seg_end: Optional[int] = None) -> IRLSState:
     """Run the IRLS ALS loop from ``state`` to convergence or
     ``cfg.max_iter`` (the port of ``_fit_irls_jit``, without its mesh
-    padding and its segment bound)."""
+    padding).  With ``seg_end`` the loop stops after that many iterations in
+    all, and a later call carries on from the returned state, the same
+    trajectory bit for bit."""
     is_gp = cfg.loss == Loss.GP
     is_nb = cfg.loss == Loss.NB
     is_phi = cfg.loss in _POWER_LOSSES
@@ -443,8 +447,9 @@ def run_irls(cfg: NMFConfig, A: torch.Tensor, aux: dict, state: IRLSState,
     # and the fused kernel reads rows.  Without ZI it is made once per fit.
     A_T = None if is_zi else A.T.contiguous()
     check_each_iteration = cfg.tol > 0
+    bound = cfg.max_iter if seg_end is None else min(seg_end, cfg.max_iter)
 
-    while it < cfg.max_iter:
+    while it < bound:
         # data the solver sees: imputed from iter >= 1 when ZI is active
         A_solve = A_imp if is_zi else A
         A_solve_T = A_solve.T.contiguous() if is_zi else A_T
@@ -530,19 +535,55 @@ def fit_irls(A_dev: torch.Tensor, cfg: NMFConfig, W_T0, H0, d0, aux,
     """Entry of the IRLS path (dispatched from ``models.nmf.nmf_fit``).
 
     ``A_dev``: the (m, n) float32 matrix on the fit's device; ``W_T0``,
-    ``H0``, ``d0``: host arrays.  ``valid_dims`` (a matrix padded for a
-    device mesh) and ``enable_profiling`` (the segmented, timed loop) are not
-    ported and raise."""
+    ``H0``, ``d0``: host arrays.  With ``cfg.enable_profiling`` the same
+    loop runs in timed segments (:func:`_fit_irls_profiled`).
+    ``valid_dims`` (a matrix padded for a device mesh) is not ported and
+    raises."""
     if valid_dims is not None:
         raise unported("valid_dims (mesh padding)", "Queue 1 item 14")
-    if cfg.enable_profiling:
-        raise unported("profile=True (the segmented, timed IRLS loop)",
-                       "Queue 1 item 6")
     aux_dev = {key: val for key, val in (aux or {}).items()
                if val is not None and not key.endswith("_gram")}
     init = _init_irls_state(A_dev, cfg, W_T0, H0, d0)
+    if cfg.enable_profiling:
+        return _fit_irls_profiled(cfg, A_dev, aux_dev, init, sparse_zeros)
     return finalize_irls_result(
         cfg, run_irls(cfg, A_dev, aux_dev, init, sparse_zeros))
+
+
+def _fit_irls_profiled(cfg: NMFConfig, A_dev: torch.Tensor, aux: dict,
+                       init: IRLSState, sparse_zeros: bool) -> NMFResult:
+    """Profile the production IRLS loop (``nmf_irls.py:626-668`` of the JAX
+    package): :func:`run_irls` in segments of ``max(1, min(32, maxit // 8))``
+    iterations, the trajectory bit for bit the unprofiled fit's, each
+    segment timed on the host clock after the device has finished it.  The
+    iteration is one block (solves, dispersion, ZI), so the map has one
+    section, ``irls_iteration``: the best segment's time per iteration times
+    the iterations."""
+    seg = max(1, min(32, cfg.max_iter // 8 or 1))
+    seg_times = []          # (iterations in the segment, seconds)
+    state = init
+    _wait(A_dev.device)
+    t_all0 = time.perf_counter()
+    while state.it < cfg.max_iter and not bool(state.converged):
+        it0, t0 = state.it, time.perf_counter()
+        state = run_irls(cfg, A_dev, aux, state, sparse_zeros,
+                         seg_end=it0 + seg)
+        _wait(A_dev.device)
+        state.host_syncs += 1       # the segment end's read of converged
+        if state.it > it0:
+            seg_times.append((state.it - it0, time.perf_counter() - t0))
+    per_iter_s = min((t / k for k, t in seg_times), default=0.0)
+    res = finalize_irls_result(cfg, state)
+    res.profile = {
+        "irls_iteration": per_iter_s * 1e3 * state.it,
+        "fused_total_ms": (time.perf_counter() - t_all0) * 1e3,
+        "fused_per_iter_us": per_iter_s * 1e6,
+        "iterations": state.it,
+        "mode": "fused-segmented",
+        "section_basis": "one IRLS block per iteration (solves + "
+                         "dispersion + ZI); best-segment steady state",
+    }
+    return res
 
 
 def finalize_irls_result(cfg: NMFConfig, state: IRLSState) -> NMFResult:

@@ -1,6 +1,6 @@
 """Regularizer / feature application on Gram and RHS matrices.
 
-The port of ``rcppml_tpu/ops/features.py:21-139`` (with
+The port of ``rcppml_tpu/ops/features.py:21-152`` (with
 ``tier2_gram_addition`` for the per-column-Gram solves), itself the shared
 application sequence of the reference (``nmf/variant_helpers.hpp:89-146``).
 All of these touch only k x k or k x cols matrices.
@@ -126,3 +126,15 @@ def apply_angular_posthoc(factor, lam: float):
     cos_mat = cos_mat - torch.diag(torch.diag(cos_mat))
     grad = (cos_mat @ F_hat) * row_norms[:, None]
     return torch.clamp_min(factor - lam * grad, 0.0)
+
+
+def apply_angular_gram(G, factor, lam: float):
+    """Gram-based angular penalty of the SVD paths (angular.hpp:44-70):
+    G += lam * the cosine overlap of the factor's rows."""
+    if lam <= 0:
+        return G
+    overlap = factor @ factor.T
+    norms = torch.diagonal(overlap).sqrt()
+    safe = torch.where(norms > 0, norms, torch.ones_like(norms))
+    overlap = overlap / safe[:, None] / safe[None, :]
+    return G + lam * overlap

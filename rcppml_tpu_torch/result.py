@@ -1,7 +1,8 @@
-"""The NMF result container (core/result.hpp:71).
+"""The result containers (core/result.hpp:71, core/svd_result.hpp:20).
 
-The port's counterpart of ``rcppml_tpu/result.py::NMFResult``: plain numpy
-arrays on the host, whatever device the fit ran on.
+The port's counterparts of ``rcppml_tpu/result.py::NMFResult`` and
+``SVDResult``: plain numpy arrays on the host, whatever device the fit ran
+on.
 
 Factor model convention (core/types.hpp:99-107):
     ``A ≈ W @ diag(d) @ H`` with W (m, k), d (k,), H (k, n); rows of H and
@@ -10,6 +11,7 @@ Factor model convention (core/types.hpp:99-107):
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
@@ -64,8 +66,107 @@ class NMFResult:
         """W diag(d) H."""
         return (self.W * self.d[None, :]) @ self.H
 
+    def sparsity(self):
+        """Per-factor zero fractions (R/nmf_methods.R:222-233): one row per
+        factor per side, as a dict of columns (factor, sparsity, model),
+        with the side means under "W" and "H"."""
+        w = np.asarray(self.W)
+        h = np.asarray(self.H)
+        k = self.k
+        names = [f"factor{i + 1}" for i in range(k)]
+        sw = np.mean(w == 0, axis=0)
+        sh = np.mean(h == 0, axis=1)
+        return {
+            "factor": names + names,
+            "sparsity": sw.tolist() + sh.tolist(),
+            "model": ["w"] * k + ["h"] * k,
+            "W": float(sw.mean()),
+            "H": float(sh.mean()),
+        }
+
+    def predict(self, newdata, **kw) -> np.ndarray:
+        """Project new columns onto this model's W (R/predict_nmf.R:48);
+        returns H_new (k, n_new).  See :func:`models.project.predict`."""
+        from .models.project import predict as _predict
+        return _predict(self, newdata, **kw)
+
     def __repr__(self):
         m, n = self.shape
         return (f"NMFResult(k={self.k}, shape=({m}, {n}), "
                 f"iters={self.iterations}, converged={self.converged}, "
                 f"train_loss={self.train_loss:.6g})")
+
+
+@dataclass
+class SVDResult:
+    U: np.ndarray                      # (m, k)
+    d: np.ndarray                      # (k,)
+    V: np.ndarray                      # (n, k)
+    iterations: int = 0
+    converged: bool = False
+    k_selected: int = 0
+    train_loss: float = float("nan")
+    test_loss: float = float("nan")
+    center: Optional[np.ndarray] = None
+    scale: Optional[np.ndarray] = None
+    misc: Dict[str, Any] = field(default_factory=dict)
+    row_names: Optional[np.ndarray] = None          # A's rownames -> U rows
+    col_names: Optional[np.ndarray] = None          # A's colnames -> V rows
+
+    @property
+    def k(self) -> int:
+        return int(self.d.shape[0])
+
+    def reconstruct(self) -> np.ndarray:
+        rec = (self.U * self.d[None, :]) @ self.V.T
+        if self.scale is not None:
+            rec = rec * self.scale[:, None]
+        if self.center is not None:
+            rec = rec + self.center[:, None]
+        return rec
+
+    def variance_explained(self) -> np.ndarray:
+        """Proportion of the total variance per factor: d_i^2 / ||A||_F^2
+        where the gateway recorded the denominator (deflation.hpp:396-417),
+        else d_i^2 / sum(d^2)."""
+        d2 = np.asarray(self.d) ** 2
+        fro2 = self.misc.get("frobenius_norm_sq")
+        return d2 / (fro2 if fro2 else d2.sum())
+
+    @property
+    def shape(self):
+        return (self.U.shape[0], self.V.shape[0])
+
+    def subset_factors(self, idx) -> "SVDResult":
+        """s[i] factor subsetting (test_svd.R:277-288)."""
+        idx = np.atleast_1d(np.asarray(idx))
+        return dataclasses.replace(
+            self, U=np.asarray(self.U)[:, idx], d=np.asarray(self.d)[idx],
+            V=np.asarray(self.V)[:, idx], k_selected=int(idx.size))
+
+    def head(self, n: int = 6) -> np.ndarray:
+        """First rows of U scaled by d (R head.svd)."""
+        return (np.asarray(self.U) * np.asarray(self.d)[None, :])[:n]
+
+    def __getitem__(self, key):
+        return self.subset_factors(key)
+
+    def predict(self, newdata) -> np.ndarray:
+        """Project new samples (rows) onto the right singular vectors:
+        scores = newdata @ V / d (R/svd_methods.R:141-174); each row of
+        newdata is centered on its own mean when the model was centered."""
+        X = np.asarray(
+            newdata.todense() if hasattr(newdata, "todense") else newdata,
+            dtype=np.float32)
+        V = np.asarray(self.V)
+        if X.shape[1] != V.shape[0]:
+            raise ValueError(
+                f"newdata has {X.shape[1]} features; model expects "
+                f"{V.shape[0]}")
+        if self.center is not None:
+            X = X - X.mean(axis=1, keepdims=True)
+        return (X @ V) / np.asarray(self.d)[None, :]
+
+    def __repr__(self):
+        return (f"SVDResult(k={self.k}, shape=({self.U.shape[0]}, "
+                f"{self.V.shape[0]}), d[0]={float(self.d[0]):.6g})")

@@ -323,8 +323,27 @@ def test_unported_irls_branch_raises(branch, counts):
     """An IRLS branch that is not ported raises NotImplementedError naming
     its ROADMAP item.  Cross-validation and ``mask="zeros"`` did so until they
     were ported (item None); now they fit, with finite train and test losses
-    of the asked length."""
+    of the asked length.  ``profile=True`` and ``on_iteration`` did so until
+    queue 1 item 6 was ported: the profiled fit now has the JAX package's
+    profile keys and the unprofiled fit's history bit for bit, and the
+    callback is taken and never called, as in the JAX package."""
     kw, item = IRLS_UNPORTED[branch]
+    if branch == "profile":
+        common = dict(tol=0, maxit=4, loss="kl", device="cpu")
+        res = rtt.nmf(counts, K, **common, **kw)
+        plain = rtt.nmf(counts, K, **common)
+        ref = rt.nmf(counts, K, tol=0, maxit=4, loss="kl", **kw)
+        assert sorted(res.profile) == sorted(ref.profile)
+        np.testing.assert_array_equal(res.loss_history, plain.loss_history)
+        return
+    if branch == "on_iteration":
+        calls = []
+        res = rtt.nmf(counts, K, tol=0, maxit=3, loss="kl", device="cpu",
+                      on_iteration=lambda *a: calls.append(a))
+        rt.nmf(counts, K, tol=0, maxit=3, loss="kl",
+               on_iteration=lambda *a: calls.append(a))
+        assert calls == [] and res.iterations == 3
+        return
     if item is None:
         res = rtt.nmf(counts, K, tol=0, maxit=3, loss="kl", device="cpu",
                       cv_patience=4, **kw)

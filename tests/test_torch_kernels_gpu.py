@@ -794,3 +794,177 @@ def test_masked_and_cv_fits_on_the_card(cuda):
                                    rtol=1e-4)
         np.testing.assert_allclose(on_card.test_loss_history,
                                    on_cpu.test_loss_history, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Truncated SVD, SVD-seeded NMF, the projections and the profiled IRLS fit
+# ---------------------------------------------------------------------------
+
+def _planted(m=300, n=200, rank=8, seed=0, nonneg=False):
+    """A matrix with eight well-separated singular values 10 * 0.7^i plus
+    noise (nonnegative: its absolute value)."""
+    rs = np.random.RandomState(seed)
+    U, _ = np.linalg.qr(rs.randn(m, rank))
+    V, _ = np.linalg.qr(rs.randn(n, rank))
+    A = (U * (10.0 * 0.7 ** np.arange(rank))) @ V.T + 0.01 * rs.randn(m, n)
+    return (np.abs(A) if nonneg else A).astype(np.float32)
+
+
+def _aligned(port, ref):
+    sign = np.sign(np.sum(np.asarray(port, np.float64) * ref, axis=0))
+    sign[sign == 0] = 1.0
+    return port * sign
+
+
+SVD_ON_CARD = {
+    "lanczos": dict(method="lanczos"),
+    "irlba": dict(method="irlba"),
+    "randomized": dict(method="randomized"),
+    "pca": dict(method="lanczos", center=True),
+    "krylov_nonneg": dict(method="krylov", nonneg=True),
+    "krylov_cv": dict(method="krylov", test_fraction=0.1),
+    "deflation": dict(method="deflation"),
+    "deflation_nonneg_L1": dict(method="deflation", nonneg=True, L1=0.01),
+    "deflation_robust": dict(method="deflation", robust=True),
+    "deflation_masked": dict(method="deflation", mask="matrix"),
+    "deflation_cv": dict(method="deflation", test_fraction=0.1),
+    "auto_rank": dict(k="auto", k_max=12),
+}
+
+
+@pytest.mark.parametrize("case", list(SVD_ON_CARD))
+def test_svd_on_the_card_matches_the_cpu(cuda, case):
+    """Each method on the card against the port on the CPU: d within rtol
+    1e-4 (1e-3 for the robust deflation, whose float32 iteration is
+    chaotic), sign-aligned U, V within 1e-3, the same k_selected and CV
+    trajectory length; the SVD launches no hand-written kernel."""
+    import rcppml_tpu_torch as rtt
+    from rcppml_tpu_torch.ops import cd_nnls, cholesky_clip
+    kw = dict(SVD_ON_CARD[case])
+    k = kw.pop("k", 5)
+    A = _planted(nonneg="nonneg" in case)
+    if kw.get("mask") == "matrix":
+        kw["mask"] = np.random.RandomState(4).rand(*A.shape) < 0.1
+    before = (cd_nnls.cd_nnls_shared.launches,
+              cholesky_clip.cholesky_clip.launches)
+    card = rtt.svd(torch.from_numpy(A).to(cuda), k, **kw)
+    assert (cd_nnls.cd_nnls_shared.launches,
+            cholesky_clip.cholesky_clip.launches) == before
+    cpu = rtt.svd(A, k, device="cpu", **kw)
+    assert card.k_selected == cpu.k_selected
+    robust = "robust" in case
+    np.testing.assert_allclose(card.d, cpu.d, rtol=1e-3 if robust else 1e-4,
+                               atol=1e-4 * float(cpu.d.max()))
+    if not robust:
+        for name in ("U", "V"):
+            p, r = getattr(card, name), getattr(cpu, name)
+            np.testing.assert_allclose(_aligned(p, r), r, atol=1e-3)
+    assert len(card.misc.get("test_loss_trajectory", [])) == \
+        len(cpu.misc.get("test_loss_trajectory", []))
+
+
+def test_new_entry_points_run_on_the_card_by_default(cuda):
+    """A host array with no ``device=`` goes to the card: the same result
+    as the tensor already there, and the card's kernels launch."""
+    import rcppml_tpu_torch as rtt
+    from rcppml_tpu_torch.ops import cholesky_clip
+    A = np.abs(_planted())
+    on_card = rtt.svd(torch.from_numpy(A).to(cuda), 4)
+    np.testing.assert_array_equal(rtt.svd(A, 4).d, on_card.d)
+    model = rtt.nmf(A, 4, maxit=3, tol=0, seed=1)
+    before = cholesky_clip.cholesky_clip.launches
+    H = rtt.nnls(A, w=model.W)
+    assert cholesky_clip.cholesky_clip.launches == before + 1
+    np.testing.assert_array_equal(
+        rtt.nnls(torch.from_numpy(A).to(cuda), w=model.W), H)
+    assert rtt.predict(model, A).shape == (4, A.shape[1])
+    assert np.isfinite(rtt.evaluate(model, A))
+    assert rtt.mse(model, A) == rtt.evaluate(model, torch.from_numpy(A).to(
+        cuda))
+
+
+NNLS_ON_CARD = {
+    "cholesky": (dict(), "cholesky_clip"),
+    "cholesky_upper_bound": (dict(upper_bound=0.05), "cholesky_clip"),
+    "cd": (dict(solver="cd"), "cd_nnls_shared"),
+    "L1": (dict(L1=0.01), "cd_nnls_shared"),
+    "k40": (dict(k=40), "cd_nnls_shared"),
+    "warm_start": (dict(warm_start=True), "cd_nnls_shared"),
+    "kl": (dict(loss="kl"), "cd_nnls_batched"),
+    "nb_theta_per_row": (dict(loss="nb", theta="row"), "cd_nnls_batched"),
+    "gp_theta_per_col": (dict(loss="gp", theta="col"), "cd_nnls_batched"),
+    "kl_fused_wgram": (dict(loss="kl", fused=True), "weighted_gram_rhs"),
+}
+
+
+@pytest.mark.parametrize("route", list(NNLS_ON_CARD))
+def test_nnls_routes_on_the_card_match_the_cpu(cuda, route, monkeypatch):
+    """Each ``nnls`` route launches its kernel on the card, repeats bit for
+    bit and agrees with its CPU result within 1e-4 of the largest entry."""
+    import rcppml_tpu_torch as rtt
+    from rcppml_tpu_torch.ops import (cd_nnls, cd_nnls_batched,
+                                      cholesky_clip, wgram)
+    from rcppml_tpu_torch.utils.simulate import simulate_nmf
+    wrappers = {"cholesky_clip": cholesky_clip.cholesky_clip,
+                "cd_nnls_shared": cd_nnls.cd_nnls_shared,
+                "cd_nnls_batched": cd_nnls_batched.cd_nnls_batched,
+                "weighted_gram_rhs": wgram.weighted_gram_rhs}
+    kw, kernel = NNLS_ON_CARD[route]
+    kw = dict(kw)
+    sim = simulate_nmf(900, 400, 6, seed=3)
+    A = np.round(sim["A"] * 4).astype(np.float32)
+    k = kw.pop("k", 6)
+    rs = np.random.RandomState(k)
+    W = sim["W"] if k == 6 else rs.uniform(0.1, 1, (900, k)).astype(
+        np.float32)
+    theta = kw.pop("theta", None)
+    if theta is not None:
+        kw["theta"] = rs.uniform(0.5, 5.0, 900 if theta == "row" else 400)
+    if kw.pop("warm_start", False):
+        kw["warm_start"] = 0.9 * rtt.nnls(A, w=W, device="cpu")
+    if kw.pop("fused", False):
+        monkeypatch.setenv("RCPPML_FUSED_WGRAM", "1")
+    before = wrappers[kernel].launches
+    X = rtt.nnls(A, w=W, device="cuda", **kw)
+    assert wrappers[kernel].launches > before
+    np.testing.assert_array_equal(rtt.nnls(A, w=W, device="cuda", **kw), X)
+    ref = rtt.nnls(A, w=W, device="cpu", **kw)
+    assert np.abs(X - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("seed", ["lanczos", "irlba"])
+def test_svd_seeded_fit_on_the_card(cuda, seed):
+    """The init on the card within 1e-4 of the CPU port's on a matrix with
+    a well-separated spectrum; the fit launches kernel 6 twice an
+    iteration."""
+    import rcppml_tpu_torch as rtt
+    from rcppml_tpu_torch.models import nmf as nmf_mod
+    from rcppml_tpu_torch.ops import cholesky_clip
+    A = _planted(nonneg=True)
+    cfg = rtt.build_config(5, seed=seed)
+    on_card = nmf_mod.init_factors(cfg, *A.shape,
+                                   A=torch.from_numpy(A).to(cuda))
+    on_cpu = nmf_mod.init_factors(cfg, *A.shape, A=torch.from_numpy(A))
+    for a, b in zip(on_card, on_cpu):
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()
+    before = cholesky_clip.cholesky_clip.launches
+    res = rtt.nmf(A, 5, seed=seed, maxit=6, tol=0)
+    assert cholesky_clip.cholesky_clip.launches == before + 2 * 6
+    cpu = rtt.nmf(A, 5, seed=seed, maxit=6, tol=0, device="cpu")
+    np.testing.assert_allclose(res.loss_history, cpu.loss_history,
+                               rtol=1e-4)
+
+
+def test_profiled_irls_fit_on_the_card(cuda):
+    """profile=True with an IRLS loss: the history and factors of the
+    unprofiled fit on the card, bit for bit."""
+    import rcppml_tpu_torch as rtt
+    from rcppml_tpu_torch.utils.simulate import simulate_nmf
+    A = torch.from_numpy(np.round(simulate_nmf(600, 300, 6, seed=2)["A"]
+                                  * 4)).to(cuda)
+    plain = rtt.nmf(A, 6, loss="kl", maxit=8, tol=0, seed=1)
+    prof = rtt.nmf(A, 6, loss="kl", maxit=8, tol=0, seed=1, profile=True)
+    np.testing.assert_array_equal(prof.loss_history, plain.loss_history)
+    np.testing.assert_array_equal(prof.W, plain.W)
+    assert prof.profile["iterations"] == 8 and prof.profile["mode"] == \
+        "fused-segmented"
