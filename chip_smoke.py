@@ -47,7 +47,17 @@ the card, and times kernels, twins and fits with CUDA events:
     shape, its init within 1e-4 of the CPU port's, the fit through the
     Cholesky kernel; the projections ``nnls`` / ``predict`` through kernels
     6, 1, 2 and 4, each within 1e-4 of the CPU port's and bitwise
-    repeatable; the profiled KL fit bit for bit the unprofiled one.
+    repeatable; the profiled KL fit bit for bit the unprofiled one;
+  * rank-2 divisive clustering: one ``bipartition`` at the atlas shape on two
+    planted groups, ``dclust`` at the pbmc3k shape on 16 planted groups
+    (every split between groups, the leaves recovering them), both bitwise
+    repeatable, with the host reads of the rank-2 loop counted, and dclust
+    card against CPU on a small planted matrix; ``consensus_nmf`` at the
+    pbmc3k shape (k=10, 10 runs, ``"hard"`` and ``"knn_jaccard"``), its
+    fits through the Cholesky kernel, labels card against CPU;
+    checkpointed MSE (Cholesky and CD), KL and NB + ZI fits bit for bit the
+    uninterrupted ones with their launches; ``auto_nmf_distribution`` on the
+    counts.
 
 Each phase prints its own lines and any failure raises, so the exit code is
 non-zero.  There is no CPU fallback: without a CUDA card of compute
@@ -62,7 +72,8 @@ With ``--profile`` it builds the kernels and then, instead of the phases
 above, runs the same fits once each under ``torch.profiler`` and prints
 where each fit's time goes: wall time, summed device time and its share of
 the wall time (the rest is the device idling while the host works), the host
-syncs the fit counted, and the largest device kernels by name.
+syncs the fit counted, and the largest device kernels by name; also dclust
+and consensus_nmf.
 """
 
 import contextlib
@@ -236,6 +247,22 @@ ATLAS_CORNER, SVD_CORNER_RTOL = (1000, 4000), 2e-2
 # for predict
 SEEDED = dict(m=13714, n=2638, k=20, top=2000.0, decay=0.85)
 SEEDED_RTOL, PROJ_RTOL, PROJ_WIDE_K, HELD_BACK = 1e-4, 1e-4, 50, 1000
+# rank-2 divisive clustering: one split at the atlas shape on two planted
+# groups; dclust at the pbmc3k shape on 16 planted groups of 164 or 165
+# columns, each below 2 * min_samples (min_samples=100, the verify recipe's
+# digits run), so that every split falls between groups (a column near
+# v = 0 could land on either side when two devices round differently), the
+# leaves within CLUSTER_ARI of the planted groups; card against CPU on a
+# small planted matrix: ((m, n), levels, min_samples), 8 groups of 50
+CLUSTER = dict(levels=4, min_samples=100)
+CLUSTER_ARI = 0.99
+CLUSTER_CORNER = ((1200, 400), 3, 30)
+# consensus NMF at the pbmc3k shape on the MSE stand-in, default solver
+CONSENSUS = dict(k=10, n_runs=10)
+# checkpointed fits: every this many iterations (NB + ZI, 5 iterations,
+# every 2: three files of the imputed matrix)
+CKPT_EVERY, NBZI_CKPT_EVERY = 5, 2
+AUTO_DISTS, AUTO_MAXIT = ("mse", "gp", "nb"), 20
 IRLS_PROFILE_KEYS = ["fused_per_iter_us", "fused_total_ms", "irls_iteration",
                      "iterations", "mode", "section_basis"]
 
@@ -1018,6 +1045,7 @@ def profile_fits(rtt, card):
 
     A_at, _ = planted_matrix(ATLAS, seed=1)
     A_s, _ = planted_matrix(SEEDED, seed=2)
+    A_gr, _ = planted_groups(PBMC["m"], PBMC["n"], CLUSTER["levels"], seed=5)
     k_at = ATLAS["k"]
 
     fits = (("MSE CD k=20", lambda: mse_cd_fit(rtt, A_pb), False),
@@ -1050,7 +1078,14 @@ def profile_fits(rtt, card):
             (f"atlas pca k={k_at}", lambda: rtt.pca(A_at, k_at), False),
             (f"pbmc3k-shape nmf seed='lanczos' k={SEEDED['k']}",
              lambda: rtt.nmf(A_s, SEEDED["k"], seed="lanczos", maxit=MAXIT,
-                             tol=0), False))
+                             tol=0), False),
+            (f"dclust min_samples={CLUSTER['min_samples']} on "
+             f"{2 ** CLUSTER['levels']} planted groups",
+             lambda: rtt.dclust(A_gr, min_samples=CLUSTER["min_samples"]),
+             False),
+            (f"consensus_nmf hard k={CONSENSUS['k']}, {CONSENSUS['n_runs']} "
+             f"runs", lambda: rtt.consensus_nmf(
+                 A_pb, CONSENSUS["k"], n_runs=CONSENSUS["n_runs"]), False))
     for label, fit, fused in fits:
         with fused_wgram() if fused else contextlib.nullcontext():
             fit()
@@ -1064,13 +1099,22 @@ def profile_fits(rtt, card):
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
         device_ms = sum(e.self_device_time_total for e in rows) / 1e3
-        print(f"{label}, {res.iterations} iterations: wall {wall_ms:.1f} ms "
+        # dclust returns its leaves, consensus_nmf a dict with its runs
+        if isinstance(res, list):
+            counted_by = f"{len(res)} leaves"
+        elif isinstance(res, dict):
+            counted_by = (f"{sum(r.iterations for r in res['runs'])} "
+                          f"iterations in {len(res['runs'])} fits")
+        else:
+            counted_by = (f"{res.iterations} iterations, "
+                          f"{res.misc.get('host_syncs', 'no')} counted host "
+                          f"syncs, {res.misc.get('irls_inner_iterations', 0)}"
+                          f" inner iterations")
+        print(f"{label}: wall {wall_ms:.1f} ms "
               f"under the profiler, device busy {device_ms:.1f} ms "
               f"({100 * device_ms / wall_ms:.1f}%), "
-              f"{sum(e.count for e in rows)} device kernels and copies, "
-              f"{res.misc.get('host_syncs', 'no')} counted host syncs, "
-              f"{res.misc.get('irls_inner_iterations', 0)} inner iterations  "
-              f"[{card}]", flush=True)
+              f"{sum(e.count for e in rows)} device kernels and copies; "
+              f"{counted_by}  [{card}]", flush=True)
         for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"    {e.self_device_time_total / 1e3:9.2f} ms  "
                   f"{e.count:5d} x  {e.key[:90]}", flush=True)
@@ -1352,6 +1396,267 @@ def profiled_irls_phase(rtt, card, A_ct, res_kl):
 def same_factors(a, b):
     return all(np.array_equal(getattr(a, f), getattr(b, f))
                for f in ("W", "d", "H"))
+
+
+def planted_groups(m, n, levels, seed, noise=0.5, device="cuda"):
+    """A nonnegative (m, n) float32 matrix on the card whose columns fall in
+    2**levels planted groups on a binary tree of gene programs: at level l
+    each group expresses the gene block of its path's prefix with weight
+    2**(levels - l) (a random profile per block, a depth per column), plus
+    uniform noise in [0, noise).  Every rank-2 split falls between groups.
+    Returns the matrix and the host labels."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    labels = torch.arange(n, device=device) * 2 ** levels // n
+    depth = 0.8 + 0.4 * rand(n)
+    A = noise * rand(m, n)
+    for lev in range(1, levels + 1):
+        perm = torch.randperm(m, generator=gen, device=device)
+        for b, rows in enumerate(torch.tensor_split(perm, 2 ** lev)):
+            prog = 2.0 ** (levels - lev) * (0.5 + rand(len(rows)))
+            cols = torch.nonzero(labels >> (levels - lev) == b).squeeze(1)
+            A[rows[:, None], cols[None, :]] += prog[:, None] * depth[cols]
+    return A, labels.cpu().numpy()
+
+
+def leaf_labels(clusters, n):
+    """The leaf index of every column of a dclust partition; fails unless
+    the leaves cover every column exactly once."""
+    out = np.full(n, -1)
+    for i, cl in enumerate(clusters):
+        check(np.all(out[cl.samples] == -1), f"leaf {cl.id} overlaps")
+        out[cl.samples] = i
+    check(np.all(out >= 0), "the leaves cover every column")
+    return out
+
+
+def same_tree(a, b):
+    return [c.id for c in a] == [c.id for c in b] and all(
+        np.array_equal(x.samples, y.samples) for x, y in zip(a, b))
+
+
+def clustering_phases(rtt, card, counted, reset_counts):
+    """Phases 21 and 22: one bipartition at the atlas shape on a planted
+    two-group matrix, dclust at the pbmc3k shape on 16 planted groups, both
+    bitwise repeatable, recovering the groups, and dclust card against CPU
+    on a small planted matrix.  Returns ({label: ms}, host reads by label)."""
+    from rcppml_tpu_torch.models import clustering
+    from rcppml_tpu_torch.utils.metrics import adjusted_rand_index
+    times, reads = {}, {}
+
+    def host_reads():
+        return clustering._rank2_als.host_reads
+
+    m, n = ATLAS["m"], ATLAS["n"]
+    A, labels = planted_groups(m, n, 1, seed=4)
+    reset_counts()
+    r0 = host_reads()
+    bp = rtt.bipartition(A, seed=1)
+    reads["bipartition"] = host_reads() - r0
+    check(sum(fn.launches for fn in counted) == 0,
+          "bipartition launches no hand-written kernel")
+    check(reads["bipartition"] <= 10, f"at most maxit // 10 = 10 host reads "
+          f"a split: {reads['bipartition']}")
+    ari = adjusted_rand_index(np.isin(np.arange(n), bp.samples1), labels)
+    check(ari == 1.0 and -1.0 <= bp.dist <= 1.0,
+          f"the split is the planted one: ARI {ari}, dist {bp.dist}")
+    again = rtt.bipartition(A, seed=1)
+    check(np.array_equal(again.v, bp.v) and again.dist == bp.dist
+          and np.array_equal(again.center1, bp.center1),
+          "bipartition is bitwise repeatable on the card")
+    times["bipartition atlas"] = cuda_ms(lambda: rtt.bipartition(A, seed=1),
+                                         reps=3)
+    print(f"bipartition {m} x {n} (two planted groups): sizes {bp.size1} / "
+          f"{bp.size2}, ARI {ari}, dist {bp.dist:.6g}, "
+          f"{reads['bipartition']} host reads, bitwise repeatable; "
+          f"{times['bipartition atlas']:.3f} ms (median of 3)  [{card}]",
+          flush=True)
+    del A, again
+
+    m, n = PBMC["m"], PBMC["n"]
+    A, labels = planted_groups(m, n, CLUSTER["levels"], seed=5)
+    kw = dict(min_samples=CLUSTER["min_samples"])
+    r0 = host_reads()
+    tree, times["dclust pbmc3k"] = timed_once(lambda: rtt.dclust(A, **kw))
+    reads["dclust"] = host_reads() - r0
+    splits = len(tree) - 1
+    check(sum(fn.launches for fn in counted) == 0,
+          "dclust launches no hand-written kernel")
+    check(reads["dclust"] <= 10 * splits, f"at most 10 host reads a split: "
+          f"{reads['dclust']} for {splits} splits")
+    ari = adjusted_rand_index(leaf_labels(tree, n), labels)
+    groups = 2 ** CLUSTER["levels"]
+    check(ari >= CLUSTER_ARI,
+          f"the leaves recover the {groups} planted groups: ARI {ari}")
+    check(same_tree(rtt.dclust(A, **kw), tree),
+          "dclust is bitwise repeatable on the card")
+    print(f"dclust {m} x {n}, min_samples={kw['min_samples']}: "
+          f"{len(tree)} leaves ({splits} splits), ARI {ari} against the "
+          f"{2 ** CLUSTER['levels']} planted groups, {reads['dclust']} host "
+          f"reads, bitwise repeatable; {times['dclust pbmc3k']:.3f} ms (one "
+          f"run)  [{card}]", flush=True)
+    del A
+
+    (cm, cn), levels, min_samples = CLUSTER_CORNER
+    A, labels = planted_groups(cm, cn, levels, seed=6)
+    on_card = rtt.dclust(A, min_samples=min_samples)
+    on_cpu = rtt.dclust(A.cpu(), min_samples=min_samples)
+    check(same_tree(on_card, on_cpu), "dclust on the card and on the CPU: "
+          "the same ids and samples")
+    off = max(abs(a.dist - b.dist) for a, b in zip(on_card, on_cpu))
+    print(f"  dclust {cm} x {cn} ({2 ** levels} planted groups, min_samples="
+          f"{min_samples}): {len(on_card)} leaves, ids and samples identical "
+          f"on the card and on the CPU, dist within {off:.2e}", flush=True)
+    return times, reads
+
+
+def consensus_phase(rtt, card, counted, reset_counts, chol, A):
+    """Phase 23: consensus_nmf at the pbmc3k shape with both methods, its
+    fits through kernel 6 (twice an iteration), bitwise repeatable; labels
+    card against CPU on a small planted matrix.  Returns ({label: ms},
+    {label: kernel 6 launches})."""
+    k, runs = CONSENSUS["k"], CONSENSUS["n_runs"]
+    n = A.shape[1]
+    times, launches = {}, {}
+    for method in ("hard", "knn_jaccard"):
+        reset_counts()
+        out, ms = timed_once(lambda: rtt.consensus_nmf(A, k, n_runs=runs,
+                                                       method=method))
+        iters = sum(r.iterations for r in out["runs"])
+        launches[method] = chol.launches
+        check(chol.launches == 2 * iters and sum(
+            fn.launches for fn in counted) == chol.launches,
+            f"consensus {method}: kernel 6 twice an iteration of its runs "
+            f"and no other kernel: {chol.launches} for {iters} iterations")
+        C = out["consensus"]
+        check(C.shape == (n, n) and C.dtype == np.float64
+              and np.isfinite(C).all() and np.array_equal(C, C.T)
+              and (np.diag(C) == 1.0).all() and C.min() >= 0
+              and C.max() <= 1.0, f"consensus {method}: a symmetric matrix "
+              "in [0, 1] with a unit diagonal")
+        check(-1.0 <= out["cophenetic"] <= 1.0,
+              f"cophenetic {out['cophenetic']}")
+        again = rtt.consensus_nmf(A, k, n_runs=runs, method=method)
+        check(np.array_equal(again["consensus"], C)
+              and np.array_equal(again["labels"], out["labels"]),
+              f"consensus {method} is bitwise repeatable on the card")
+        times[f"consensus {method}"] = ms
+        print(f"consensus_nmf {A.shape[0]} x {n} k={k}, {runs} runs, "
+              f"{method}: {iters} iterations in all, {launches[method]} "
+              f"launches of cholesky_clip; cophenetic "
+              f"{out['cophenetic']:.6f}, {len(np.unique(out['labels']))} "
+              f"labels in use, bitwise repeatable; {ms:.1f} ms (one run)  "
+              f"[{card}]", flush=True)
+    (cm, cn), levels, _ = CLUSTER_CORNER
+    A_c, _ = planted_groups(cm, cn, levels - 1, seed=7)
+    kw = dict(n_runs=3, maxit=50)
+    for method in ("hard", "knn_jaccard"):
+        on_card = rtt.consensus_nmf(A_c, 2 ** (levels - 1), method=method,
+                                    **kw)
+        on_cpu = rtt.consensus_nmf(A_c.cpu(), 2 ** (levels - 1),
+                                   method=method, **kw)
+        check(np.array_equal(on_card["labels"], on_cpu["labels"]),
+              f"consensus {method}: the labels on the card and on the CPU")
+        off = float(np.abs(on_card["consensus"] - on_cpu["consensus"]).max())
+        print(f"  consensus {method} {cm} x {cn} ({2 ** (levels - 1)} planted "
+              f"groups): labels equal on the card and on the CPU, consensus "
+              f"within {off:.2e}", flush=True)
+    return times, launches
+
+
+def checkpoint_phase(rtt, card, counted, reset_counts, kernels, fits):
+    """Phase 24: each fit of ``fits`` ((label, A, k, keywords, every, kernel
+    name)) uninterrupted and checkpointed every ``every`` iterations: W, d,
+    H, the history, theta and pi bit for bit, the kernel's launches equal;
+    the MSE fit stopped at half its iterations and resumed too.  Returns
+    ({label: (ms, checkpointed ms)}, {label: launches})."""
+    import tempfile
+    times, launches = {}, {}
+    fields = ("W", "d", "H", "loss_history", "theta", "pi_row")
+
+    def same(a, b):
+        return all((getattr(a, f) is None and getattr(b, f) is None)
+                   or np.array_equal(getattr(a, f), getattr(b, f))
+                   for f in fields)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, A, k, kw, every, name in fits:
+            path = os.path.join(tmp, f"{len(times)}.npz")
+            reset_counts()
+            plain, ms = timed_once(lambda: rtt.nmf(A, k, **kw))
+            plain_launches = kernels[name].launches
+            reset_counts()
+            res, ck_ms = timed_once(lambda: rtt.nmf(
+                A, k, checkpoint_path=path, checkpoint_every=every, **kw))
+            launches[label] = kernels[name].launches
+            check(same(res, plain), f"checkpointed {label} every {every}: "
+                  "bit for bit the uninterrupted fit")
+            check(launches[label] == plain_launches > 0 and sum(
+                fn.launches for fn in counted) == launches[label],
+                f"checkpointed {label}: {launches[label]} launches of {name}"
+                f" and no other kernel, as the uninterrupted fit's "
+                f"{plain_launches}")
+            size = os.path.getsize(path)
+            with np.load(path) as z:
+                check(int(z["scalars"][0]) == kw["maxit"]
+                      and ("A_imp" in z.files) == ("zi" in kw),
+                      f"{label}: the file holds iteration {kw['maxit']}")
+            times[label] = (ms, ck_ms)
+            print(f"checkpointed {label}, every {every}: bit for bit the "
+                  f"uninterrupted fit, {launches[label]} launches of {name} "
+                  f"as it; {ck_ms:.1f} ms against {ms:.1f} ms uninterrupted "
+                  f"(one run each), file {size / 2**20:.1f} MiB  [{card}]",
+                  flush=True)
+        label, A, k, kw, every, name = fits[0]
+        path = os.path.join(tmp, "resume.npz")
+        half = dict(kw, maxit=kw["maxit"] // 2)
+        rtt.nmf(A, k, checkpoint_path=path, checkpoint_every=every, **half)
+        resumed = rtt.nmf(A, k, checkpoint_path=path, checkpoint_every=every,
+                          **kw)
+        check(same(resumed, rtt.nmf(A, k, **kw)),
+              f"{label} stopped at {half['maxit']} and resumed to "
+              f"{kw['maxit']}: bit for bit the uninterrupted fit")
+        print(f"  {label} stopped at {half['maxit']} iterations and resumed "
+              f"to {kw['maxit']}: bit for bit the uninterrupted fit",
+              flush=True)
+    return times, launches
+
+
+def auto_distribution_phase(rtt, card, counted, reset_counts, kernels, A):
+    """Phase 25: auto_nmf_distribution on the counts, ("mse", "gp", "nb"):
+    finite rows, one selected, the MSE fit through kernel 6 and the GP and
+    NB fits through kernel 2.  Returns (ms, {kernel name: launches})."""
+    reset_counts()
+    out, ms = timed_once(lambda: rtt.auto_nmf_distribution(
+        A, KL_K, distributions=AUTO_DISTS, maxit=AUTO_MAXIT))
+    rows, models = out["comparison"], out["models"]
+    check([r["distribution"] for r in rows] == list(AUTO_DISTS)
+          and all(np.isfinite([r["nll"], r["aic"], r["bic"]]).all()
+                  for r in rows)
+          and sum(r["selected"] for r in rows) == 1,
+          f"auto_nmf_distribution rows: {rows}")
+    inner = sum(models[d].misc["irls_inner_iterations"] for d in ("gp", "nb"))
+    got = {name: fn.launches for name, fn in kernels.items() if fn.launches}
+    check(got == {"cholesky_clip": 2 * models["mse"].iterations,
+                  "cd_nnls_batched": inner},
+          f"auto_nmf_distribution: kernel 6 twice an MSE iteration, kernel 2 "
+          f"once an inner GP / NB iteration: {got}")
+    again = rtt.auto_nmf_distribution(A, KL_K, distributions=AUTO_DISTS,
+                                      maxit=AUTO_MAXIT)
+    check(again["comparison"] == rows and all(
+        same_factors(again["models"][d], models[d]) for d in AUTO_DISTS),
+        "auto_nmf_distribution is bitwise repeatable on the card")
+    print(f"auto_nmf_distribution k={KL_K} {tuple(A.shape)} counts, maxit="
+          f"{AUTO_MAXIT}: selected {out['loss']!r}; "
+          + "; ".join(f"{r['distribution']} "
+                      f"{models[r['distribution']].iterations} iterations "
+                      f"bic {r['bic']:.6g}" for r in rows)
+          + f"; launches {got}; bitwise repeatable; {ms:.1f} ms (one run)  "
+          f"[{card}]", flush=True)
+    return ms, got
 
 
 def main():
@@ -2419,13 +2724,53 @@ def main():
     phase(f"20 the KL fit k={KL_K} with profile=True")
     profiled_irls_phase(rtt, card, A_ct, res_kl)
     print(f"phases 17-20: {time.perf_counter() - t_new:.1f} s", flush=True)
-    # launches of each kernel on the seeded fits and the projections, each
-    # counted from zero
+
+    t_new = time.perf_counter()
+    phase(f"21-22 rank-2 divisive clustering: bipartition at "
+          f"{ATLAS['m']} x {ATLAS['n']}, dclust at {PBMC['m']} x {PBMC['n']}")
+    _, cluster_reads = clustering_phases(rtt, card, counted, reset_counts)
+    phase(f"23 consensus_nmf at {PBMC['m']} x {PBMC['n']}, "
+          f"k={CONSENSUS['k']}, {CONSENSUS['n_runs']} runs")
+    _, consensus_launches = consensus_phase(rtt, card, counted, reset_counts,
+                                            chol, A_pb)
+    phase("24 checkpointed fits at the pbmc3k shape, bit for bit the "
+          "uninterrupted ones")
+    _, ckpt_launches = checkpoint_phase(rtt, card, counted, reset_counts,
+                                        kernels, (
+        ("MSE Cholesky k=20", A_pb, PBMC["k"], dict(maxit=MAXIT, tol=0,
+                                                    seed=1),
+         CKPT_EVERY, "cholesky_clip"),
+        ("MSE CD k=20", A_pb, PBMC["k"], dict(solver="cd", maxit=MAXIT,
+                                              tol=0, seed=1),
+         CKPT_EVERY, "cd_nnls_shared"),
+        (f"KL k={KL_K}", A_ct, KL_K, dict(loss="kl", maxit=KL_MAXIT, tol=0,
+                                          seed=1),
+         CKPT_EVERY, "cd_nnls_batched"),
+        (f"NB zi=row k={NBZI_K}", A_nb, NBZI_K, dict(
+            loss="nb", zi="row", maxit=NBZI_MAXIT, tol=0, seed=1),
+         NBZI_CKPT_EVERY, "cd_nnls_batched")))
+    phase(f"25 auto_nmf_distribution on the counts, k={KL_K}")
+    _, auto_launches = auto_distribution_phase(rtt, card, counted,
+                                               reset_counts, kernels, A_ct)
+    print(f"phases 21-25: {time.perf_counter() - t_new:.1f} s; bipartition "
+          f"host reads: {cluster_reads}", flush=True)
+
+    # launches of each kernel on the paths after phase 16, each counted
+    # from zero
     path_launches = {name: {label: got[name] for label, (got, _) in
                             proj.items() if name in got}
                      for name in kernels}
     path_launches["cholesky_clip"].update(
         {f"nmf seed={seed!r}": n for seed, n in seeded_launches.items()})
+    path_launches["cholesky_clip"].update(
+        {f"consensus_nmf {method}": n
+         for method, n in consensus_launches.items()})
+    for label, n in ckpt_launches.items():
+        name = ("cholesky_clip" if "Cholesky" in label else "cd_nnls_shared"
+                if "MSE CD" in label else "cd_nnls_batched")
+        path_launches[name][f"checkpointed {label}"] = n
+    for name, n in auto_launches.items():
+        path_launches[name]["auto_nmf_distribution"] = n
 
     def entry(name, source, replaces, launches, err, rel, key,
               library=False, file="pallas_kernels.py", bf16_key=None):

@@ -25,7 +25,16 @@ carries:
     Krylov-seeded projected refinement and deflation, with constraints,
     robust fits, masks and cross-validated rank selection);
   * the projection API (``nnls``, ``predict``, ``evaluate``, ``mse``) and
-    the generics ``reconstruct``, ``sparsity`` and ``variance_explained``.
+    the generics ``reconstruct``, ``sparsity`` and ``variance_explained``;
+  * rank-2 divisive clustering (``bipartition``, ``dclust``), consensus NMF
+    (``consensus_nmf``) and factor matching (``bipartite_match`` /
+    ``bipartiteMatch``, ``align``);
+  * preemption-safe checkpointed fits (``nmf(..., checkpoint_path=)``,
+    ``utils/checkpoint.py``, files shared with the JAX package);
+  * the analysis utilities: distribution diagnostics, embedding metrics and
+    classifiers, guided refinement, the training log, plots, the R samplers
+    (``r_*``), simulators, leveled logging and device introspection
+    (``gpu_available`` / ``gpu_info``).
 
 Eight kernels written for Hopper run on a CUDA tensor, each with a plain
 PyTorch twin that runs on a CPU tensor: the shared-Gram CD NNLS solve
@@ -43,8 +52,9 @@ clip (``csrc/cholesky_clip.cu``), the solve of every default MSE fit.
 
 Entry points run on the CUDA card unless the caller asks for ``device="cpu"``
 or passes a CPU tensor.  Still raising ``NotImplementedError`` with their
-ROADMAP.md item: checkpoints, streaming (``.spz`` paths, ``streaming_svd``,
-``nnls_streaming``), multi-modal input and meshes.
+ROADMAP.md item, or absent: streaming (``.spz`` paths, ``streaming_svd``,
+``nnls_streaming``, ``load_data``), the factor-graph engine and multi-modal
+input, and meshes.
 
 It imports ``torch`` and never ``jax``; kernels are built with ``nvcc`` at
 first use, never at import.
@@ -54,9 +64,31 @@ from .api import build_config, nmf
 from .config import (ZI, Dispersion, FactorConfig, Loss, NMFConfig, Norm,
                      Solver, SVDConfig)
 from .device import kernels_available, set_fp32_precision
+from .models.clustering import (align_factors, bipartite_match,
+                                bipartition, consensus_nmf, dclust)
 from .models.project import evaluate, mse, nnls, predict
 from .models.svd import pca, svd
 from .result import NMFResult, SVDResult
+from .rng import r_binom, r_matrix, r_sample, r_sparsematrix, r_unif
+from .utils.diagnostics import (auto_nmf_distribution, diagnose_dispersion,
+                                diagnose_zero_inflation,
+                                score_test_distribution)
+from .utils.guided import compute_target, refine
+from .utils.logging import LogLevel, get_verbosity, set_verbosity
+from .utils.metrics import (assess, classify_embedding, classify_logistic,
+                            classify_rf, cosine)
+from .utils.plots import (biplot, compare_nmf, plot_consensus, plot_cv,
+                          plot_dclust, plot_nmf, plot_summary)
+from .utils.resources import (accelerator_available, accelerator_info,
+                              gpu_available, gpu_info)
+from .utils.simulate import simulate_nmf, simulate_swimmer
+from .utils.training_log import export_log, training_logger
+
+# the R names of the reference's NAMESPACE
+bipartiteMatch = bipartite_match
+align = align_factors
+simulateNMF = simulate_nmf
+simulateSwimmer = simulate_swimmer
 
 
 # R generics: free functions delegating to the result object
@@ -76,4 +108,17 @@ __all__ = ["nmf", "build_config", "svd", "pca", "nnls", "predict",
            "evaluate", "mse", "reconstruct", "sparsity", "variance_explained",
            "NMFConfig", "FactorConfig", "SVDConfig", "NMFResult", "SVDResult",
            "Loss", "Norm", "Solver", "Dispersion", "ZI", "kernels_available",
-           "set_fp32_precision"]
+           "set_fp32_precision",
+           "bipartition", "dclust", "consensus_nmf", "bipartite_match",
+           "bipartiteMatch", "align",
+           "auto_nmf_distribution", "score_test_distribution",
+           "diagnose_zero_inflation", "diagnose_dispersion",
+           "assess", "cosine", "classify_embedding", "classify_logistic",
+           "classify_rf", "compute_target", "refine",
+           "simulateNMF", "simulateSwimmer", "simulate_nmf",
+           "simulate_swimmer", "training_logger", "export_log",
+           "compare_nmf", "biplot", "plot_nmf", "plot_cv", "plot_dclust",
+           "plot_consensus", "plot_summary",
+           "r_matrix", "r_sparsematrix", "r_sample", "r_unif", "r_binom",
+           "accelerator_available", "accelerator_info", "gpu_available",
+           "gpu_info", "set_verbosity", "get_verbosity", "LogLevel"]

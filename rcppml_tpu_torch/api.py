@@ -34,8 +34,14 @@ The SVD (``svd``, ``pca``) and projection (``nnls``, ``predict``,
 ``evaluate``, ``mse``) entry points live in ``models/svd.py`` and
 ``models/project.py``.  Branches of the JAX API that are not ported yet
 raise ``NotImplementedError`` naming their ROADMAP.md item; none of them
-falls back silently: ``checkpoint_path``, ``.spz`` paths and streaming,
-multi-modal input and ``mesh=``.
+falls back silently: ``.spz`` paths and streaming (and a matrix larger than
+the card's memory, which the JAX package streams), multi-modal input and
+``mesh=``.  ``checkpoint_path=`` runs the dense fit (MSE or IRLS) in
+segments of ``checkpoint_every`` iterations, writing the whole state after
+each and resuming from the file when it exists (``utils/checkpoint.py``).
+``verbose`` and the process-wide level of ``utils/logging.py`` gate a
+summary line before and after the fit and, at the DETAILED level, one line
+per iteration.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from . import constants
 from .config import Dispersion, FactorConfig, Loss, NMFConfig, Norm, Solver, ZI
 from .models.nmf import device_matrix, fit_device, nmf_fit, unported
 from .result import NMFResult
+from .utils import logging as logmod
 
 
 def _pair(x, name: str):
@@ -82,6 +89,9 @@ def _to_dense_f32(data, allow_nan: bool = False):
             raise ValueError("data must be a 2-D matrix")
         return data.to(torch.float32)
     if _is_sparse(data):
+        # memory guard before densification (core/memory.hpp:152-190)
+        from .utils.memory import guard_dense_input
+        guard_dense_input(data.shape[0], data.shape[1])
         arr = np.asarray(data.todense(), dtype=np.float32)
     else:
         arr = np.asarray(data, dtype=np.float32)
@@ -360,7 +370,17 @@ def _multi_restart(data, k, seeds, kwargs, rest):
         A = _to_dense_f32(data, allow_nan=True)
         if not np.isnan(A).any():       # NaN data is masked by each nmf()
             data = device_matrix(A, fit_device(A, rest["device"]))
-    runs = [nmf(data, k, **rest, **{**kwargs, "seed": s}) for s in seeds]
+    runs = []
+    for ri, s in enumerate(seeds):
+        sub = dict(rest)
+        ck = rest["checkpoint_path"]
+        if ck is not None:
+            # one checkpoint per restart: a shared path would make restart i
+            # resume restart i-1's state (a config mismatch)
+            root, dot, ext = ck.rpartition(".")
+            sub["checkpoint_path"] = (f"{root}.restart{ri}.{ext}" if dot
+                                      else f"{ck}.restart{ri}")
+        runs.append(nmf(data, k, **sub, **{**kwargs, "seed": s}))
     losses = [float(r.train_loss) for r in runs]
     best_ix = int(np.nanargmin(losses))
     best = runs[best_ix]
@@ -435,8 +455,19 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
                        "Queue 1 item 11")
     if mesh is not None:
         raise unported("mesh=", "Queue 1 item 14")
-    if checkpoint_path is not None:
-        raise unported("checkpoint_path", "Queue 1 item 13")
+    to_card = (torch.device(device).type == "cuda" if device is not None
+               else torch.cuda.is_available())
+    if (not isinstance(data, torch.Tensor) and hasattr(data, "shape")
+            and np.isscalar(k) and to_card):
+        # where the JAX package switches to streaming column panels
+        # (api.py:486), a matrix the card cannot hold with headroom
+        from .utils.memory import check_dense_alloc
+        chk = check_dense_alloc(data.shape[0], data.shape[1],
+                                where="device")
+        if not chk.fits:
+            raise unported(f"a matrix larger than the card's memory "
+                           f"({chk.message.splitlines()[0]}), which the JAX "
+                           f"package streams", "Queue 1 item 11")
 
     row_names, col_names, data = _extract_dimnames(data)
     sparse_input = _is_sparse(data)
@@ -499,10 +530,25 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
             # PROJ_ADV precompute: T @ T.T / n (nmf/fit.hpp:250-274)
             aux[f"target_{side}_gram"] = (t @ t.T) / t.shape[1]
 
-    if cfg.verbose:
-        print(f"[nmf] {A.shape[0]} x {A.shape[1]}  k={cfg.rank}  "
-              f"loss={cfg.loss.value}  solver={cfg.solver.name.lower()}")
-    if masked:
+    verbose = cfg.verbose or None
+    logmod.log_summary(
+        "[nmf] %d x %d  k=%d  loss=%s  solver=%s  device=%s",
+        A.shape[0], A.shape[1], cfg.rank, cfg.loss.value,
+        cfg.solver.name.lower(),
+        device if device is not None else getattr(A, "device", "cuda"),
+        verbose=verbose)
+    if checkpoint_path is not None:
+        # preemption-safe segmented fit; resumes from the checkpoint if one
+        # exists at the path
+        if masked:
+            raise ValueError("checkpoint_path currently supports the "
+                             "standard dense fit (no CV/mask)")
+        from .utils.checkpoint import fit_checkpointed
+        res = fit_checkpointed(A, cfg, checkpoint_path,
+                               every=int(checkpoint_every), w_init=w_init,
+                               h_init=h_init, aux=aux,
+                               sparse_zeros=sparse_input, device=device)
+    elif masked:
         from .models.nmf_cv import fit_cv_or_masked
         res = fit_cv_or_masked(A, cfg, mask=mask, aux=aux, w_init=w_init,
                                h_init=h_init, sparse_zeros=sparse_input,
@@ -513,7 +559,14 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
                       on_iteration=on_iteration)
     res.misc["config"] = cfg
     res.row_names, res.col_names = row_names, col_names
-    if cfg.verbose:
-        print(f"[nmf] done: {res.iterations} iters, "
-              f"converged={res.converged}, loss={res.train_loss:.6g}")
+    # SUMMARY: the final state; DETAILED: the per-iteration losses, replayed
+    # from the returned history, so that the loop never syncs for logging
+    logmod.log_summary("[nmf] done: %d iters, converged=%s, loss=%.6g",
+                       res.iterations, res.converged, res.train_loss,
+                       verbose=verbose)
+    if res.loss_history is not None:
+        hist = np.asarray(res.loss_history, dtype=float)
+        for i, loss in enumerate(hist[np.isfinite(hist)]):
+            logmod.log_detailed("  iter %4d: loss=%.6g", i + 1, loss,
+                                verbose=verbose)
     return res

@@ -1,8 +1,9 @@
 """SplitMix64 RNG: deterministic factor initialization and holdout masks.
 
-The host half of ``rcppml_tpu/rng.py`` (``:37-113``, ``:167-182``,
-``:251-256``), copied so that this package never imports JAX (that module
-imports ``jax.numpy`` at top level).  It reproduces the reference's RNG
+The host half of ``rcppml_tpu/rng.py`` (``:37-113``, the R samplers of
+``:116-165``, ``:167-182``, ``:251-256``), copied so that this package never
+imports JAX (that module imports ``jax.numpy`` at top level).  It
+reproduces the reference's RNG
 contract (``inst/include/FactorNet/rng/rng.hpp:60-221``): the same integer
 seed gives the same W/H initialization as the JAX package, bit for bit, and a
 cross-validation holdout mask is a pure function of ``(seed, i, j)``.
@@ -98,6 +99,60 @@ def holdout_mask(seed: int, rows, cols, inv_prob: int) -> np.ndarray:
     h = position_hash(seed, ii[:, None], jj[None, :])
     thresh = _U64_MAX // np.uint64(inv_prob)
     return h < thresh
+
+
+# ---------------------------------------------------------------------------
+# The R samplers (R/random.R), copies of ``rcppml_tpu/rng.py:116-165``: host
+# numpy on the same stream and hash, bit for bit the JAX package's.
+# ---------------------------------------------------------------------------
+
+def r_matrix(rows: int, cols: int, seed: int = 0,
+             transpose_identical: bool = False) -> np.ndarray:
+    """Reproducible uniform matrix (R/random.R r_matrix).  With
+    ``transpose_identical``, entry (i, j) is a pure position hash so
+    ``r_matrix(n, m, s, True).T == r_matrix(m, n, s, True)`` — the
+    transpose-consistency testing trick."""
+    if transpose_identical:
+        # symmetric position hash: unordered pair (min, max)
+        ii = np.arange(rows, dtype=np.uint32)[:, None]
+        jj = np.arange(cols, dtype=np.uint32)[None, :]
+        h = position_hash(seed, np.minimum(ii, jj), np.maximum(ii, jj))
+        return (h.astype(np.float64) / float(int(_U64_MAX))).astype(np.float32)
+    return fill_uniform(seed, rows, cols)
+
+
+def r_sparsematrix(rows: int, cols: int, density: float = 0.1, seed: int = 0,
+                   transpose_identical: bool = False):
+    """Reproducible sparse uniform matrix (R/random.R r_sparsematrix)."""
+    import scipy.sparse as sp
+    vals = r_matrix(rows, cols, seed, transpose_identical)
+    ii = np.arange(rows, dtype=np.uint32)[:, None]
+    jj = np.arange(cols, dtype=np.uint32)[None, :]
+    if transpose_identical:
+        keep_hash = position_hash(seed ^ 0x5BF03635, np.minimum(ii, jj),
+                                  np.maximum(ii, jj))
+    else:
+        keep_hash = position_hash(seed ^ 0x5BF03635, ii, jj)
+    keep = keep_hash < np.uint64(density * float(int(_U64_MAX)))
+    return sp.csc_matrix(np.where(keep, vals, 0.0))
+
+
+def r_sample(n: int, size: int, seed: int = 0, replace: bool = False):
+    """Reproducible sampling (R/random.R r_sample) via the sequential stream."""
+    if replace:
+        return (next_u64(seed, size) % np.uint64(n)).astype(np.int64)
+    order = np.argsort(next_u64(seed, n), kind="stable")
+    return order[:size].astype(np.int64)
+
+
+def r_unif(count: int, seed: int = 0, lo: float = 0.0, hi: float = 1.0):
+    u = next_u64(seed, count).astype(np.float64) / float(int(_U64_MAX))
+    return (lo + (hi - lo) * u).astype(np.float32)
+
+
+def r_binom(count: int, p: float, seed: int = 0):
+    u = next_u64(seed, count).astype(np.float64) / float(int(_U64_MAX))
+    return (u < p).astype(np.int32)
 
 
 def subsample_mask_1d(seed: int, count: int, frac: float,

@@ -1,8 +1,9 @@
 """Synthetic ground-truth generators (R/simulateNMF.R:25).
 
-``simulate_nmf`` and ``simulate_counts`` are ``rcppml_tpu/utils/simulate.py:
-16-76`` and ``:157-178``, copied so that this package never imports JAX: the
-same seed gives the same matrix in both packages.  ``simulate_nmf``: A = W H
+``simulate_nmf``, ``simulate_swimmer`` and ``simulate_counts`` are
+``rcppml_tpu/utils/simulate.py:16-117`` and ``:157-178``, copied so that this
+package never imports JAX: the same seed gives the same matrix in both
+packages.  ``simulate_nmf``: A = W H
 with known factors, plus noise and dropout scaled to the signal.
 ``simulate_counts``: Poisson or negative-binomial counts around a gamma W H,
 optionally zero-inflated, for the count-distribution fits.
@@ -75,6 +76,48 @@ def simulate_nmf(m: int = 100, n: int = 100, k: int = 5, *,
     if dropout > 0:
         A = A * (rs.uniform(size=A.shape) >= dropout)
     return {"A": A.astype(np.float32), "W": W, "H": H}
+
+
+def simulate_swimmer(size: int = 32) -> dict:
+    """The classic "swimmer" benchmark (R/simulateSwimmer.R:70): 256 images
+    of a stick figure with 4 limbs, each in one of 4 positions — an exactly
+    rank-17 nonnegative dataset (torso + 16 limb parts).
+
+    Returns {"A": (size*size, 256) image matrix, "images": (256, size, size)}.
+    """
+    c = size // 2
+    torso = np.zeros((size, size), dtype=np.float32)
+    torso[c - 4:c + 4, c - 1:c + 1] = 1.0
+
+    def limb(corner: int, pos: int) -> np.ndarray:
+        img = np.zeros((size, size), dtype=np.float32)
+        # four attachment points around the torso
+        anchors = [(c - 4, c - 1), (c - 4, c), (c + 3, c - 1), (c + 3, c)]
+        ai, aj = anchors[corner]
+        # four limb orientations per corner
+        dirs = [(-1, -1), (-1, 1), (1, -1), (1, 1)]
+        di, dj = dirs[pos]
+        for step in range(1, 7):
+            ii = ai + di * step
+            jj = aj + dj * step
+            if 0 <= ii < size and 0 <= jj < size:
+                img[ii, jj] = 1.0
+        return img
+
+    images = []
+    for p0 in range(4):
+        for p1 in range(4):
+            for p2 in range(4):
+                for p3 in range(4):
+                    img = torso.copy()
+                    img += limb(0, p0)
+                    img += limb(1, p1)
+                    img += limb(2, p2)
+                    img += limb(3, p3)
+                    images.append(np.clip(img, 0, 1))
+    images = np.stack(images)
+    A = images.reshape(256, size * size).T.astype(np.float32)
+    return {"A": A, "images": images}
 
 
 def simulate_counts(m: int = 80, n: int = 120, k: int = 4, *,

@@ -25,7 +25,9 @@ splits' partials added in index order) and is held within 2e-5 of its twin's
 largest entry; the Cholesky solve + clip kernel keeps its twin's order of operations
 with ``_rn`` intrinsics and equals it bit for bit on both routes (one launch
 with a lane group per column up to k = 64, two kernels beyond) and at every
-group width the plan can take.
+group width the plan can take.  The rank-2 clustering on the card equals the
+CPU port's split and tree on planted groups; checkpointed fits on the card
+are the uninterrupted fit bit for bit, with its kernel launches.
 """
 
 import numpy as np
@@ -968,3 +970,77 @@ def test_profiled_irls_fit_on_the_card(cuda):
     np.testing.assert_array_equal(prof.W, plain.W)
     assert prof.profile["iterations"] == 8 and prof.profile["mode"] == \
         "fused-segmented"
+
+
+def _planted_groups(m, n, levels, seed):
+    """Columns in 2**levels groups on a binary tree of gene programs, every
+    rank-2 split between groups (``tests/test_torch_clustering.py``)."""
+    rs = np.random.RandomState(seed)
+    labels = np.arange(n) * 2 ** levels // n
+    depth = rs.uniform(0.8, 1.2, n)
+    A = rs.uniform(0, 0.5, (m, n))
+    for lev in range(1, levels + 1):
+        blocks = np.array_split(rs.permutation(m), 2 ** lev)
+        for b, rows in enumerate(blocks):
+            prog = 2.0 ** (levels - lev) * rs.uniform(0.5, 1.5, len(rows))
+            cols = np.flatnonzero(labels >> (levels - lev) == b)
+            A[np.ix_(rows, cols)] += prog[:, None] * depth[cols]
+    return A.astype(np.float32), labels
+
+
+def test_bipartition_and_dclust_on_the_card_match_the_cpu(cuda):
+    """A host array goes to the card; the split and the tree equal the CPU
+    port's (ids and samples), v and dist within 1e-4, bitwise repeatable on
+    the card; at most maxit // 10 host reads a split."""
+    import rcppml_tpu_torch as rtt
+    from rcppml_tpu_torch.models import clustering
+    A, labels = _planted_groups(1200, 400, 3, seed=6)
+    reads = clustering._rank2_als.host_reads
+    card = rtt.bipartition(A, seed=3)
+    assert clustering._rank2_als.host_reads - reads <= 10
+    cpu = rtt.bipartition(A, seed=3, device="cpu")
+    np.testing.assert_array_equal(card.samples1, cpu.samples1)
+    assert np.abs(card.v - cpu.v).max() <= 1e-4 * np.abs(cpu.v).max()
+    assert abs(card.dist - cpu.dist) <= 1e-4
+    np.testing.assert_array_equal(rtt.bipartition(A, seed=3).v, card.v)
+    tree = rtt.dclust(torch.from_numpy(A).to(cuda), min_samples=30)
+    want = rtt.dclust(A, min_samples=30, device="cpu")
+    assert [c.id for c in tree] == [c.id for c in want]
+    for a, b in zip(tree, want):
+        np.testing.assert_array_equal(a.samples, b.samples)
+        assert abs(a.dist - b.dist) <= 1e-4
+    assert all(len(np.unique(labels[c.samples])) == 1 for c in tree)
+
+
+@pytest.mark.parametrize("loss", ["mse", "kl"])
+def test_checkpointed_fits_on_the_card_are_the_uninterrupted_fit(
+        cuda, loss, tmp_path):
+    """In segments, and stopped and resumed: W, d, H and the history bit for
+    bit the uninterrupted fit on the card, with as many launches of its
+    kernel (kernel 6 for MSE, kernel 2 for KL)."""
+    import rcppml_tpu_torch as rtt
+    from rcppml_tpu_torch.ops import cd_nnls_batched, cholesky_clip
+    from rcppml_tpu_torch.utils.simulate import simulate_nmf
+    A = simulate_nmf(900, 400, 6, seed=3)["A"]
+    if loss == "kl":
+        A = np.round(A * 4).astype(np.float32)
+    A = torch.from_numpy(A).to(cuda)
+    kernel = (cholesky_clip.cholesky_clip if loss == "mse"
+              else cd_nnls_batched.cd_nnls_batched)
+    kw = dict(loss=loss, tol=0, seed=1)
+    before = kernel.launches
+    plain = rtt.nmf(A, 6, maxit=12, **kw)
+    plain_launches = kernel.launches - before
+    path = str(tmp_path / "ck.npz")
+    before = kernel.launches
+    seg = rtt.nmf(A, 6, maxit=12, checkpoint_path=path, checkpoint_every=5,
+                  **kw)
+    assert kernel.launches - before == plain_launches > 0
+    path2 = str(tmp_path / "resume.npz")
+    rtt.nmf(A, 6, maxit=6, checkpoint_path=path2, checkpoint_every=4, **kw)
+    resumed = rtt.nmf(A, 6, maxit=12, checkpoint_path=path2,
+                      checkpoint_every=4, **kw)
+    for res in (seg, resumed):
+        for name in ("W", "d", "H", "loss_history"):
+            np.testing.assert_array_equal(getattr(res, name),
+                                          getattr(plain, name))

@@ -249,13 +249,28 @@ UNPORTED = {
 
 
 @pytest.mark.parametrize("branch", list(UNPORTED))
-def test_unported_branch_raises(branch, data):
+def test_unported_branch_raises(branch, data, tmp_path):
     """A branch that is not ported raises NotImplementedError naming its
-    ROADMAP item.  The profiled IRLS fit and the SVD-seeded init did so
-    until they were ported; now they fit, the first with the JAX package's
-    profile keys, the second from the JAX package's initial factors
-    (``tests/test_torch_svd.py`` holds both to the JAX package in full)."""
+    ROADMAP item.  The profiled IRLS fit, the SVD-seeded init and the
+    checkpointed fits did so until they were ported; now they fit, the
+    first with the JAX package's profile keys, the second from the JAX
+    package's initial factors (``tests/test_torch_svd.py`` holds both to
+    the JAX package in full), the checkpointed ones bit for bit the plain
+    fit, one file per restart (``tests/test_torch_checkpoint.py`` holds
+    them in full)."""
     kw = UNPORTED[branch]
+    if "checkpoint_path" in kw:
+        path = tmp_path / kw["checkpoint_path"]
+        kw = dict(kw, checkpoint_path=str(path))
+        res = rtt.nmf(data, K, tol=0, maxit=4, device="cpu", **kw)
+        del kw["checkpoint_path"]
+        plain = rtt.nmf(data, K, tol=0, maxit=4, device="cpu", **kw)
+        np.testing.assert_array_equal(res.W, plain.W)
+        np.testing.assert_array_equal(res.loss_history, plain.loss_history)
+        files = sorted(f.name for f in tmp_path.iterdir())
+        assert files == (["fit.ckpt"] if branch == "checkpoint"
+                         else ["fit.restart0.ckpt", "fit.restart1.ckpt"])
+        return
     if branch == "profile_irls":
         A = np.round(data * 3)
         res = rtt.nmf(A, K, tol=0, maxit=4, device="cpu", **kw)
