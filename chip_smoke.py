@@ -57,7 +57,17 @@ the card, and times kernels, twins and fits with CUDA events:
     fits through the Cholesky kernel, labels card against CPU;
     checkpointed MSE (Cholesky and CD), KL and NB + ZI fits bit for bit the
     uninterrupted ones with their launches; ``auto_nmf_distribution`` on the
-    counts.
+    counts;
+  * out-of-core streaming on two synthetic count matrices written with the
+    port's ``st_write`` (the hcabm40k shape, 5,000 x 40,000 at 16.5%, and
+    the flagship's rows and density on 20,000 columns, 38,606 x 20,000 at
+    5.15%): the codec bit for bit, ``nmf`` of the ``.spz`` path with both
+    solvers against the in-memory card fit (the kernel's launches once a
+    panel a sweep), the uncached, sparse-panel and checkpointed streams bit
+    for bit the cached one, the wire cache within 1e-5 of the uncached
+    stream, KL and CV streams through kernel 2, streaming SVD (randomized,
+    lanczos, irlba) within 1e-3 of the in-memory SVD and
+    ``nnls_streaming`` within 1e-5 of ``nnls``.
 
 Each phase prints its own lines and any failure raises, so the exit code is
 non-zero.  There is no CPU fallback: without a CUDA card of compute
@@ -263,6 +273,73 @@ CONSENSUS = dict(k=10, n_runs=10)
 # every 2: three files of the imputed matrix)
 CKPT_EVERY, NBZI_CKPT_EVERY = 5, 2
 AUTO_DISTS, AUTO_MAXIT = ("mse", "gp", "nb"), 20
+# out-of-core streaming (phases 26-29): two synthetic count matrices, made
+# on the card from a seed and written with the port's st_write (forward and
+# transpose streams).  (i) the hcabm40k shape of BASELINE.md:11 (NMF k=20 at
+# 5,000 x 40,000, nnz about 33M): Poisson counts around a background plus
+# 20 planted blocks of decaying level (stream_counts_i), 16.5% of the
+# entries nonzero: the auto rule takes dense panels (density above 0.15) and
+# the dense panel cache; 512 columns a panel, so that the largest panel (40,000 x
+# 512 floats of A^T, 82 MB) stays well under a quarter of the dense matrix.
+# (ii) the flagship's rows and density (BASELINE.md:29: 38,606 rows, 554M
+# nonzeros over 278,676 columns) on 20,000 columns: entry (i, j) nonzero
+# with probability proportional to a lognormal(0, 1.6) gene popularity
+# times a lognormal(0, 0.35) cell depth (tools/flagship_streaming.py::
+# synthesize's model), values 1 + geometric(0.42): sparse panels with uint16
+# rows and uint8 values, and the wire cache
+STREAM_I = dict(m=5000, n=40000, density=0.165, chunk_cols=512)
+STREAM_II = dict(m=38606, n=20000, density=554e6 / (38606 * 278676),
+                 chunk_cols=2048)
+
+
+def stream_panels(spec):
+    """(rows, columns) of each panel solve of a stream, forward panels then
+    transposed ones: chunk_cols columns of A at a time, then chunk_cols rows
+    (phase 26 holds the written files' panels to this)."""
+    m, n, c = spec["m"], spec["n"], spec["chunk_cols"]
+    return [(rows, min(c, cols - j0)) for rows, cols in ((m, n), (n, m))
+            for j0 in range(0, cols, c)]
+
+
+STREAM_K, STREAM_MAXIT, STREAM_CKPT_EVERY = 20, MAXIT, 5
+STREAM_I_TOP, STREAM_I_DECAY = 2.0, 0.85
+STREAM_II_MAXIT, STREAM_KL_K, STREAM_KL_MAXIT = 5, 16, 5
+STREAM_CV_K, STREAM_CV_MAXIT, STREAM_CV_FRACTION = 16, 5, 0.1
+STREAM_SVD_K, STREAM_SVD_RTOL, STREAM_NNLS_RTOL = 10, 1e-3, 1e-5
+# the twin cases at the shapes the streams launch (each panel width and its
+# remainder): kernel 6 on every MSE panel of (i) and (ii) and in
+# nnls_streaming, kernel 1 on (i) with solver="cd", kernel 2 on the column
+# blocks (stream_blocks) of the KL stream of (ii) and the CV stream of (i)
+STREAM_CHOL_CASES = sorted({(STREAM_K, w) for spec in (STREAM_I, STREAM_II)
+                            for _, w in stream_panels(spec)})
+STREAM_CD_CASES = [(STREAM_K, w, 0.0, 0.0, False) for w in
+                   sorted({w for _, w in stream_panels(STREAM_I)})]
+
+
+def stream_blocks(spec, k, nmf_irls):
+    """The column blocks of kernel 2 in a stream's CV and IRLS panel
+    solves: each panel cut as nmf_cv and nmf_irls cut it."""
+    out = []
+    for rows, nc in stream_panels(spec):
+        bc = nmf_irls._block_count(nc, k, rows,
+                                   kr=nmf_irls._use_kr(k, rows))
+        out += [min(bc, nc - j0) for j0 in range(0, nc, bc)]
+    return out
+
+
+def stream_cdb_cases(nmf_irls):
+    return sorted({(k, w, 0.0, 0.0, False)
+                   for spec, k in ((STREAM_II, STREAM_KL_K),
+                                   (STREAM_I, STREAM_CV_K))
+                   for w in stream_blocks(spec, k, nmf_irls)})
+# the streaming fit against the in-memory one on the card: train loss
+# within STREAM_LOSS_RTOL, W within STREAM_W_TOL of its largest entry (the
+# port's card-against-CPU factor bar, tests/test_torch_kernels_gpu.py; the
+# JAX streaming test's atol of 2e-3 is about ten times a typical entry of
+# an L1-normalised W with 5,000 rows); the wire cache's fit within
+# STREAM_WIRE_TOL of the uncached one (tests/test_streaming.py:399-420)
+STREAM_LOSS_RTOL, STREAM_W_TOL = 1e-3, 2e-3
+STREAM_WIRE_TOL = 1e-5
 IRLS_PROFILE_KEYS = ["fused_per_iter_us", "fused_total_ms", "irls_iteration",
                      "iterations", "mode", "section_basis"]
 
@@ -918,7 +995,8 @@ def chol_system(k, n, seed, rank=None):
 
 def check_cholesky_clip():
     """Kernel 6 against its twin (bitwise) and against ``torch.linalg``, at
-    the main cases and at the edges of the lane-group route.  Returns the
+    the main cases, at the edges of the lane-group route and at the streams'
+    panel widths.  Returns the
     largest absolute and relative error against the twin and whether every
     case was bitwise equal to it."""
     from rcppml_tpu_torch.ops import cholesky_clip as cc
@@ -926,7 +1004,8 @@ def check_cholesky_clip():
     worst_abs = worst_rel = worst_lib = 0.0
     all_equal = True
     cases = [(k, n) for k in CHOL_KS for n in CHOL_NS] + [
-        (k, n) for k in CHOL_EDGE_KS for n in CHOL_EDGE_NS]
+        (k, n) for k in CHOL_EDGE_KS for n in CHOL_EDGE_NS] + \
+        STREAM_CHOL_CASES
     for k, n in cases:
         G, B = chol_system(k, n, seed=k * 7919 + n)
         L = torch.linalg.cholesky(G)
@@ -1047,6 +1126,15 @@ def profile_fits(rtt, card):
     A_s, _ = planted_matrix(SEEDED, seed=2)
     A_gr, _ = planted_groups(PBMC["m"], PBMC["n"], CLUSTER["levels"], seed=5)
     k_at = ATLAS["k"]
+    # matrix (i) of phase 27 as a .spz file, for its default streaming fit
+    import tempfile
+    stream_dir = tempfile.TemporaryDirectory()
+    path_i = os.path.join(stream_dir.name, "i.spz")
+    A_i = stream_counts_i()
+    rtt.st_write(csc_of_columns(STREAM_I["n"], 4096,
+                                lambda j0, j1: A_i[:, j0:j1].T.contiguous()),
+                 path_i, chunk_cols=STREAM_I["chunk_cols"])
+    del A_i
 
     fits = (("MSE CD k=20", lambda: mse_cd_fit(rtt, A_pb), False),
             (f"KL k={KL_K}", lambda: kl_fit(rtt, A_ct), False),
@@ -1085,7 +1173,11 @@ def profile_fits(rtt, card):
              False),
             (f"consensus_nmf hard k={CONSENSUS['k']}, {CONSENSUS['n_runs']} "
              f"runs", lambda: rtt.consensus_nmf(
-                 A_pb, CONSENSUS["k"], n_runs=CONSENSUS["n_runs"]), False))
+                 A_pb, CONSENSUS["k"], n_runs=CONSENSUS["n_runs"]), False),
+            (f"streaming MSE k={STREAM_K} from the .spz of (i) "
+             f"{STREAM_I['m']} x {STREAM_I['n']}, {STREAM_MAXIT} sweeps",
+             lambda: rtt.nmf(path_i, STREAM_K, maxit=STREAM_MAXIT, tol=0,
+                             seed=1), False))
     for label, fit, fused in fits:
         with fused_wgram() if fused else contextlib.nullcontext():
             fit()
@@ -1120,6 +1212,7 @@ def profile_fits(rtt, card):
                   f"{e.count:5d} x  {e.key[:90]}", flush=True)
         if "fused_vmem" in label:
             print(f"    kernel 3 by part: {kernel3_parts(prof)}", flush=True)
+    stream_dir.cleanup()
 
 
 # kernel 3's kernels by part, from their names
@@ -1659,6 +1752,385 @@ def auto_distribution_phase(rtt, card, counted, reset_counts, kernels, A):
     return ms, got
 
 
+# ---------------------------------------------------------------------------
+# Out-of-core streaming (phases 26-29)
+# ---------------------------------------------------------------------------
+
+def bisect_scale(share_of, target, iters=40):
+    """The scale s with share_of(s) == target, for share_of rising in s."""
+    lo, hi = 0.0, 1.0
+    while share_of(hi) < target:
+        hi *= 2.0
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        lo, hi = (mid, hi) if share_of(mid) < target else (lo, mid)
+    return 0.5 * (lo + hi)
+
+
+def stream_counts_i(seed=11):
+    """Matrix (i) as a dense float32 tensor on the card: Poisson counts
+    around b + a planted block mean (factor f on the rows and columns
+    congruent to f mod k, level STREAM_I_TOP * STREAM_I_DECAY^f times
+    uniform [0.5, 1.5) row and column weights), with the background b set
+    so that 16.5% of the entries are nonzero.  The blocks put the ten
+    leading singular values well above the noise's (on uniform rank-20
+    factors they fall inside the noise bulk, where a Lanczos run's Ritz
+    values are rounding noise)."""
+    m, n, k = STREAM_I["m"], STREAM_I["n"], STREAM_K
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.rand(m, device="cuda", generator=gen) + 0.5
+    c = torch.rand(n, device="cuda", generator=gen) + 0.5
+    level = STREAM_I_TOP * STREAM_I_DECAY ** torch.arange(
+        k, device="cuda", dtype=torch.float32)
+    rf = torch.arange(m, device="cuda") % k
+    cf = torch.arange(n, device="cuda") % k
+    block = torch.where(rf[:, None] == cf[None, :],
+                        (level[rf] * a)[:, None] * c[None, :],
+                        torch.zeros((), device="cuda"))
+    sample = block.flatten()[::37]
+    b = bisect_scale(lambda s: float((1.0 - torch.exp(-(s + sample)))
+                                     .mean()), STREAM_I["density"])
+    return torch.poisson(block + b, generator=gen)
+
+
+def csc_of_columns(n, block, columns):
+    """A host scipy CSC matrix from ``columns(j0, j1)``, which gives columns
+    j0..j1 of the matrix as the rows of a tensor on the card: nonzero() of
+    a row-major block of A^T lists the entries in CSC order."""
+    import scipy.sparse as sp
+    counts, rows, vals = [], [], []
+    m = None
+    for j0 in range(0, n, block):
+        At = columns(j0, min(j0 + block, n))
+        m = At.shape[1]
+        nz = At.nonzero()
+        counts.append(torch.bincount(nz[:, 0], minlength=At.shape[0]))
+        rows.append(nz[:, 1].to(torch.int32).cpu())
+        vals.append(At[nz[:, 0], nz[:, 1]].cpu())
+        del At, nz
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(torch.cat(counts).cpu().numpy(), out=indptr[1:])
+    return sp.csc_matrix((torch.cat(vals).numpy(), torch.cat(rows).numpy(),
+                          indptr), shape=(m, n))
+
+
+def stream_counts_ii(seed=12):
+    """Matrix (ii) as a host scipy CSC matrix, made on the card."""
+    m, n = STREAM_II["m"], STREAM_II["n"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pop = torch.exp(1.6 * torch.randn(m, device="cuda", generator=gen))
+    depth = torch.exp(0.35 * torch.randn(n, device="cuda", generator=gen))
+    sample = depth[::37, None] * pop[None, :]
+    c = bisect_scale(lambda s: float(torch.clamp_max(s * sample, 1.0).mean()),
+                     STREAM_II["density"])
+    log_q = float(np.log(1.0 - 0.42))
+
+    def columns(j0, j1):
+        p = torch.clamp_max(c * depth[j0:j1, None] * pop[None, :], 1.0)
+        keep = torch.rand(p.shape, device="cuda", generator=gen) < p
+        u = torch.rand(p.shape, device="cuda", generator=gen)
+        # 1 + geometric(0.42), whose support starts at 1
+        value = 2.0 + torch.floor(torch.log1p(-u) / log_q)
+        return torch.where(keep, value, torch.zeros((), device="cuda"))
+    return csc_of_columns(n, 2048, columns)
+
+
+def same_csc(a, b):
+    return (a.shape == b.shape and np.array_equal(a.indptr, b.indptr)
+            and np.array_equal(a.indices, b.indices)
+            and np.array_equal(a.data, b.data))
+
+
+def stream_fit(path, k, *, stats=None, **kw):
+    """The streaming engine on a .spz file, with the engine's own keywords
+    (panel_cache, sparse_panels) besides the config's."""
+    import rcppml_tpu_torch as rtt
+    from rcppml_tpu_torch.io.loaders import SpzLoader
+    from rcppml_tpu_torch.models.nmf_chunked import nmf_chunked
+    engine = {key: kw.pop(key) for key in ("panel_cache", "sparse_panels",
+                                           "checkpoint_path",
+                                           "checkpoint_every") if key in kw}
+    return nmf_chunked(SpzLoader(path), rtt.build_config(k, **kw),
+                       stats=stats, **engine)
+
+
+def streaming_phases(rtt, card, counted, reset_counts, kernels):
+    """Phases 26-29: the .spz codec on matrices (i) and (ii), streaming MSE
+    on (i) with both solvers against the in-memory card fit, its cache,
+    sparse-panel and checkpoint modes bit for bit, the wire cache, KL and
+    CV streams, streaming SVD and nnls_streaming.  Returns ({label: ms},
+    {kernel name: {path label: launches}})."""
+    import tempfile
+
+    from rcppml_tpu_torch.io.loaders import SpzLoader
+    from rcppml_tpu_torch.models import nmf_irls
+    times, paths = {}, {}
+    launches = {name: {} for name in kernels}
+    chol, cd_shared, cd_batched = (kernels["cholesky_clip"],
+                                   kernels["cd_nnls_shared"],
+                                   kernels["cd_nnls_batched"])
+
+    def only(fn, what):
+        got = fn.launches
+        check(got > 0 and sum(f.launches for f in counted) == got,
+              f"{what}: {got} launches and no other kernel")
+        return got
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t_phase = time.perf_counter()
+        phase("26 the .spz codec: st_write of (i) 5,000 x 40,000 and (ii) "
+              "38,606 x 20,000 with the transpose stream, st_read back")
+        t0 = time.perf_counter()
+        A_i = stream_counts_i()
+        S_i = csc_of_columns(STREAM_I["n"], 4096,
+                             lambda j0, j1: A_i[:, j0:j1].T.contiguous())
+        S_ii = stream_counts_ii()
+        torch.cuda.synchronize()
+        print(f"matrices made on the card and copied to the host as CSC in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        for label, S, spec in (("(i)", S_i, STREAM_I),
+                               ("(ii)", S_ii, STREAM_II)):
+            path = os.path.join(tmp, f"{label.strip('()')}.spz")
+            t0 = time.perf_counter()
+            info = rtt.st_write(S, path, chunk_cols=spec["chunk_cols"],
+                                with_transpose=True)
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = rtt.st_read(path)
+            read_s = time.perf_counter() - t0
+            check(same_csc(back, S), f"st_read of {label} equals the source "
+                  "bit for bit")
+            size = os.path.getsize(path)
+            raw = S.nnz * 8 + (S.shape[1] + 1) * 8
+            ld = SpzLoader(path)
+            check([(n_rows, ld.reader.chunk_info(c, t)[1])
+                   for t, n_rows in ((False, S.shape[0]), (True, S.shape[1]))
+                   for c in range(ld.num_chunks(t))] == stream_panels(spec),
+                  f"the panels of {label} have the shapes at which the "
+                  f"twin phases checked the kernels")
+            print(f"{label} {S.shape[0]} x {S.shape[1]}, nnz {S.nnz} "
+                  f"({100 * S.nnz / (S.shape[0] * S.shape[1]):.2f}%), "
+                  f"values {info['value_type']}, {spec['chunk_cols']} "
+                  f"columns a panel ({ld.num_chunks(False)} forward + "
+                  f"{ld.num_chunks(True)} transpose panels): file "
+                  f"{size / 2**20:.1f} MiB, {raw / size:.2f}x smaller than "
+                  f"raw CSC; st_write {write_s:.2f} s, st_read {read_s:.2f} s "
+                  f"(bit for bit the source)  [{card}]", flush=True)
+            paths[label] = path
+            times[f"st_write {label}"] = write_s * 1e3
+            times[f"st_read {label}"] = read_s * 1e3
+            del back
+        del S_ii
+        times["phase 26"] = (time.perf_counter() - t_phase) * 1e3
+
+        t_phase = time.perf_counter()
+        phase(f"27 streaming MSE from the .spz of (i), k={STREAM_K}, "
+              f"maxit={STREAM_MAXIT}, tol=0, seed=1")
+        path = paths["(i)"]
+        ld = SpzLoader(path)
+        panels = ld.num_chunks(False) + ld.num_chunks(True)
+        kw = dict(maxit=STREAM_MAXIT, tol=0, seed=1)
+        for solver, fn, name in (("cholesky", chol, "cholesky_clip"),
+                                 ("cd", cd_shared, "cd_nnls_shared")):
+            reset_counts()
+            mem, mem_ms = timed_once(lambda: rtt.nmf(
+                A_i, STREAM_K, solver=solver, **kw))
+            check(only(fn, f"in-memory {solver}") == 2 * STREAM_MAXIT,
+                  "the in-memory fit launches twice an iteration")
+            reset_counts()
+            res, ms = timed_once(lambda: rtt.nmf(path, STREAM_K,
+                                                 solver=solver, **kw))
+            got = only(fn, f"streaming {solver}")
+            check(got == STREAM_MAXIT * panels,
+                  f"streaming {solver}: {got} launches of {name}, once a "
+                  f"panel a sweep ({STREAM_MAXIT} x {panels})")
+            hist, _, _ = check_losses(res, A_i, monotone=solver == "cd")
+            check(abs(res.train_loss - mem.train_loss)
+                  <= STREAM_LOSS_RTOL * abs(mem.train_loss),
+                  f"streaming {solver} loss {res.train_loss} against the "
+                  f"in-memory {mem.train_loss}")
+            w_err = np.abs(res.W - mem.W).max() / np.abs(mem.W).max()
+            check(w_err <= STREAM_W_TOL,
+                  f"streaming {solver} W within {STREAM_W_TOL} of the "
+                  f"in-memory W's largest entry: {w_err:.3g}")
+            launches[name][f"streaming MSE (i) {solver}"] = got
+            times[f"stream (i) {solver}"] = ms
+            times[f"in-memory (i) {solver}"] = mem_ms
+            print(f"streaming MSE {solver}: {got} launches of {name} "
+                  f"({STREAM_MAXIT} sweeps x {panels} panels), loss "
+                  f"{hist[0]:.6g} -> {hist[-1]:.6g}, in-memory "
+                  f"{mem.train_loss:.6g} (relative "
+                  f"{abs(res.train_loss / mem.train_loss - 1):.2e}), W "
+                  f"within {w_err:.2e} of the in-memory W's largest entry; "
+                  f"{ms:.1f} ms against {mem_ms:.1f} ms in memory (one run "
+                  f"each)  [{card}]", flush=True)
+            if solver == "cholesky":
+                cached = res
+        fields = ("W", "d", "H", "loss_history")
+
+        def same(a, b):
+            return all(np.array_equal(getattr(a, f), getattr(b, f))
+                       for f in fields)
+        res, ms = timed_once(lambda: stream_fit(path, STREAM_K,
+                                                sparse_panels=True, **kw))
+        check(same(res, cached), "sparse_panels=True: bit for bit the dense "
+              "panels' fit")
+        dense_bytes = 4 * STREAM_I["m"] * STREAM_I["n"]
+        stats = {}
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res, ms_off = timed_once(lambda: stream_fit(
+            path, STREAM_K, sparse_panels=True, panel_cache=False,
+            stats=stats, **kw))
+        peak = torch.cuda.max_memory_allocated() - before
+        check(same(res, cached), "panel_cache=False: bit for bit the cached "
+              "fit")
+        check(peak < dense_bytes / 4, f"panel_cache=False peak {peak} bytes "
+              f"below a quarter of the dense matrix ({dense_bytes})")
+        print(f"sparse_panels=True: bit for bit the dense panels' fit, "
+              f"{ms:.1f} ms; with panel_cache=False too: bit for bit, peak "
+              f"device memory {peak / 2**20:.1f} MiB over what was "
+              f"allocated (the dense matrix: {dense_bytes / 2**20:.1f} MiB), "
+              f"{stats['upload_bytes'] / 2**20:.1f} MiB uploaded in "
+              f"{stats['upload_s']:.2f} s of host time, {ms_off:.1f} ms  "
+              f"[{card}]", flush=True)
+        times["stream (i) sparse panels"] = ms
+        times["stream (i) uncached sparse panels"] = ms_off
+        ckpt = os.path.join(tmp, "stream.npz")
+        stream_fit(path, STREAM_K, checkpoint_path=ckpt,
+                   checkpoint_every=STREAM_CKPT_EVERY,
+                   **dict(kw, maxit=STREAM_MAXIT // 2))
+        res = stream_fit(path, STREAM_K, checkpoint_path=ckpt,
+                         checkpoint_every=STREAM_CKPT_EVERY, **kw)
+        check(same(res, cached), "a stream stopped at half its sweeps and "
+              "resumed: bit for bit the uninterrupted one")
+        print(f"stopped at {STREAM_MAXIT // 2} sweeps, checkpointed every "
+              f"{STREAM_CKPT_EVERY}, resumed to {STREAM_MAXIT}: bit for bit "
+              f"the uninterrupted stream", flush=True)
+        times["phase 27"] = (time.perf_counter() - t_phase) * 1e3
+
+        t_phase = time.perf_counter()
+        phase(f"28 sparse and IRLS streams: MSE with the wire cache and KL "
+              f"k={STREAM_KL_K} on (ii), CV k={STREAM_CV_K} on (i)")
+        path = paths["(ii)"]
+        ld = SpzLoader(path)
+        panels_ii = ld.num_chunks(False) + ld.num_chunks(True)
+        kw_ii = dict(maxit=STREAM_II_MAXIT, tol=0, seed=1)
+        runs = {}
+        for cache in ("wire", False):
+            stats = {}
+            reset_counts()
+            res, ms = timed_once(lambda: stream_fit(
+                path, STREAM_K, panel_cache=cache, stats=stats, **kw_ii))
+            got = only(chol, f"(ii) panel_cache={cache!r}")
+            check(got == STREAM_II_MAXIT * panels_ii,
+                  f"(ii): {got} launches, once a panel a sweep")
+            hist = np.asarray(res.loss_history)
+            check(np.isfinite(hist).all() and hist[-1] < hist[0],
+                  f"(ii) panel_cache={cache!r}: finite falling losses {hist}")
+            runs[cache] = (res, ms, stats, got)
+        (wire, ms_w, st_w, got), (off, ms_o, st_o, _) = runs["wire"], \
+            runs[False]
+        w_diff = np.abs(wire.W - off.W).max()
+        check(w_diff < STREAM_WIRE_TOL and abs(wire.train_loss
+                                               - off.train_loss)
+              <= STREAM_WIRE_TOL * abs(off.train_loss),
+              f"wire cache within {STREAM_WIRE_TOL} of panel_cache=False: W "
+              f"{w_diff}, loss {wire.train_loss} against {off.train_loss}")
+        check(2 * st_w["upload_bytes"] < st_o["upload_bytes"],
+              "the wire cache uploads the panels in the first sweep only")
+        launches["cholesky_clip"]["streaming MSE (ii) wire cache"] = got
+        times["stream (ii) wire"], times["stream (ii) uncached"] = ms_w, ms_o
+        print(f"(ii) MSE k={STREAM_K}, {STREAM_II_MAXIT} sweeps x "
+              f"{panels_ii} panels: wire cache {ms_w:.1f} ms "
+              f"({st_w['upload_bytes'] / 2**20:.1f} MiB uploaded), "
+              f"panel_cache=False {ms_o:.1f} ms "
+              f"({st_o['upload_bytes'] / 2**20:.1f} MiB); W within "
+              f"{w_diff:.2e}, loss {wire.train_loss:.8g} against "
+              f"{off.train_loss:.8g}; sweeps "
+              f"{[round(s, 2) for s in st_w['sweep_s']]} s against "
+              f"{[round(s, 2) for s in st_o['sweep_s']]} s  [{card}]",
+              flush=True)
+
+        stats = {}
+        reset_counts()
+        res, ms = timed_once(lambda: stream_fit(
+            path, STREAM_KL_K, loss="kl", stats=stats, maxit=STREAM_KL_MAXIT,
+            tol=0, seed=1))
+        got = only(cd_batched, "streaming KL")
+        check(got == stats["inner_iters"],
+              f"streaming KL: kernel 2 once an inner iteration "
+              f"({got} against {stats['inner_iters']})")
+        hist = check_irls(res, STREAM_KL_MAXIT, STREAM_KL_K,
+                          (STREAM_II["m"], STREAM_II["n"]))
+        launches["cd_nnls_batched"]["streaming KL (ii)"] = got
+        times["stream (ii) KL"] = ms
+        print(f"(ii) KL k={STREAM_KL_K}, {STREAM_KL_MAXIT} sweeps: {got} "
+              f"launches of cd_nnls_batched (one an inner iteration), loss "
+              f"{hist[0]:.6g} -> {hist[-1]:.6g}; {ms:.1f} ms  [{card}]",
+              flush=True)
+
+        path = paths["(i)"]
+        ld = SpzLoader(path)
+        blocks = len(stream_blocks(STREAM_I, STREAM_CV_K, nmf_irls))
+        reset_counts()
+        res, ms = timed_once(lambda: rtt.nmf(
+            path, STREAM_CV_K, solver="cd", test_fraction=STREAM_CV_FRACTION,
+            cv_seed=1, cv_patience=STREAM_CV_MAXIT + 1,
+            maxit=STREAM_CV_MAXIT, tol=0, seed=1))
+        got = only(cd_batched, "streaming CV")
+        check(got == STREAM_CV_MAXIT * blocks,
+              f"streaming CV: kernel 2 once a column block a sweep ({got} "
+              f"against {STREAM_CV_MAXIT} x {blocks})")
+        train, test = check_cv_histories(res, STREAM_CV_MAXIT)
+        launches["cd_nnls_batched"]["streaming CV (i)"] = got
+        times["stream (i) CV"] = ms
+        print(f"(i) CV k={STREAM_CV_K}, test_fraction="
+              f"{STREAM_CV_FRACTION}, CD, {STREAM_CV_MAXIT} sweeps: {got} "
+              f"launches of cd_nnls_batched; train {train[0]:.6g} -> "
+              f"{train[-1]:.6g}, test {test[0]:.6g} -> {test[-1]:.6g}; "
+              f"{ms:.1f} ms  [{card}]", flush=True)
+        times["phase 28"] = (time.perf_counter() - t_phase) * 1e3
+
+        t_phase = time.perf_counter()
+        phase(f"29 streaming SVD (k={STREAM_SVD_K}) and nnls_streaming on "
+              f"(i)")
+        for method in ("randomized", "lanczos", "irlba"):
+            reset_counts()
+            res, ms = timed_once(lambda: rtt.svd(path, STREAM_SVD_K,
+                                                 method=method))
+            mem, mem_ms = timed_once(lambda: rtt.svd(A_i, STREAM_SVD_K,
+                                                     method=method))
+            err = float(np.max(np.abs(res.d - mem.d) / mem.d))
+            check(err <= STREAM_SVD_RTOL and sum(
+                f.launches for f in counted) == 0,
+                f"streaming svd {method}: d within {STREAM_SVD_RTOL} of the "
+                f"in-memory card svd ({err:.3g}), no hand-written kernel")
+            times[f"stream svd {method}"] = ms
+            times[f"in-memory svd {method}"] = mem_ms
+            print(f"svd {method} of the .spz path: d within {err:.2e} of the "
+                  f"in-memory svd's (d[0] {res.d[0]:.6g}); {ms:.1f} ms "
+                  f"against {mem_ms:.1f} ms in memory  [{card}]", flush=True)
+        W = np.ascontiguousarray(cached.W * cached.d[None, :])
+        reset_counts()
+        H_s, ms = timed_once(lambda: rtt.nnls_streaming(path, W))
+        got = only(chol, "nnls_streaming")
+        H_m, mem_ms = timed_once(lambda: rtt.nnls(A_i, w=W))
+        err = float(np.abs(H_s - H_m).max() / np.abs(H_m).max())
+        check(err <= STREAM_NNLS_RTOL and got == ld.num_chunks(False),
+              f"nnls_streaming within {STREAM_NNLS_RTOL} of nnls ({err:.3g}), "
+              f"kernel 6 once a panel ({got})")
+        launches["cholesky_clip"]["nnls_streaming (i)"] = got
+        times["nnls_streaming (i)"], times["nnls (i)"] = ms, mem_ms
+        print(f"nnls_streaming k={STREAM_K}: within {err:.2e} of nnls on the "
+              f"matrix in memory, {got} launches of cholesky_clip (one a "
+              f"panel); {ms:.1f} ms against {mem_ms:.1f} ms  [{card}]",
+              flush=True)
+        times["phase 29"] = (time.perf_counter() - t_phase) * 1e3
+    return times, {name: got for name, got in launches.items() if got}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
@@ -1723,7 +2195,8 @@ def main():
 
     phase("3 shared-Gram CD kernel against its plain twin (bitwise)")
     err_shared = check_cd_kernel(cd_shared, cd_nnls.cd_nnls_shared_plain,
-                                 cd_nnls.plan_cd, cd_system, CD_CASES)
+                                 cd_nnls.plan_cd, cd_system,
+                                 CD_CASES + STREAM_CD_CASES)
 
     phase("4 MSE path, CD solver")
     A_pb = simulated(PBMC)
@@ -1799,7 +2272,7 @@ def main():
     err_batched = check_cd_kernel(cd_batched,
                                   cd_nnls_batched.cd_nnls_batched_plain,
                                   cd_nnls_batched.plan_cd, cd_batched_system,
-                                  CDB_CASES)
+                                  CDB_CASES + stream_cdb_cases(nmf_irls))
 
     phase("7 fused weight + Gram + RHS kernel against its plain twin "
           f"(within {WGRAM_RTOL} of the twin's largest entry)")
@@ -2754,6 +3227,12 @@ def main():
                                                reset_counts, kernels, A_ct)
     print(f"phases 21-25: {time.perf_counter() - t_new:.1f} s; bipartition "
           f"host reads: {cluster_reads}", flush=True)
+    t_new = time.perf_counter()
+    stream_times, stream_launches = streaming_phases(rtt, card, counted,
+                                                     reset_counts, kernels)
+    print(f"phases 26-29: {time.perf_counter() - t_new:.1f} s; "
+          + ", ".join(f"phase {i} {stream_times[f'phase {i}'] / 1e3:.1f} s"
+                      for i in (26, 27, 28, 29)), flush=True)
 
     # launches of each kernel on the paths after phase 16, each counted
     # from zero
@@ -2771,6 +3250,8 @@ def main():
         path_launches[name][f"checkpointed {label}"] = n
     for name, n in auto_launches.items():
         path_launches[name]["auto_nmf_distribution"] = n
+    for name, by_path in stream_launches.items():
+        path_launches[name].update(by_path)
 
     def entry(name, source, replaces, launches, err, rel, key,
               library=False, file="pallas_kernels.py", bf16_key=None):

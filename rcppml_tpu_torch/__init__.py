@@ -34,7 +34,14 @@ carries:
   * the analysis utilities: distribution diagnostics, embedding metrics and
     classifiers, guided refinement, the training log, plots, the R samplers
     (``r_*``), simulators, leveled logging and device introspection
-    (``gpu_available`` / ``gpu_info``).
+    (``gpu_available`` / ``gpu_info``);
+  * out-of-core streaming: the ``.spz`` codec and the whole ``st_*``
+    surface (``io/spz.py``, the codec compiled from ``native/
+    streampress.cpp`` with ``g++`` at first use), the panel loaders
+    (``io/loaders.py``), ``nmf("x.spz", k)`` / ``streaming=True`` and the
+    automatic switch to streaming for a matrix the card cannot hold
+    (``models/nmf_chunked.py``), ``streaming_svd`` and ``svd("x.spz")``,
+    ``nnls_streaming``, ``load_data`` and ``datasets``.
 
 Eight kernels written for Hopper run on a CUDA tensor, each with a plain
 PyTorch twin that runs on a CPU tensor: the shared-Gram CD NNLS solve
@@ -52,22 +59,29 @@ clip (``csrc/cholesky_clip.cu``), the solve of every default MSE fit.
 
 Entry points run on the CUDA card unless the caller asks for ``device="cpu"``
 or passes a CPU tensor.  Still raising ``NotImplementedError`` with their
-ROADMAP.md item, or absent: streaming (``.spz`` paths, ``streaming_svd``,
-``nnls_streaming``, ``load_data``), the factor-graph engine and multi-modal
-input, and meshes.
+ROADMAP.md item, or absent: the factor-graph engine and multi-modal input,
+and meshes.
 
 It imports ``torch`` and never ``jax``; kernels are built with ``nvcc`` at
 first use, never at import.
 """
 
+from . import datasets
 from .api import build_config, nmf
 from .config import (ZI, Dispersion, FactorConfig, Loss, NMFConfig, Norm,
                      Solver, SVDConfig)
 from .device import kernels_available, set_fp32_precision
 from .models.clustering import (align_factors, bipartite_match,
                                 bipartition, consensus_nmf, dclust)
-from .models.project import evaluate, mse, nnls, predict
-from .models.svd import pca, svd
+from .io.spz import (st_add_transpose, st_chunk_ranges, st_convert,
+                     st_filter_cols, st_filter_rows, st_free_device, st_info,
+                     st_map_chunks, st_obs_indices, st_read, st_read_auto,
+                     st_read_dense, st_read_device, st_read_dimnames,
+                     st_read_obs, st_read_transpose, st_read_var, st_slice,
+                     st_slice_cols, st_slice_rows, st_write, st_write_dense,
+                     st_write_list, st_write_with_metadata)
+from .models.project import evaluate, mse, nnls, nnls_streaming, predict
+from .models.svd import pca, streaming_svd, svd
 from .result import NMFResult, SVDResult
 from .rng import r_binom, r_matrix, r_sample, r_sparsematrix, r_unif
 from .utils.diagnostics import (auto_nmf_distribution, diagnose_dispersion,
@@ -80,7 +94,8 @@ from .utils.metrics import (assess, classify_embedding, classify_logistic,
 from .utils.plots import (biplot, compare_nmf, plot_consensus, plot_cv,
                           plot_dclust, plot_nmf, plot_summary)
 from .utils.resources import (accelerator_available, accelerator_info,
-                              gpu_available, gpu_info)
+                              gpu_available, gpu_info, load_data,
+                              select_resources)
 from .utils.simulate import simulate_nmf, simulate_swimmer
 from .utils.training_log import export_log, training_logger
 
@@ -89,6 +104,18 @@ bipartiteMatch = bipartite_match
 align = align_factors
 simulateNMF = simulate_nmf
 simulateSwimmer = simulate_swimmer
+# the reference's GPU-read names (R/sp_gpu.R)
+st_read_gpu = st_read_device
+st_free_gpu = st_free_device
+
+# the whole streampress st_* surface (R/streampress.R)
+_ST_NAMES = (
+    "st_write", "st_read", "st_read_transpose", "st_info", "st_write_dense",
+    "st_read_dense", "st_read_auto", "st_add_transpose", "st_convert",
+    "st_read_obs", "st_read_var", "st_read_dimnames",
+    "st_write_with_metadata", "st_chunk_ranges", "st_slice_cols",
+    "st_slice_rows", "st_slice", "st_map_chunks", "st_obs_indices",
+    "st_filter_cols", "st_filter_rows", "st_write_list", "st_read_device")
 
 
 # R generics: free functions delegating to the result object
@@ -121,4 +148,7 @@ __all__ = ["nmf", "build_config", "svd", "pca", "nnls", "predict",
            "plot_consensus", "plot_summary",
            "r_matrix", "r_sparsematrix", "r_sample", "r_unif", "r_binom",
            "accelerator_available", "accelerator_info", "gpu_available",
-           "gpu_info", "set_verbosity", "get_verbosity", "LogLevel"]
+           "gpu_info", "set_verbosity", "get_verbosity", "LogLevel",
+           "streaming_svd", "nnls_streaming", "load_data",
+           "select_resources", "datasets", "st_read_gpu", "st_free_gpu",
+           "st_free_device", *_ST_NAMES]

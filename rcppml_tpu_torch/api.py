@@ -32,10 +32,12 @@ fit's device.
 
 The SVD (``svd``, ``pca``) and projection (``nnls``, ``predict``,
 ``evaluate``, ``mse``) entry points live in ``models/svd.py`` and
-``models/project.py``.  Branches of the JAX API that are not ported yet
-raise ``NotImplementedError`` naming their ROADMAP.md item; none of them
-falls back silently: ``.spz`` paths and streaming (and a matrix larger than
-the card's memory, which the JAX package streams), multi-modal input and
+``models/project.py``.  A ``.spz`` path, ``streaming=True`` and a host
+matrix too large for the card's memory with headroom run the streaming
+engine (``models/nmf_chunked.py``), on the card unless ``device="cpu"``;
+other file paths load in memory through ``load_data``.  Branches of the JAX
+API that are not ported yet raise ``NotImplementedError`` naming their
+ROADMAP.md item; none of them falls back silently: multi-modal input and
 ``mesh=``.  ``checkpoint_path=`` runs the dense fit (MSE or IRLS) in
 segments of ``checkpoint_every`` iterations, writing the whole state after
 each and resuming from the file when it exists (``utils/checkpoint.py``).
@@ -391,6 +393,54 @@ def _multi_restart(data, k, seeds, kwargs, rest):
     return best
 
 
+def _nmf_streaming(data, k, is_spz: bool, *, mask, graph_W, graph_H, w_init,
+                   h_init, chunk_cols, on_iteration, checkpoint_path,
+                   checkpoint_every, device, kwargs):
+    """``nmf`` of a ``.spz`` path, or with ``streaming=True``: the chunked
+    engine over an SpzLoader or an InMemoryLoader, with the in-memory
+    path's NaN / Inf contract (rcppml_tpu/api.py:498-542)."""
+    if isinstance(mask, str):
+        # mask="zeros" was normalized to mask_zeros before; "NA" needs the
+        # full matrix in memory (R/nmf_thin.R:463-465)
+        raise ValueError(
+            "streaming NMF does not support mask='NA' — NA detection "
+            "requires the full matrix in memory; pass an explicit "
+            "mask matrix or disable streaming")
+    from .io.loaders import InMemoryLoader, SpzLoader
+    from .models.nmf_chunked import nmf_chunked
+    if not is_spz:
+        if isinstance(data, torch.Tensor):
+            data = data.detach().cpu().numpy()
+        if _is_sparse(data):
+            # sparse input stays sparse (the loader panels it); its zeros
+            # cannot be NaN, so the stored values are what is checked
+            vals = data.data if hasattr(data, "data") else \
+                np.asarray(data.tocsc().data)
+            if np.isnan(vals).any():
+                raise ValueError(
+                    "data contains NaN/NA values; streaming cannot "
+                    "auto-mask them — impute, or pass an explicit "
+                    "mask= matrix")
+            if np.isinf(vals).any():
+                raise ValueError("data contains infinite values; clip "
+                                 "or remove them before factorization")
+        else:
+            data = _to_dense_f32(data, allow_nan=True)
+            data, mask, mask_zeros = _resolve_mask(data, mask)
+            if mask_zeros:
+                kwargs.setdefault("mask_zeros", True)
+    cfg = build_config(int(k), has_mask=mask is not None,
+                       has_graph_W=graph_W is not None,
+                       has_graph_H=graph_H is not None, **kwargs)
+    loader = (SpzLoader(data) if is_spz
+              else InMemoryLoader(data, chunk_cols=chunk_cols))
+    return nmf_chunked(loader, cfg, w_init=w_init, h_init=h_init, mask=mask,
+                       graph_W=graph_W, graph_H=graph_H,
+                       on_iteration=on_iteration,
+                       checkpoint_path=checkpoint_path,
+                       checkpoint_every=checkpoint_every, device=device)
+
+
 def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
         target_W=None, w_init=None, h_init=None, streaming=False,
         chunk_cols=None, on_iteration=None, mesh=None,
@@ -409,7 +459,12 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
     DataFrame).  Without a card that raises a ``RuntimeError``; pass
     ``device="cpu"`` to fit on the CPU.  ``seed=[...]`` fits once per seed
     and returns the restart with the best train loss
-    (``misc["all_inits"]`` lists them all).
+    (``misc["all_inits"]`` lists them all).  ``data`` may also be a
+    ``.spz`` path or come with ``streaming=True`` (``chunk_cols=`` panels
+    of an in-memory matrix): the streaming engine fits it panel by panel
+    (``models/nmf_chunked.py``), as it does a host matrix that does not fit
+    the card's memory with headroom; other file paths are read with
+    ``load_data``.
     ``on_iteration(iter, train_loss, nan)`` is called after every iteration
     of a dense MSE fit (with an IRLS loss, cross-validation or a mask it is
     accepted and never called, as in the JAX package).  Other keywords are
@@ -450,24 +505,44 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
     if kwargs.pop("sparse", False):
         # R sparse=TRUE: treat zeros as missing (R/parse_dots.R:65)
         kwargs.setdefault("mask_zeros", True)
-    if isinstance(data, str) or streaming:
-        raise unported(".spz files, file paths and streaming=True",
-                       "Queue 1 item 11")
     if mesh is not None:
         raise unported("mesh=", "Queue 1 item 14")
+    # streaming / out-of-core dispatch (nmf/fit_streaming_spz.hpp:54)
+    is_spz = isinstance(data, str) and data.endswith(".spz")
     to_card = (torch.device(device).type == "cuda" if device is not None
                else torch.cuda.is_available())
-    if (not isinstance(data, torch.Tensor) and hasattr(data, "shape")
-            and np.isscalar(k) and to_card):
-        # where the JAX package switches to streaming column panels
-        # (api.py:486), a matrix the card cannot hold with headroom
+    if (not is_spz and not streaming and to_card
+            and not isinstance(data, (str, torch.Tensor))
+            and hasattr(data, "shape") and np.isscalar(k)):
+        # switch to streaming when the dense fp32 matrix cannot fit the
+        # card's memory with headroom (gpu/loader.hpp streaming mode,
+        # test_gpu_oom.R:9).  NB+ZI streams too (panel-local E-step);
+        # GP-family ZI and symmetric need the whole matrix, so they stay
+        # on the in-memory path.
         from .utils.memory import check_dense_alloc
         chk = check_dense_alloc(data.shape[0], data.shape[1],
                                 where="device")
-        if not chk.fits:
-            raise unported(f"a matrix larger than the card's memory "
-                           f"({chk.message.splitlines()[0]}), which the JAX "
-                           f"package streams", "Queue 1 item 11")
+        zi_ok = (kwargs.get("zi", "none") in (None, "none")
+                 or (kwargs.get("loss") == "nb"
+                     and not kwargs.get("test_fraction")
+                     and mask is None
+                     and not kwargs.get("mask_zeros")))
+        if not chk.fits and zi_ok and not kwargs.get("symmetric"):
+            logmod.log_summary(
+                "[nmf] %d x %d exceeds device memory (%s); streaming in "
+                "column panels", data.shape[0], data.shape[1], chk.message,
+                verbose=kwargs.get("verbose") or None)
+            streaming = True
+    if is_spz or streaming:
+        return _nmf_streaming(
+            data, k, is_spz, mask=mask, graph_W=graph_W, graph_H=graph_H,
+            w_init=w_init, h_init=h_init, chunk_cols=chunk_cols,
+            on_iteration=on_iteration, checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every, device=device, kwargs=kwargs)
+    # other file paths load in memory (R/nmf_validation.R:30-120)
+    if isinstance(data, str):
+        from .utils.resources import load_data
+        data = load_data(data)
 
     row_names, col_names, data = _extract_dimnames(data)
     sparse_input = _is_sparse(data)

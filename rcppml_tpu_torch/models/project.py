@@ -10,7 +10,8 @@ a fixed factor, on the port's solvers: the Cholesky solve + clip
 ``RCPPML_FUSED_WGRAM``).  Results come back as host numpy arrays.
 
 Every entry point runs on the CUDA card unless given ``device="cpu"`` or a
-CPU tensor; without a card it raises.  ``nnls_streaming`` is not ported yet.
+CPU tensor; without a card it raises.  ``nnls_streaming`` solves panel by
+panel over a DataLoader or ``.spz`` file.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from ..device import set_fp32_precision
 from ..ops import features as feat
 from ..ops import linalg, losses, solvers
 from ..result import NMFResult
-from .nmf import device_matrix, fit_device, unported
+from .nmf import device_matrix, fit_device
 from .svd import _densify
 
 
@@ -97,7 +98,9 @@ def nnls(A, w=None, h=None, *, L1: float = 0.0, L2: float = 0.0,
         data = device_matrix(A, dev)                          # solve (k, n)
     else:
         F = _factor(h, dev)                                   # (k, n)
-        data = device_matrix(A, dev).T.contiguous()           # solve (k, m)
+        data = device_matrix(A, dev)                          # solve (k, m)
+        if data.dim() == 2:
+            data = data.T.contiguous()
 
     k = F.shape[0]
     loss_e = Loss(loss)
@@ -148,6 +151,11 @@ def nnls(A, w=None, h=None, *, L1: float = 0.0, L2: float = 0.0,
                                       maxit=cd_maxit, cd_tol=cd_tol,
                                       upper_bound=upper_bound,
                                       warm_start=X0 is not None)
+        elif B.dim() == 1:
+            # a single column A of shape (m,): a (k,) solution, as the JAX
+            # package returns (its solve broadcasts over a 1-D B)
+            X = solvers.cholesky_clip_batch(G, B[:, None], nonneg=nonneg,
+                                            upper_bound=upper_bound)[:, 0]
         else:
             X = solvers.cholesky_clip_batch(G, B, nonneg=nonneg,
                                             upper_bound=upper_bound)
@@ -157,10 +165,26 @@ def nnls(A, w=None, h=None, *, L1: float = 0.0, L2: float = 0.0,
     return X if w is not None else X.T
 
 
-def nnls_streaming(path_or_loader, w, *, chunk_cols=None, **kwargs):
-    """Streaming projection panel by panel over a DataLoader / ``.spz``
-    file (R/solve.R c_nnls_streaming): not ported yet."""
-    raise unported("nnls_streaming", "Queue 1 item 11")
+def nnls_streaming(path_or_loader, w, *, chunk_cols=None,
+                   **kwargs) -> np.ndarray:
+    """Streaming projection: solve H panel by panel over a DataLoader /
+    ``.spz`` file / host matrix (R/solve.R c_nnls_streaming,
+    nmf/nnls_streaming.hpp).  Each panel is one :func:`nnls` call (its
+    keywords, ``device=`` included, pass through); returns H (k, n) on the
+    host."""
+    from ..io.loaders import DataLoader, InMemoryLoader, SpzLoader
+    if isinstance(path_or_loader, DataLoader):
+        loader = path_or_loader
+    elif isinstance(path_or_loader, (str, bytes)):
+        loader = SpzLoader(path_or_loader)
+    else:
+        loader = InMemoryLoader(path_or_loader, chunk_cols=chunk_cols)
+    parts = []
+    for ch in loader.iter_chunks():
+        parts.append((ch.col_start, nnls(np.ascontiguousarray(ch.data),
+                                         w=w, **kwargs)))
+    parts.sort(key=lambda t: t[0])
+    return np.concatenate([p for _, p in parts], axis=1)
 
 
 def predict(model: NMFResult, newdata, *, L1: Optional[float] = None,

@@ -35,9 +35,9 @@ class NMFResult:
     dispersion: Optional[np.ndarray] = None         # Gamma/IG/Tweedie phi
     pi_row: Optional[np.ndarray] = None             # ZI dropout probs per row
     pi_col: Optional[np.ndarray] = None             # ZI dropout probs per col
-    misc: Dict[str, Any] = field(default_factory=dict)
     # section -> milliseconds, from a profiled or step-mode fit
     profile: Dict[str, Any] = field(default_factory=dict)
+    misc: Dict[str, Any] = field(default_factory=dict)
     row_names: Optional[np.ndarray] = None          # A's rownames -> W rows
     col_names: Optional[np.ndarray] = None          # A's colnames -> H cols
 
@@ -62,6 +62,10 @@ class NMFResult:
         self.H = self.H[order, :]
         return self
 
+    def head(self, n: int = 6) -> np.ndarray:
+        """First rows of W (R head.nmf)."""
+        return np.asarray(self.W)[:n]
+
     def reconstruct(self) -> np.ndarray:
         """W diag(d) H."""
         return (self.W * self.d[None, :]) @ self.H
@@ -84,11 +88,98 @@ class NMFResult:
             "H": float(sh.mean()),
         }
 
+    # -- S4-method equivalents (R/nmf_methods.R:18-498) --------------------
+
+    def subset_factors(self, idx) -> "NMFResult":
+        """model[[i]] — keep a subset of factors."""
+        idx = np.atleast_1d(np.asarray(idx))
+        return NMFResult(W=self.W[:, idx], d=self.d[idx], H=self.H[idx, :],
+                         iterations=self.iterations, converged=self.converged,
+                         train_loss=self.train_loss,
+                         row_names=self.row_names, col_names=self.col_names)
+
+    def subset(self, rows=None, cols=None) -> "NMFResult":
+        """model[i, j] — restrict to feature rows / sample columns."""
+        W = self.W if rows is None else self.W[np.asarray(rows)]
+        H = self.H if cols is None else self.H[:, np.asarray(cols)]
+
+        def _sub(names, idx):
+            return (None if names is None else
+                    np.asarray(names)[np.asarray(idx)] if idx is not None
+                    else names)
+        return NMFResult(W=W, d=self.d.copy(), H=H,
+                         iterations=self.iterations, converged=self.converged,
+                         train_loss=self.train_loss,
+                         row_names=_sub(self.row_names, rows),
+                         col_names=_sub(self.col_names, cols))
+
+    def t(self) -> "NMFResult":
+        """Transpose the model: A' ~ H' diag(d) W'.  ``misc`` and the
+        histories travel as they are; the axis-bound fields (pi_row /
+        pi_col, the dimnames) swap; theta and dispersion are carried as
+        estimated (test_s4_methods.R:47-51)."""
+        return NMFResult(W=np.ascontiguousarray(self.H.T), d=self.d.copy(),
+                         H=np.ascontiguousarray(self.W.T),
+                         iterations=self.iterations, converged=self.converged,
+                         train_loss=self.train_loss,
+                         test_loss=self.test_loss, final_tol=self.final_tol,
+                         best_iter=self.best_iter,
+                         loss_history=self.loss_history,
+                         test_loss_history=self.test_loss_history,
+                         theta=self.theta, dispersion=self.dispersion,
+                         pi_row=self.pi_col, pi_col=self.pi_row,
+                         profile=self.profile,
+                         row_names=self.col_names, col_names=self.row_names,
+                         misc=dict(self.misc))
+
+    def prod(self) -> np.ndarray:
+        """W diag(d) H (the `prod` S4 method)."""
+        return self.reconstruct()
+
     def predict(self, newdata, **kw) -> np.ndarray:
         """Project new columns onto this model's W (R/predict_nmf.R:48);
         returns H_new (k, n_new).  See :func:`models.project.predict`."""
         from .models.project import predict as _predict
         return _predict(self, newdata, **kw)
+
+    def summary(self, group_by) -> np.ndarray:
+        """Mean factor weight per sample group: (k, n_groups), groups in
+        sorted order (R/nmf_methods.R summary(group_by)); the input of
+        :func:`rcppml_tpu_torch.utils.plots.plot_summary`."""
+        groups = np.asarray(group_by)
+        lvls = np.unique(groups)
+        out = np.zeros((self.k, len(lvls)), dtype=np.float64)
+        for gi, g in enumerate(lvls):
+            out[:, gi] = np.asarray(self.H)[:, groups == g].mean(axis=1)
+        return out
+
+    def align_to(self, ref: "NMFResult",
+                 method: str = "cosine") -> "NMFResult":
+        """Permute factors to best match a reference model (Hungarian on
+        cosine or Pearson correlation; R/nmf_methods.R:261-271 `align`)."""
+        W = np.asarray(self.W)
+        Wr = np.asarray(ref.W)
+        if W.shape != Wr.shape:
+            raise ValueError("dimensions of object W and ref W are not "
+                             "identical")
+        if method == "cosine":
+            from .models.clustering import align_factors
+            perm, _ = align_factors(Wr, W)
+        elif method == "cor":
+            from .models.clustering import bipartite_match
+            C = np.corrcoef(W, Wr, rowvar=False)[:W.shape[1], W.shape[1]:]
+            cost = np.maximum(1.0 - C + 1e-10, 0.0)
+            perm = bipartite_match(cost.T)["pairs"][:, 1]
+        else:
+            raise ValueError(f"align method {method!r}: use 'cosine' or "
+                             "'cor'")
+        return self.subset_factors(perm)
+
+    def __getitem__(self, key):
+        if isinstance(key, tuple):
+            rows, cols = key
+            return self.subset(rows=rows, cols=cols)
+        return self.subset_factors(key)
 
     def __repr__(self):
         m, n = self.shape

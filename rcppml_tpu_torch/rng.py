@@ -210,24 +210,25 @@ def _finalize_i64(z: torch.Tensor) -> torch.Tensor:
 
 
 def is_holdout(seed: int, m: int, n: int, inv_prob: int,
-               device) -> torch.Tensor:
-    """The (m, n) boolean holdout mask computed on ``device``, bit for bit
-    :func:`holdout_mask` ``(seed, m, n, inv_prob)``: nothing is uploaded.
-    The counterpart of ``rcppml_tpu.rng.is_holdout_traced`` over
-    ``arange(m) x arange(n)``."""
+               device, row0: int = 0, col0: int = 0) -> torch.Tensor:
+    """The (m, n) boolean holdout mask of the entries (row0 + i, col0 + j)
+    computed on ``device``, bit for bit :func:`holdout_mask` ``(seed, m, n,
+    inv_prob)`` when both offsets are 0: nothing is uploaded.  The
+    counterpart of ``rcppml_tpu.rng.is_holdout_traced`` over ``arange(m) +
+    row0`` x ``arange(n) + col0`` (a streamed panel passes its offsets)."""
     device = torch.device(device)
     if inv_prob <= 0:
         return torch.zeros((m, n), dtype=torch.bool, device=device)
     s = _i64(int(_canon_seed(seed)))
     thresh = _i64(0xFFFFFFFFFFFFFFFF // int(inv_prob)) ^ _SIGN
-    tj = (torch.arange(n, dtype=torch.int64, device=device)
+    tj = ((torch.arange(n, dtype=torch.int64, device=device) + int(col0))
           * _i64(int(_COLMIX)))[None, :]
     out = torch.empty((m, n), dtype=torch.bool, device=device)
     rows = max(1, _HASH_CHUNK_ELEMS // max(n, 1))
     for r0 in range(0, m, rows):
         r1 = min(r0 + rows, m)
-        ti = (torch.arange(r0, r1, dtype=torch.int64, device=device)
-              * _i64(int(_GOLDEN)) + s)[:, None]
+        ti = (torch.arange(r0 + int(row0), r1 + int(row0), dtype=torch.int64,
+                           device=device) * _i64(int(_GOLDEN)) + s)[:, None]
         h = _finalize_i64(ti + tj)
         out[r0:r1] = (h ^ _SIGN) < thresh
     return out

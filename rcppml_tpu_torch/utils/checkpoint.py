@@ -1,8 +1,7 @@
 """Checkpoint / resume for factor models.
 
-The port of ``rcppml_tpu/utils/checkpoint.py:24-507``, without the device
-mesh and the streaming state (ROADMAP.md, Queue 1 items 14 and 11).  The
-files are the JAX package's: the same ``.npz`` keys, shapes and types, the
+The port of ``rcppml_tpu/utils/checkpoint.py:24-578``, without the device
+mesh (ROADMAP.md, Queue 1 item 14).  The files are the JAX package's: the same ``.npz`` keys, shapes and types, the
 config as the same JSON, ``mesh_shape`` written as ``(0, 0)``.  A file
 written by either package loads in the other.
 
@@ -18,6 +17,10 @@ the file when it exists.  Splitting the loop at iteration boundaries changes
 no bit of W, d, H, the loss history, or the dispersion and zero-inflation
 state.  The IRLS state's counters ``inner_iters`` and ``host_syncs`` are not
 in the file, so a resumed fit's ``misc`` counters count from the resume.
+
+``save_stream_state`` / ``load_stream_state`` hold the streaming loop's
+state between sweeps (``models/nmf_chunked.py``), with the JAX package's
+npz keys, so a stream state written by either package resumes in the other.
 """
 
 from __future__ import annotations
@@ -358,3 +361,64 @@ def fit_checkpointed(A, cfg: NMFConfig, path: str, *, every: int = 10,
         state = segment(state, min(state.it + every, cfg.max_iter))
         save(state, cfg, path)
     return finalize(cfg, state)
+
+
+# ---------------------------------------------------------------------------
+# Sweep-granular streaming checkpoints (rcppml_tpu/utils/checkpoint.py:
+# 508-578): the npz keys are the JAX package's
+# ---------------------------------------------------------------------------
+
+def save_stream_state(path: str, cfg: NMFConfig, *, W_T, H, d, it,
+                      prev_loss, patience, best_test, best_iter,
+                      hist, test_hist, pi_vec=None,
+                      converged: bool = False) -> None:
+    """Atomically persist the streaming loop's state after a sweep: the
+    factors, the convergence counters and the ZI dropout vector, every
+    piece of cross-sweep state, so a resume is bit-exact."""
+    def host(x):
+        return _host(x) if isinstance(x, torch.Tensor) else np.asarray(x)
+    arrays = dict(W_T=host(W_T), H=host(H), d=host(d),
+                  hist=np.asarray(hist, np.float64),
+                  test_hist=np.asarray(test_hist, np.float64))
+    if pi_vec is not None:
+        arrays["pi_vec"] = host(pi_vec)
+    _atomic_savez(
+        path,
+        scalars=np.asarray([float(it), float(prev_loss), float(patience),
+                            float(best_test), float(best_iter),
+                            float(converged)], np.float64),
+        config=np.asarray(_cfg_to_json(cfg)),
+        **arrays)
+
+
+def load_stream_state(path: str, cfg: NMFConfig) -> dict:
+    """Load a streaming checkpoint as host arrays and scalars; the config
+    must match except ``max_iter``, which may grow."""
+    with np.load(path, allow_pickle=False) as z:
+        stored = json.loads(str(z["config"]))
+        current = json.loads(_cfg_to_json(cfg))
+        stored.pop("max_iter")
+        current_mi = current.pop("max_iter")
+        if stored != current:
+            diff = {k for k in current if stored.get(k) != current.get(k)}
+            raise ValueError(
+                f"checkpoint config mismatch on fields {sorted(diff)}; "
+                "resume with the same configuration (only maxit may grow)")
+        sc = z["scalars"]
+        if current_mi < int(sc[0]):
+            raise ValueError(
+                f"checkpoint already has {int(sc[0])} sweeps but "
+                f"maxit = {current_mi}")
+        return {
+            "W_T": np.asarray(z["W_T"], np.float32),
+            "H": np.asarray(z["H"], np.float32),
+            "d": np.asarray(z["d"], np.float32),
+            "it": int(sc[0]), "prev_loss": float(sc[1]),
+            "patience": int(sc[2]), "best_test": float(sc[3]),
+            "best_iter": int(sc[4]),
+            "converged": bool(sc[5] > 0.5) if len(sc) > 5 else False,
+            "hist": list(np.asarray(z["hist"], np.float64)),
+            "test_hist": list(np.asarray(z["test_hist"], np.float64)),
+            "pi_vec": (np.asarray(z["pi_vec"], np.float32)
+                       if "pi_vec" in z.files else None),
+        }

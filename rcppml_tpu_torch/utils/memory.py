@@ -86,8 +86,9 @@ def check_dense_alloc(m: int, n: int, itemsize: int = 4,
         f"{m} x {n} matrix: needs {format_bytes(required)} "
         f"(x{SAFETY_FACTOR:.0f} headroom) but only "
         f"{format_bytes(available)} is available.\n"
-        f"Streaming from .spz files, the remedy the JAX package offers, is "
-        f"not ported to rcppml_tpu_torch yet (ROADMAP.md, Queue 1 item 11).")
+        f"Stream it instead: nmf() switches to the streaming engine for a "
+        f"host matrix the card cannot hold; or write it with st_write() "
+        f"and fit the .spz path, or pass streaming=True.")
 
 
 def guard_dense_input(m: int, n: int, itemsize: int = 4) -> None:

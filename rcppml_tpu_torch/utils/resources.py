@@ -3,7 +3,7 @@
 
 The port of ``rcppml_tpu/utils/resources.py``, whose accelerator is JAX's
 default backend.  Here it is the CUDA card; there is no TPU variant.
-``load_data`` comes with the streaming slice (ROADMAP.md, Queue 1 item 11).
+``load_data`` is the auto-detecting matrix loader behind ``nmf(path)``.
 """
 
 from __future__ import annotations
@@ -32,6 +32,78 @@ def gpu_info() -> dict:
                         "multiprocessors": int(props.multi_processor_count)})
     return {"backend": "cuda", "num_devices": len(devices),
             "devices": devices, "kernels_available": kernels_available()}
+
+
+def select_resources(nnz: int = 0, n: int = 0) -> str:
+    """Dispatch heuristic analog (GPU_README.md:67-74: accelerator when
+    nnz >= 100K or n >= 5000).  Returns 'gpu' or 'cpu' — informational:
+    the entry points take ``device=``."""
+    if gpu_available() and (nnz >= 100_000 or n >= 5_000 or nnz == n == 0):
+        return "gpu"
+    return "cpu"
+
+
+def load_data(path: str):
+    """Auto-detecting matrix loader (R/nmf_validation.R:30-120
+    validate_data): .spz / .mtx / .csv / .h5ad / .loom / .h5 / .rda / .rds
+    / .npz / .npy / .tsv, the JAX package's ``load_data``."""
+    import os
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no such data file: {path}")
+    lower = path.lower()
+    if lower.endswith((".tsv", ".tsv.gz", ".txt")):
+        import numpy as np
+        return np.loadtxt(path, delimiter="\t", ndmin=2)
+    if lower.endswith(".spz"):
+        from ..io.spz import st_read_auto
+        return st_read_auto(path)
+    if lower.endswith((".mtx", ".mtx.gz")):
+        from scipy.io import mmread
+        return mmread(path).tocsc()
+    if lower.endswith((".csv", ".csv.gz")):
+        import numpy as np
+        try:
+            return np.loadtxt(path, delimiter=",", ndmin=2)
+        except ValueError:
+            # header row / rowname column (R's read.csv tolerates both,
+            # R/nmf_validation.R): let pandas sniff them
+            import pandas as pd
+            df = pd.read_csv(path)
+            first = df.columns[0]
+            if not pd.api.types.is_numeric_dtype(df[first]):  # rownames col
+                df = df.set_index(first)
+                df.index.name = None
+            return df                            # DataFrame: names carry
+    if lower.endswith(".h5ad"):
+        from ..io.spz import _read_h5ad_x
+        return _read_h5ad_x(path)
+    if lower.endswith(".loom"):
+        from ..io.spz import _read_loom
+        return _read_loom(path)
+    if lower.endswith(".h5"):
+        from ..io.spz import _read_10x_h5
+        return _read_10x_h5(path)
+    if lower.endswith((".rda", ".rdata")):
+        from ..io.rdata import read_rda
+        objs = read_rda(path)
+        if len(objs) == 1:
+            return next(iter(objs.values()))
+        return objs
+    if lower.endswith(".rds"):
+        from ..io.rdata import read_rds
+        return read_rds(path)
+    if lower.endswith(".npz"):
+        import numpy as np
+        import scipy.sparse as sp
+        try:
+            return sp.load_npz(path)
+        except Exception:
+            with np.load(path) as z:
+                return z[z.files[0]]
+    if lower.endswith(".npy"):
+        import numpy as np
+        return np.load(path)
+    raise ValueError(f"unrecognized data format: {path}")
 
 
 accelerator_available = gpu_available

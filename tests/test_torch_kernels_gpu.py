@@ -27,7 +27,9 @@ with ``_rn`` intrinsics and equals it bit for bit on both routes (one launch
 with a lane group per column up to k = 64, two kernels beyond) and at every
 group width the plan can take.  The rank-2 clustering on the card equals the
 CPU port's split and tree on planted groups; checkpointed fits on the card
-are the uninterrupted fit bit for bit, with its kernel launches.
+are the uninterrupted fit bit for bit, with its kernel launches.  A
+``.spz`` stream on the card holds to the same stream on the CPU port, and
+its wire-cached run to its uncached one within 1e-5.
 """
 
 import numpy as np
@@ -1044,3 +1046,64 @@ def test_checkpointed_fits_on_the_card_are_the_uninterrupted_fit(
         for name in ("W", "d", "H", "loss_history"):
             np.testing.assert_array_equal(getattr(res, name),
                                           getattr(plain, name))
+
+
+STREAM_ON_CARD = {"mse": dict(), "cd": dict(solver="cd"),
+                  "kl": dict(loss="kl"),
+                  "cv": dict(test_fraction=0.1, cv_seed=2, solver="cd")}
+# the KL stream's card-against-CPU W gap over these data seeds as well
+STREAM_KL_SEEDS = (5, 6, 7)
+
+
+def _stream_card_against_cpu(case, seed, tmp_path):
+    """A ``.spz`` stream on the card (sparse panels densified there, the
+    wire cache) against the same stream on the CPU port: the loss history
+    within 1e-4 and W within 2e-3 of its largest entry (for KL within 1e-2,
+    the card-against-CPU bar of the in-memory IRLS fits, chip_smoke.py
+    phase 8 (v): its weights amplify the rounding), through the kernel of
+    the case; the uncached and wire-cached streams on the card agree within
+    1e-5.  Prints the W gap as a share of the largest entry."""
+    import scipy.sparse as sp
+    import rcppml_tpu_torch as rtt
+    from rcppml_tpu_torch.io.loaders import SpzLoader
+    from rcppml_tpu_torch.models.nmf_chunked import nmf_chunked
+    from rcppml_tpu_torch.ops import cd_nnls, cd_nnls_batched, cholesky_clip
+    rs = np.random.RandomState(seed)
+    A = sp.random(700, 900, density=0.08, random_state=rs, format="csc",
+                  dtype=np.float32)
+    A.data = np.ceil(A.data * 6)
+    path = str(tmp_path / "a.spz")
+    rtt.st_write(A, path, chunk_cols=128)
+    kw = STREAM_ON_CARD[case]
+    cfg = rtt.build_config(5, maxit=6, tol=0, seed=1, **kw)
+    kernel = (cd_nnls_batched.cd_nnls_batched
+              if "loss" in kw or "test_fraction" in kw
+              else cd_nnls.cd_nnls_shared if kw
+              else cholesky_clip.cholesky_clip)
+    before = kernel.launches
+    card = nmf_chunked(SpzLoader(path), cfg, panel_cache=False)
+    assert kernel.launches > before
+    host = nmf_chunked(SpzLoader(path), cfg, panel_cache=False,
+                       device="cpu")
+    wire = nmf_chunked(SpzLoader(path), cfg, panel_cache="wire")
+    np.testing.assert_allclose(card.loss_history, host.loss_history,
+                               rtol=1e-4)
+    factor_tol = 1e-2 if "loss" in kw else 2e-3
+    gap = np.abs(card.W - host.W).max() / np.abs(host.W).max()
+    print(f"stream {case}, data seed {seed}: card W within {gap:.3e} of the "
+          f"CPU W's largest entry (bar {factor_tol})")
+    assert gap <= factor_tol
+    assert np.abs(wire.W - card.W).max() < 1e-5
+    assert abs(wire.train_loss - card.train_loss) <= \
+        1e-5 * abs(card.train_loss)
+
+
+@pytest.mark.parametrize("case", list(STREAM_ON_CARD))
+def test_streaming_fit_on_the_card_matches_the_cpu(cuda, case, tmp_path):
+    _stream_card_against_cpu(case, 4, tmp_path)
+
+
+@pytest.mark.parametrize("seed", STREAM_KL_SEEDS)
+def test_streaming_kl_on_the_card_matches_the_cpu_over_seeds(cuda, seed,
+                                                             tmp_path):
+    _stream_card_against_cpu("kl", seed, tmp_path)

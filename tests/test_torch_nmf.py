@@ -257,7 +257,9 @@ def test_unported_branch_raises(branch, data, tmp_path):
     package's initial factors (``tests/test_torch_svd.py`` holds both to
     the JAX package in full), the checkpointed ones bit for bit the plain
     fit, one file per restart (``tests/test_torch_checkpoint.py`` holds
-    them in full)."""
+    them in full).  ``streaming=True`` runs the streaming engine, within
+    the fit bars of the JAX package's streaming fit
+    (``tests/test_torch_streaming.py`` holds it in full)."""
     kw = UNPORTED[branch]
     if "checkpoint_path" in kw:
         path = tmp_path / kw["checkpoint_path"]
@@ -278,6 +280,12 @@ def test_unported_branch_raises(branch, data, tmp_path):
         assert sorted(res.profile) == sorted(ref.profile)
         assert res.profile["iterations"] == 4
         assert np.isfinite(res.loss_history).all()
+        return
+    if branch == "streaming":
+        res = rtt.nmf(data, K, tol=0, maxit=4, seed=1, device="cpu", **kw)
+        ref = rt.nmf(data, K, tol=0, maxit=4, seed=1, **kw)
+        _assert_loss_close(res.loss_history, ref.loss_history, data)
+        assert np.abs(res.W - ref.W).max() <= 2e-3 * np.abs(ref.W).max()
         return
     if branch == "svd_init":
         cfg = rtt.build_config(K, **kw)
@@ -441,13 +449,21 @@ def test_profile_matches_reference(kw, data):
     ("nan", 3), ("dict", 3)],
     ids=["k_list", "k_auto", "spz_path", "multimodal", "nan",
          "multimodal_dict"])
-def test_unported_inputs_raise(args, data):
+def test_unported_inputs_raise(args, data, tmp_path):
     """Inputs that are not ported raise NotImplementedError naming their
-    ROADMAP item.  A list of ranks, ``"auto"`` and NaN entries did so until
-    cross-validation and masks were ported; now a list of ranks gives one row
-    per rank, ``"auto"`` a fit at the rank it chose, NaN entries a masked fit
-    and a warning."""
+    ROADMAP item.  A list of ranks, ``"auto"``, NaN entries and ``.spz``
+    paths did so until cross-validation, masks and streaming were ported;
+    now a list of ranks gives one row per rank, ``"auto"`` a fit at the rank
+    it chose, NaN entries a masked fit and a warning, a ``.spz`` path the
+    streaming fit of the file, within the fit bars of the JAX package's."""
     what, k = args
+    if what == "x.spz":
+        path = str(tmp_path / what)
+        rtt.st_write(data, path, chunk_cols=32)
+        res = rtt.nmf(path, k, tol=0, maxit=4, seed=1, device="cpu")
+        ref = rt.nmf(path, k, tol=0, maxit=4, seed=1)
+        _assert_loss_close(res.loss_history, ref.loss_history, data)
+        return
     if what == "data" and k == "auto":
         res = rtt.nmf(data, "auto", cv_k_range=(2, 6), maxit=4, device="cpu")
         assert res.k == res.misc["rank_search"]["k_optimal"]
@@ -463,8 +479,7 @@ def test_unported_inputs_raise(args, data):
             res = rtt.nmf(A, k, maxit=4, device="cpu")
         assert np.isfinite(res.W).all() and res.test_loss_history.shape == (4,)
     else:
-        A = {"x.spz": "x.spz", "list": [data, data],
-             "dict": {"a": data, "b": data}}[what]
+        A = {"list": [data, data], "dict": {"a": data, "b": data}}[what]
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             rtt.nmf(A, k, device="cpu")
 

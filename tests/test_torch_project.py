@@ -157,7 +157,7 @@ def test_nnls_nmf_delegation_matches_reference(kw, sim):
     _close(port, ref, tol=2e-3 if "h" in fkw else TOL)
 
 
-def test_nnls_inputs_and_errors(sim):
+def test_nnls_inputs_and_errors(sim, tmp_path):
     A = sim["A"]
     base = rtt.nnls(A, w=sim["W"], device="cpu")
     np.testing.assert_array_equal(
@@ -172,8 +172,11 @@ def test_nnls_inputs_and_errors(sim):
         rtt.nnls(A, w=sim["W"], L1=-1.0, device="cpu")
     with pytest.raises(ValueError, match="theta length"):
         rtt.nnls(A, w=sim["W"], loss="nb", theta=np.ones(7), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        project.nnls_streaming("x.spz", sim["W"])
+    # a .spz file projects panel by panel, as the whole matrix does
+    # (tests/test_torch_streaming.py holds it to the JAX package)
+    path = str(tmp_path / "x.spz")
+    rtt.st_write(A, path, value_type="float32", chunk_cols=32)
+    _close(project.nnls_streaming(path, sim["W"], device="cpu"), base)
 
 
 # ---------------------------------------------------------------------------
@@ -253,3 +256,57 @@ def test_port_fitted_model_round_trip(counts):
                                   model.reconstruct())
     ref = rt.nmf(counts, K, maxit=30, tol=0, seed=1)
     assert model.sparsity()["factor"] == ref.sparsity()["factor"]
+
+
+# ---------------------------------------------------------------------------
+# A single column: a (k,) solution, as the JAX package returns
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kw", [dict(), dict(upper_bound=0.2),
+                                dict(nonneg=False), dict(L2=0.1)],
+                         ids=["cholesky", "upper_bound", "nonneg_off", "L2"])
+@pytest.mark.parametrize("side", ["w", "h"])
+def test_nnls_of_one_column_matches_reference(side, kw, sim):
+    rs = np.random.RandomState(21)
+    if side == "w":
+        F = _wide_factor(K, 22)
+        a = sim["A"][:, 3].copy()
+        port = rtt.nnls(a, w=F, device="cpu", **kw)
+        ref = rt.nnls(a, w=F, **kw)
+    else:
+        F = rs.uniform(0.1, 1.0, (K, N)).astype(np.float32)
+        a = sim["A"][4].copy()
+        port = rtt.nnls(a, h=F, device="cpu", **kw)
+        ref = rt.nnls(a, h=F, **kw)
+    assert port.shape == np.shape(ref) == (K,)
+    _close(port, ref)
+    # the column's solution is the one of the same column inside a matrix
+    whole = (rtt.nnls(sim["A"][:, 3:4], w=F, device="cpu", **kw)[:, 0]
+             if side == "w" else
+             rtt.nnls(sim["A"][4:5], h=F, device="cpu", **kw)[0])
+    _close(port, whole)
+
+
+@pytest.mark.parametrize("kw", [dict(solver="cd"), dict(L1=0.01),
+                                dict(warm_start=np.ones(K, np.float32)),
+                                dict(loss="kl")])
+def test_nnls_of_one_column_raises_as_reference_on_other_routes(kw, sim):
+    a = sim["A"][:, 3].copy()
+    F = _wide_factor(K, 22)
+    errors = []
+    for fn, extra in ((rt.nnls, {}), (rtt.nnls, {"device": "cpu"})):
+        with pytest.raises(Exception) as exc:
+            fn(a, w=F, **kw, **extra)
+        errors.append(exc.value)
+    assert type(errors[0]) is type(errors[1]), errors
+    assert str(errors[0]) == str(errors[1])
+
+
+def test_predict_of_one_column_matches_reference(fitted, counts):
+    ref_model = fitted["mse"]
+    model = convert.nmf_result_from_reference(ref_model)
+    col = counts[:, 7].copy()
+    port = rtt.predict(model, col, device="cpu")
+    ref = ref_project.predict(ref_model, col)
+    assert port.shape == np.shape(ref) == (K,)
+    _close(port, ref)

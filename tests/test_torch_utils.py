@@ -418,7 +418,7 @@ def test_memory_guards(monkeypatch):
     assert memory.format_bytes(2048) == "2.0 KB"
     assert memory.check_dense_alloc(100, 100).fits
     huge = memory.check_dense_alloc(10 ** 7, 10 ** 7)
-    assert not huge.fits and "item 11" in huge.message
+    assert not huge.fits and "streaming" in huge.message
     monkeypatch.setattr(memory, "available_host_bytes", lambda: 10_000)
     with pytest.raises(MemoryError, match="INSUFFICIENT HOST MEMORY"):
         rtt.nmf(sp.random(200, 100, density=0.01, format="csc"), 3,
@@ -428,13 +428,29 @@ def test_memory_guards(monkeypatch):
 
 
 def test_a_matrix_the_card_cannot_hold_is_refused(monkeypatch):
-    """Where the JAX package streams, the port names the item that will."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(memory, "device_hbm_bytes", lambda: 20_000)
+    """Where the JAX package streams, the port streams too: a matrix the
+    card cannot hold with headroom goes to the streaming engine instead of
+    the in-memory fit (the card is pretended for the decision only; the
+    fit itself runs on the CPU).  On the CPU no switch is made."""
+    from rcppml_tpu_torch import api
     A = simulate_nmf(60, 50, 3, seed=0)["A"]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        rtt.nmf(A, 3, maxit=2)
-    assert rtt.nmf(A, 3, maxit=2, device="cpu").iterations == 2
+    plain = rtt.nmf(A, 3, maxit=2, tol=0, device="cpu")
+    streams = []
+    real = api._nmf_streaming
+
+    def on_cpu(*args, **kwargs):
+        streams.append(args[2])
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        return real(*args, **dict(kwargs, device="cpu"))
+    monkeypatch.setattr(api, "_nmf_streaming", on_cpu)
+    monkeypatch.setattr(memory, "device_hbm_bytes", lambda: 20_000)
+    assert rtt.nmf(A, 3, maxit=2, tol=0, device="cpu").iterations == 2
+    assert streams == []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    res = rtt.nmf(A, 3, maxit=2, tol=0)
+    assert streams == [False] and res.iterations == 2
+    assert abs(res.train_loss - plain.train_loss) <= \
+        1e-4 * abs(plain.train_loss)
 
 
 SLICE_NAMES = (
