@@ -67,7 +67,16 @@ the card, and times kernels, twins and fits with CUDA events:
     for bit the cached one, the wire cache within 1e-5 of the uncached
     stream, KL and CV streams through kernel 2, streaming SVD (randomized,
     lanczos, irlba) within 1e-3 of the in-memory SVD and
-    ``nnls_streaming`` within 1e-5 of ``nnls``.
+    ``nnls_streaming`` within 1e-5 of ``nnls``;
+  * the FactorNet graph engine at the pbmc3k shape (phase 30): (a) the
+    2-layer MSE net k=20 -> k=8, 20 outer sweeps on the card with the
+    default solver (kernel 6) and CD (kernel 1), timed, bit for bit across
+    two runs, no host read at tol=0, against the same net through the host
+    loop and on the CPU; (b) ``nmf([A[:10000], A[10000:]], 20)`` bit for
+    bit the stacked fit; (c) a conditioned concat of two branches on the
+    fused path; (d) a GP layer under an MSE layer through the host loop
+    (kernel 2); (e) ``cross_validate_graph`` (kernel 2); (f) ``predict`` of
+    1,000 held-back columns against the CPU port's.
 
 Each phase prints its own lines and any failure raises, so the exit code is
 non-zero.  There is no CPU fallback: without a CUDA card of compute
@@ -82,8 +91,8 @@ With ``--profile`` it builds the kernels and then, instead of the phases
 above, runs the same fits once each under ``torch.profiler`` and prints
 where each fit's time goes: wall time, summed device time and its share of
 the wall time (the rest is the device idling while the host works), the host
-syncs the fit counted, and the largest device kernels by name; also dclust
-and consensus_nmf.
+syncs the fit counted, and the largest device kernels by name; also dclust,
+consensus_nmf and the graph engine's fused net (a) and host loop (d).
 """
 
 import contextlib
@@ -351,6 +360,44 @@ IRLS_PROFILE_KEYS = ["fused_per_iter_us", "fused_total_ms", "irls_iteration",
 WG_EDGE_KS = (1, 8, 16, 17, 50, 128, 129)
 WG_EDGE_SHAPE = (1500, 77)
 WG_EDGE_PLANS = [(splits, mode) for splits in (1, 3) for mode in (1, 2)]
+# the graph engine (phase 30) at the pbmc3k shape: the JAX package's graph
+# record (BENCH_NOTES.md:61-65), a 2-layer MSE net k=20 -> k=8 with 20 outer
+# sweeps, on the seeded simulate_nmf matrix (graph_matrix) and, for
+# predict, GRAPH_HELD_BACK more columns of the same factor model.  (b) and
+# (c) split its rows at GRAPH_SPLIT; (c) concatenates a k=20 and a k=10
+# branch, conditions on GRAPH_Z seeded covariates and tops them with k=8;
+# (d) the host loop on the counts (GP k=16 with CD, then MSE k=8) for
+# GRAPH_HOST_SWEEPS sweeps; (e) cross_validate_graph over GRAPH_CV_KS
+GRAPH = dict(k1=20, k2=8, maxit=20, seed=42)
+GRAPH_SPLIT, GRAPH_HELD_BACK, GRAPH_Z = 10000, 1000, 2
+GRAPH_BRANCH_KS = (20, 10, 8)
+GRAPH_HOST_K, GRAPH_HOST_SWEEPS = 16, 3
+GRAPH_CV_KS, GRAPH_CV_REPS, GRAPH_CV_MAXIT = (8, 16), 2, 10
+# the fused net against the same net through the host loop: the JAX test's
+# bars (tests/test_graph.py:185-211): total loss rtol, factors rtol and atol
+GRAPH_HOST_LOSS_RTOL, GRAPH_HOST_RTOL, GRAPH_HOST_ATOL = 1e-3, 2e-3, 2e-4
+# kernel 6 and kernel 1 at the shapes the graph paths give them that the
+# cases above miss: the deep layer's (8, 20) and (8, 2638), the row blocks'
+# (20, 10000), (10, 2638), (10, 3714), the conditioned top's (8, 32), the
+# host loop's deep layer (8, 16), predict's (20, 1000) and (8, 1000)
+GRAPH_CHOL_CASES = [(8, 20), (8, 2638), (20, 10000), (10, 2638),
+                    (10, 3714), (8, 32), (8, 16), (20, 1000), (8, 1000)]
+GRAPH_CD_CASES = [(8, 20, l1, 0.0, False) for l1 in (0.0, 0.25)]
+
+
+def graph_cdb_cases(nmf_irls):
+    """Kernel 2's column blocks in the graph paths: the GP layer of the
+    host loop (k=16) and the CV fits of cross_validate_graph (k=8, 16), on
+    both sides of the pbmc3k shape, cut as nmf_irls and nmf_cv cut them."""
+    m, n = PBMC["m"], PBMC["n"]
+    out = set()
+    for k in (GRAPH_HOST_K, *GRAPH_CV_KS):
+        for rows, cols in ((m, n), (n, m)):
+            bc = nmf_irls._block_count(cols, k, rows,
+                                       kr=nmf_irls._use_kr(k, rows))
+            out |= {(k, min(bc, cols - j0), 0.0, 0.0, False)
+                    for j0 in range(0, cols, bc)}
+    return sorted(out)
 
 
 def wgram_cases():
@@ -1005,7 +1052,7 @@ def check_cholesky_clip():
     all_equal = True
     cases = [(k, n) for k in CHOL_KS for n in CHOL_NS] + [
         (k, n) for k in CHOL_EDGE_KS for n in CHOL_EDGE_NS] + \
-        STREAM_CHOL_CASES
+        STREAM_CHOL_CASES + GRAPH_CHOL_CASES
     for k, n in cases:
         G, B = chol_system(k, n, seed=k * 7919 + n)
         L = torch.linalg.cholesky(G)
@@ -1135,6 +1182,8 @@ def profile_fits(rtt, card):
                                 lambda j0, j1: A_i[:, j0:j1].T.contiguous()),
                  path_i, chunk_cols=STREAM_I["chunk_cols"])
     del A_i
+    A_g, _ = graph_matrix()
+    net_a, net_d = graph_deep_net(rtt, A_g), graph_host_net(rtt, A_ct)
 
     fits = (("MSE CD k=20", lambda: mse_cd_fit(rtt, A_pb), False),
             (f"KL k={KL_K}", lambda: kl_fit(rtt, A_ct), False),
@@ -1177,7 +1226,11 @@ def profile_fits(rtt, card):
             (f"streaming MSE k={STREAM_K} from the .spz of (i) "
              f"{STREAM_I['m']} x {STREAM_I['n']}, {STREAM_MAXIT} sweeps",
              lambda: rtt.nmf(path_i, STREAM_K, maxit=STREAM_MAXIT, tol=0,
-                             seed=1), False))
+                             seed=1), False),
+            (f"graph (a) 2-layer MSE net k={GRAPH['k1']} -> {GRAPH['k2']}, "
+             f"{GRAPH['maxit']} sweeps", lambda: rtt.fit(net_a), False),
+            (f"graph (d) host loop GP k={GRAPH_HOST_K} -> MSE k={GRAPH['k2']}"
+             f", {GRAPH_HOST_SWEEPS} sweeps", lambda: rtt.fit(net_d), False))
     for label, fit, fused in fits:
         with fused_wgram() if fused else contextlib.nullcontext():
             fit()
@@ -1191,8 +1244,12 @@ def profile_fits(rtt, card):
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
         device_ms = sum(e.self_device_time_total for e in rows) / 1e3
-        # dclust returns its leaves, consensus_nmf a dict with its runs
-        if isinstance(res, list):
+        # dclust returns its leaves, consensus_nmf a dict with its runs, a
+        # graph fit its layers
+        if hasattr(res, "layers"):
+            counted_by = (f"{res.total_iterations} outer sweeps, "
+                          f"{len(res.layers)} layers")
+        elif isinstance(res, list):
             counted_by = f"{len(res)} leaves"
         elif isinstance(res, dict):
             counted_by = (f"{sum(r.iterations for r in res['runs'])} "
@@ -2131,6 +2188,280 @@ def streaming_phases(rtt, card, counted, reset_counts, kernels):
     return times, {name: got for name, got in launches.items() if got}
 
 
+# ---------------------------------------------------------------------------
+# The graph engine (phase 30)
+# ---------------------------------------------------------------------------
+
+def graph_matrix(seed=30):
+    """The phase's MSE matrix, simulate_nmf at the pbmc3k shape as
+    ``simulated(PBMC)`` makes it, with GRAPH_HELD_BACK more columns of the
+    same factor model: (A, the held-back columns), both on the card."""
+    from rcppml_tpu_torch.utils.simulate import simulate_nmf
+    m, n = PBMC["m"], PBMC["n"]
+    A = torch.from_numpy(simulate_nmf(
+        m, n + GRAPH_HELD_BACK, PBMC["k"], noise=0.5, dropout=PBMC["dropout"],
+        seed=seed)["A"]).cuda()
+    return A[:, :n].contiguous(), A[:, n:].contiguous()
+
+
+def graph_deep_net(rtt, A, solver="auto", tol=0.0):
+    """(a): nmf_layer(input, 20) -> nmf_layer(L1, 8), 20 sweeps."""
+    inp = rtt.factor_input(A, "x")
+    l2 = rtt.nmf_layer(rtt.nmf_layer(inp, GRAPH["k1"], name="L1",
+                                     solver=solver),
+                       GRAPH["k2"], name="L2", solver=solver)
+    return rtt.factor_net(inp, l2, maxit=GRAPH["maxit"], tol=tol,
+                          seed=GRAPH["seed"])
+
+
+def graph_branched_net(rtt, A):
+    """(c): Condition(Concat(b1, b2), Z) over the two row blocks, topped by
+    k=8."""
+    k1, k2, k_top = GRAPH_BRANCH_KS
+    i1 = rtt.factor_input(A[:GRAPH_SPLIT], "rows1")
+    i2 = rtt.factor_input(A[GRAPH_SPLIT:], "rows2")
+    Z = np.random.RandomState(31).rand(A.shape[1], GRAPH_Z).astype(
+        np.float32)
+    top = rtt.nmf_layer(rtt.factor_condition(rtt.factor_concat(
+        rtt.nmf_layer(i1, k1, name="b1"), rtt.nmf_layer(i2, k2, name="b2")),
+        Z), k_top, name="top")
+    return rtt.factor_net([i1, i2], top, maxit=GRAPH["maxit"], tol=0.0,
+                          seed=GRAPH["seed"])
+
+
+def graph_host_net(rtt, A_ct):
+    """(d): a GP layer (k=16, CD) under an MSE layer (k=8): the host loop."""
+    inp = rtt.factor_input(A_ct, "counts")
+    l2 = rtt.nmf_layer(rtt.nmf_layer(inp, GRAPH_HOST_K, name="gp",
+                                     loss="gp", solver="cd"),
+                       GRAPH["k2"], name="mse")
+    return rtt.factor_net(inp, l2, maxit=GRAPH_HOST_SWEEPS, tol=0.0,
+                          seed=GRAPH["seed"])
+
+
+def graph_layers_equal(a, b):
+    return a.total_loss == b.total_loss and all(
+        same_factors(a[name], b[name]) for name in a.layers)
+
+
+def graph_phase(rtt, card, counted, reset_counts, kernels, A_ct):
+    """Phase 30: the graph engine at the pbmc3k shape, (a) to (f) of the
+    module docstring.  Returns ({label: ms}, {kernel name: {path label:
+    launches}})."""
+    from rcppml_tpu_torch.models import graph as tg
+    chol, cd_shared, cd_batched = (kernels["cholesky_clip"],
+                                   kernels["cd_nnls_shared"],
+                                   kernels["cd_nnls_batched"])
+    times = {}
+    launches = {name: {} for name in kernels}
+    A, A_new = graph_matrix()
+    m, n = A.shape
+
+    def got():
+        return {name: fn.launches for name, fn in kernels.items()
+                if fn.launches}
+
+    # (a) the fused 2-layer net, default solver (kernel 6) and CD (kernel 1)
+    for solver, fn, name in (("auto", chol, "cholesky_clip"),
+                             ("cd", cd_shared, "cd_nnls_shared")):
+        net = graph_deep_net(rtt, A, solver)
+        reset_counts()
+        reads = tg._outer_als.host_reads
+        res = rtt.fit(net)
+        reads = tg._outer_als.host_reads - reads
+        warm = sum(net._warm_iterations)
+        want = 2 * warm + 4 * GRAPH["maxit"]
+        check(net._fused_fn is not None and got() == {name: want},
+              f"(a) solver={solver}: the fused outer ALS, {name} twice a "
+              f"warmup iteration ({warm}) and twice a layer a sweep, no other "
+              f"kernel: {got()}")
+        check(reads == 0, f"(a) solver={solver}: no host read at tol=0, "
+              f"{reads}")
+        launches[name][f"graph (a) fused 2-layer net, solver={solver}"] = \
+            want
+        check(res.total_iterations == GRAPH["maxit"]
+              and np.isfinite(res.total_loss)
+              and res["L1"].W.shape == (m, GRAPH["k1"])
+              and res["L2"].W.shape == (n, GRAPH["k2"])
+              and res["L2"].H.shape == (GRAPH["k2"], GRAPH["k1"])
+              and all(np.isfinite(getattr(res[lay], f)).all()
+                      for lay in ("L1", "L2") for f in ("W", "d", "H")),
+              f"(a) solver={solver}: finite factors of the net's shapes")
+        check(graph_layers_equal(rtt.fit(net), res),
+              f"(a) solver={solver}: bit for bit across two runs")
+        ms = cuda_ms(lambda: rtt.fit(net))
+        times[f"graph (a) solver={solver}"] = ms
+        print(f"(a) 2-layer net k={GRAPH['k1']} -> {GRAPH['k2']}, "
+              f"{GRAPH['maxit']} sweeps, solver={solver}: {want} launches of "
+              f"{name} (warmups {net._warm_iterations} iterations), "
+              f"{reads} host reads; loss {res.total_loss:.6g} (L1 "
+              f"{res['L1'].loss:.6g}, L2 {res['L2'].loss:.6g}); bit for bit "
+              f"across two runs; {ms:.3f} ms (median of {REPS})  [{card}]",
+              flush=True)
+        if solver != "auto":
+            continue
+        res_a = res
+        # the same net through the host loop, and on the CPU
+        net_h = graph_deep_net(rtt, A)
+        net_h._fit_deep_fused = lambda *args, **kw: None
+        reset_counts()
+        res_h, ms_h = timed_once(lambda: rtt.fit(net_h))
+        launches[name]["graph (a) the same net through the host loop"] = \
+            chol.launches
+        check(net_h._fused_fn is None and res_h.total_iterations ==
+              GRAPH["maxit"], "(a) host loop: the forced path ran")
+        rel = abs(res_h.total_loss - res.total_loss) / res.total_loss
+        check(rel <= GRAPH_HOST_LOSS_RTOL,
+              f"(a) host loop: total loss within {GRAPH_HOST_LOSS_RTOL}: "
+              f"{rel:.3g}")
+        for lay in ("L1", "L2"):
+            for f in ("W", "H"):
+                check(np.allclose(getattr(res[lay], f),
+                                  getattr(res_h[lay], f),
+                                  rtol=GRAPH_HOST_RTOL,
+                                  atol=GRAPH_HOST_ATOL),
+                      f"(a) host loop: {lay}.{f} within rtol "
+                      f"{GRAPH_HOST_RTOL}, atol {GRAPH_HOST_ATOL}")
+        times["graph (a) host loop"] = ms_h
+        res_c, ms_c = timed_once(lambda: rtt.fit(graph_deep_net(
+            rtt, A.cpu()), device="cpu"))
+        rel_c = abs(res_c.total_loss - res.total_loss) / res_c.total_loss
+        off_c = max(float(np.abs(getattr(res[lay], f)
+                                 - getattr(res_c[lay], f)).max()
+                          / np.abs(getattr(res_c[lay], f)).max())
+                    for lay in ("L1", "L2") for f in ("W", "d", "H"))
+        check(rel_c <= SMALL_RTOL and off_c <= SMALL_FACTOR_TOL,
+              f"(a) card against CPU: loss within {SMALL_RTOL} ({rel_c:.3g}),"
+              f" factors within {SMALL_FACTOR_TOL} ({off_c:.3g})")
+        print(f"  host loop: {chol.launches} launches of cholesky_clip, loss "
+              f"{res_h.total_loss:.6g} ({rel:.2e} from the fused), factors "
+              f"within rtol {GRAPH_HOST_RTOL} atol {GRAPH_HOST_ATOL}; "
+              f"{ms_h:.1f} ms (one run)  [{card}]", flush=True)
+        print(f"  on the CPU: loss {res_c.total_loss:.6g} ({rel_c:.2e}), "
+              f"factors within {off_c:.2e} of their largest entry; "
+              f"{ms_c:.1f} ms (one run)", flush=True)
+    # with tol > 0: one host read a sweep
+    net = graph_deep_net(rtt, A, tol=1e-12)
+    reads = tg._outer_als.host_reads
+    res_t = rtt.fit(net)
+    reads = tg._outer_als.host_reads - reads
+    check(reads == res_t.total_iterations,
+          f"(a) tol=1e-12: one host read a sweep, {reads} for "
+          f"{res_t.total_iterations}")
+    print(f"  tol=1e-12: {reads} host reads in {res_t.total_iterations} "
+          f"sweeps", flush=True)
+
+    # (b) multi-modal: the stacked fit, split
+    reset_counts()
+    multi, ms_b = timed_once(lambda: rtt.nmf(
+        [A[:GRAPH_SPLIT], A[GRAPH_SPLIT:]], GRAPH["k1"],
+        maxit=GRAPH["maxit"], tol=0, seed=GRAPH["seed"]))
+    launches["cholesky_clip"]["graph (b) multi-modal nmf"] = chol.launches
+    check(got() == {"cholesky_clip": 2 * GRAPH["maxit"]},
+          f"(b) kernel 6 twice an iteration and no other kernel: {got()}")
+    single = rtt.nmf(A, GRAPH["k1"], maxit=GRAPH["maxit"], tol=0,
+                     seed=GRAPH["seed"])
+    lr = multi["L1"]
+    check(np.array_equal(lr.W_blocks["modal1"], single.W[:GRAPH_SPLIT])
+          and np.array_equal(lr.W_blocks["modal2"], single.W[GRAPH_SPLIT:])
+          and np.array_equal(lr.H, single.H)
+          and np.array_equal(lr.d, single.d),
+          "(b) W_blocks bit for bit the row split of the single fit")
+    times["graph (b) multi-modal"] = ms_b
+    print(f"(b) nmf([A[:{GRAPH_SPLIT}], A[{GRAPH_SPLIT}:]], "
+          f"{GRAPH['k1']}): W_blocks, d and H bit for bit the stacked fit's; "
+          f"{ms_b:.1f} ms (one run)  [{card}]", flush=True)
+
+    # (c) the branched net
+    net_c = graph_branched_net(rtt, A)
+    reset_counts()
+    res_b, ms_c = timed_once(lambda: rtt.fit(net_c))
+    want = 2 * sum(net_c._warm_iterations) + 2 * 3 * GRAPH["maxit"]
+    check(net_c._fused_fn is not None and got() == {"cholesky_clip": want},
+          f"(c) the fused path, kernel 6 only, {want} launches: {got()}")
+    launches["cholesky_clip"]["graph (c) branched net"] = want
+    k_top = GRAPH_BRANCH_KS[2]
+    check(res_b["top"].W.shape == (n, k_top)
+          and res_b["top"].H.shape == (k_top, sum(GRAPH_BRANCH_KS[:2])
+                                       + GRAPH_Z)
+          and np.isfinite(res_b.total_loss) and not res_b.chain_topology,
+          "(c) the conditioned concat's shapes, a finite loss")
+    times["graph (c) branched"] = ms_c
+    print(f"(c) Condition(Concat(b1 k={GRAPH_BRANCH_KS[0]}, b2 "
+          f"k={GRAPH_BRANCH_KS[1]}), Z) -> k={k_top}: fused, {want} launches "
+          f"of cholesky_clip, loss {res_b.total_loss:.6g}; {ms_c:.1f} ms "
+          f"(one run)  [{card}]", flush=True)
+
+    # (d) the host loop on the counts
+    net_d = graph_host_net(rtt, A_ct)
+    reset_counts()
+    res_d, ms_d = timed_once(lambda: rtt.fit(net_d))
+    g = got()
+    check(net_d._fused_fn is None and set(g) == {"cd_nnls_batched",
+                                                 "cholesky_clip"},
+          f"(d) the host loop: kernel 2 for the GP layer, kernel 6 for the "
+          f"MSE layer, no other kernel: {g}")
+    check(res_d.total_iterations == GRAPH_HOST_SWEEPS
+          and np.isfinite(res_d.total_loss)
+          and all(np.isfinite(res_d[lay].loss) for lay in res_d.layers),
+          f"(d) finite losses after {GRAPH_HOST_SWEEPS} sweeps")
+    launches["cd_nnls_batched"]["graph (d) host loop, GP layer"] = \
+        g.get("cd_nnls_batched", 0)
+    launches["cholesky_clip"]["graph (d) host loop, MSE layer"] = \
+        g.get("cholesky_clip", 0)
+    times["graph (d) host loop"] = ms_d
+    print(f"(d) GP k={GRAPH_HOST_K} (CD) -> MSE k={GRAPH['k2']} on the "
+          f"counts, {GRAPH_HOST_SWEEPS} sweeps: the host loop, launches {g}, "
+          f"loss {res_d.total_loss:.6g}; {ms_d:.1f} ms (one run)  [{card}]",
+          flush=True)
+
+    # (e) cross_validate_graph
+    inp = rtt.factor_input(A, "x")
+    reset_counts()
+    cv, ms_e = timed_once(lambda: rtt.cross_validate_graph(
+        inp, lambda p: rtt.nmf_layer(inp, p["k"], name="L"),
+        params={"k": list(GRAPH_CV_KS)},
+        config=rtt.factor_config(maxit=GRAPH_CV_MAXIT, seed=GRAPH["seed"],
+                                 solver="cd"), reps=GRAPH_CV_REPS))
+    g = got()
+    check(set(g) == {"cd_nnls_batched"}, f"(e) kernel 2 only: {g}")
+    check(len(cv.results) == len(GRAPH_CV_KS) * GRAPH_CV_REPS
+          and all(np.isfinite(r["test_loss"]) for r in cv.results),
+          f"(e) a finite test loss in every row: {cv.results}")
+    launches["cd_nnls_batched"]["graph (e) cross_validate_graph"] = \
+        g.get("cd_nnls_batched", 0)
+    times["graph (e) cross_validate_graph"] = ms_e
+    print(f"(e) cross_validate_graph k={list(GRAPH_CV_KS)} x "
+          f"{GRAPH_CV_REPS} reps, maxit={GRAPH_CV_MAXIT}, CD: best "
+          f"{cv.best_params}, "
+          + ", ".join(f"k={s['k']} test {s['mean_test_loss']:.6g}"
+                      for s in cv.summary)
+          + f"; {g.get('cd_nnls_batched', 0)} launches of cd_nnls_batched; "
+          f"{ms_e:.1f} ms (one run)  [{card}]", flush=True)
+
+    # (f) predict on the held-back columns
+    reset_counts()
+    pred, ms_f = timed_once(lambda: res_a.predict(A_new))
+    check(got() == {"cholesky_clip": 2},
+          f"(f) one launch of kernel 6 a layer: {got()}")
+    launches["cholesky_clip"]["graph (f) predict"] = 2
+    on_cpu = res_a.predict(A_new.cpu(), device="cpu")
+    off = max(float(np.abs(pred[lay] - on_cpu[lay]).max()
+                    / np.abs(on_cpu[lay]).max()) for lay in on_cpu)
+    check(set(pred) == {"L1", "L2"}
+          and pred["L1"].shape == (GRAPH["k1"], GRAPH_HELD_BACK)
+          and pred["L2"].shape == (GRAPH["k2"], GRAPH_HELD_BACK)
+          and all(np.isfinite(v).all() for v in pred.values())
+          and off <= PROJ_RTOL,
+          f"(f) predict: shapes, finite, within {PROJ_RTOL} of the CPU "
+          f"port's ({off:.3g})")
+    times["graph (f) predict"] = ms_f
+    print(f"(f) predict of {GRAPH_HELD_BACK} held-back columns through both "
+          f"layers: within {off:.2e} of the CPU port's; {ms_f:.2f} ms (one "
+          f"run)  [{card}]", flush=True)
+    return times, launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
@@ -2196,7 +2527,8 @@ def main():
     phase("3 shared-Gram CD kernel against its plain twin (bitwise)")
     err_shared = check_cd_kernel(cd_shared, cd_nnls.cd_nnls_shared_plain,
                                  cd_nnls.plan_cd, cd_system,
-                                 CD_CASES + STREAM_CD_CASES)
+                                 CD_CASES + STREAM_CD_CASES
+                                 + GRAPH_CD_CASES)
 
     phase("4 MSE path, CD solver")
     A_pb = simulated(PBMC)
@@ -2272,7 +2604,8 @@ def main():
     err_batched = check_cd_kernel(cd_batched,
                                   cd_nnls_batched.cd_nnls_batched_plain,
                                   cd_nnls_batched.plan_cd, cd_batched_system,
-                                  CDB_CASES + stream_cdb_cases(nmf_irls))
+                                  CDB_CASES + stream_cdb_cases(nmf_irls)
+                                  + graph_cdb_cases(nmf_irls))
 
     phase("7 fused weight + Gram + RHS kernel against its plain twin "
           f"(within {WGRAM_RTOL} of the twin's largest entry)")
@@ -3233,6 +3566,13 @@ def main():
     print(f"phases 26-29: {time.perf_counter() - t_new:.1f} s; "
           + ", ".join(f"phase {i} {stream_times[f'phase {i}'] / 1e3:.1f} s"
                       for i in (26, 27, 28, 29)), flush=True)
+    t_new = time.perf_counter()
+    phase(f"30 the graph engine at the pbmc3k shape: the {GRAPH['k1']} -> "
+          f"{GRAPH['k2']} net, {GRAPH['maxit']} sweeps, multi-modal, "
+          f"branched, host loop, cross_validate_graph, predict")
+    _, graph_launches = graph_phase(rtt, card, counted, reset_counts,
+                                    kernels, A_ct)
+    print(f"phase 30: {time.perf_counter() - t_new:.1f} s", flush=True)
 
     # launches of each kernel on the paths after phase 16, each counted
     # from zero
@@ -3251,6 +3591,8 @@ def main():
     for name, n in auto_launches.items():
         path_launches[name]["auto_nmf_distribution"] = n
     for name, by_path in stream_launches.items():
+        path_launches[name].update(by_path)
+    for name, by_path in graph_launches.items():
         path_launches[name].update(by_path)
 
     def entry(name, source, replaces, launches, err, rel, key,

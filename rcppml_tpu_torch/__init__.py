@@ -41,7 +41,14 @@ carries:
     (``io/loaders.py``), ``nmf("x.spz", k)`` / ``streaming=True`` and the
     automatic switch to streaming for a matrix the card cannot hold
     (``models/nmf_chunked.py``), ``streaming_svd`` and ``svd("x.spz")``,
-    ``nnls_streaming``, ``load_data`` and ``datasets``.
+    ``nnls_streaming``, ``load_data`` and ``datasets``;
+  * the FactorNet graph engine (``models/graph.py``): the node builders
+    (``factor_input``, ``factor_shared``, ``factor_concat``,
+    ``factor_add``, ``factor_condition``, ``nmf_layer``, ``svd_layer``,
+    ``W`` / ``H``), ``factor_config`` / ``GlobalConfig``, ``factor_net``,
+    ``fit`` (the multi-layer outer ALS on the device) and
+    ``cross_validate_graph``; ``nmf([A1, A2], k)`` / ``nmf({...}, k)`` fits
+    a shared-H net over the modalities.
 
 Eight kernels written for Hopper run on a CUDA tensor, each with a plain
 PyTorch twin that runs on a CPU tensor: the shared-Gram CD NNLS solve
@@ -58,9 +65,8 @@ is too large for the Khatri-Rao product, and the shared-Gram Cholesky solve +
 clip (``csrc/cholesky_clip.cu``), the solve of every default MSE fit.
 
 Entry points run on the CUDA card unless the caller asks for ``device="cpu"``
-or passes a CPU tensor.  Still raising ``NotImplementedError`` with their
-ROADMAP.md item, or absent: the factor-graph engine and multi-modal input,
-and meshes.
+or passes a CPU tensor.  Still raising ``NotImplementedError`` with its
+ROADMAP.md item, or absent: meshes (``mesh=``, ``default_mesh``).
 
 It imports ``torch`` and never ``jax``; kernels are built with ``nvcc`` at
 first use, never at import.
@@ -80,6 +86,10 @@ from .io.spz import (st_add_transpose, st_chunk_ranges, st_convert,
                      st_read_obs, st_read_transpose, st_read_var, st_slice,
                      st_slice_cols, st_slice_rows, st_write, st_write_dense,
                      st_write_list, st_write_with_metadata)
+from .models.graph import (GlobalConfig, H, W, cross_validate_graph,
+                           factor_add, factor_concat, factor_condition,
+                           factor_config, factor_input, factor_net,
+                           factor_shared, fit, nmf_layer, svd_layer)
 from .models.project import evaluate, mse, nnls, nnls_streaming, predict
 from .models.svd import pca, streaming_svd, svd
 from .result import NMFResult, SVDResult
@@ -117,6 +127,12 @@ _ST_NAMES = (
     "st_slice_rows", "st_slice", "st_map_chunks", "st_obs_indices",
     "st_filter_cols", "st_filter_rows", "st_write_list", "st_read_device")
 
+# the factor-graph engine (R/factor_net.R surface)
+_GRAPH_NAMES = (
+    "factor_input", "factor_shared", "factor_concat", "factor_add",
+    "factor_condition", "factor_config", "nmf_layer", "svd_layer",
+    "factor_net", "fit", "cross_validate_graph", "W", "H", "GlobalConfig")
+
 
 # R generics: free functions delegating to the result object
 def reconstruct(obj, *args, **kwargs):
@@ -151,4 +167,4 @@ __all__ = ["nmf", "build_config", "svd", "pca", "nnls", "predict",
            "gpu_info", "set_verbosity", "get_verbosity", "LogLevel",
            "streaming_svd", "nnls_streaming", "load_data",
            "select_resources", "datasets", "st_read_gpu", "st_free_gpu",
-           "st_free_device", *_ST_NAMES]
+           "st_free_device", *_ST_NAMES, *_GRAPH_NAMES]

@@ -35,12 +35,14 @@ The SVD (``svd``, ``pca``) and projection (``nnls``, ``predict``,
 ``models/project.py``.  A ``.spz`` path, ``streaming=True`` and a host
 matrix too large for the card's memory with headroom run the streaming
 engine (``models/nmf_chunked.py``), on the card unless ``device="cpu"``;
-other file paths load in memory through ``load_data``.  Branches of the JAX
-API that are not ported yet raise ``NotImplementedError`` naming their
-ROADMAP.md item; none of them falls back silently: multi-modal input and
-``mesh=``.  ``checkpoint_path=`` runs the dense fit (MSE or IRLS) in
-segments of ``checkpoint_every`` iterations, writing the whole state after
-each and resuming from the file when it exists (``utils/checkpoint.py``).
+other file paths load in memory through ``load_data``.  A list or dict of
+matrices with the same columns is a multi-modal fit: a shared-H
+``factor_net`` (``models/graph.py``) whose W comes back split per input.
+``mesh=`` is not ported yet and raises ``NotImplementedError`` naming its
+ROADMAP.md item; it never falls back silently.  ``checkpoint_path=`` runs
+the dense fit (MSE or IRLS) in segments of ``checkpoint_every`` iterations,
+writing the whole state after each and resuming from the file when it
+exists (``utils/checkpoint.py``).
 ``verbose`` and the process-wide level of ``utils/logging.py`` gate a
 summary line before and after the fit and, at the DETAILED level, one line
 per iteration.
@@ -393,6 +395,50 @@ def _multi_restart(data, k, seeds, kwargs, rest):
     return best
 
 
+def _nmf_multimodal(data, k, *, device, kwargs, streaming, unsupported):
+    """``nmf(list/dict)``: a shared-H factor_net of one layer named "L1"
+    over the row-stacked matrices (R/nmf_thin.R:279-304), which delegates
+    to the same fit as ``nmf`` of the stacked matrix.  Returns a
+    GraphResult; W comes back split per input in ``W_blocks``."""
+    from .models import graph as graph_mod
+    # the shared-H delegation supports config-level settings only — reject
+    # (never silently drop) the matrix-shaped arguments that cannot ride
+    # through GlobalConfig
+    rejected = [n for n, v in unsupported.items() if v is not None]
+    if streaming:
+        rejected.append("streaming")
+    if rejected:
+        raise ValueError(
+            f"multi-modal nmf(list/dict) does not support "
+            f"{', '.join(sorted(rejected))}; build the factor_net "
+            "explicitly (rtt.factor_input/factor_shared/nmf_layer) to "
+            "control per-layer features")
+    named = (list(data.items()) if isinstance(data, dict)
+             else [(f"modal{i + 1}", d) for i, d in enumerate(data)])
+    if len(named) < 2:
+        raise ValueError("multi-modal NMF requires 2+ matrices with "
+                         "the same number of columns (samples)")
+    if len({np.shape(d)[1] for _, d in named}) != 1:
+        raise ValueError("all matrices in multi-modal NMF must share "
+                         "the number of columns (samples)")
+    inputs = [graph_mod.factor_input(_to_dense_f32(d), nm) for nm, d in named]
+    layer = graph_mod.nmf_layer(graph_mod.factor_shared(*inputs), int(k),
+                                name="L1")
+    # every remaining fit kwarg rides through GlobalConfig: named settings
+    # where they exist, everything else via dots (lowest priority,
+    # forwarded verbatim to the layer's nmf() call — R/nmf_thin.R:293-302)
+    dots = dict(kwargs)
+    named_settings = {name: dots.pop(name) for name in (
+        "maxit", "tol", "loss", "verbose", "seed", "norm", "solver",
+        "test_fraction", "cv_seed", "mask_zeros", "patience")
+        if name in dots}
+    net = graph_mod.factor_net(
+        inputs, layer, config=graph_mod.GlobalConfig(dots=dots,
+                                                     **named_settings),
+        device=device)
+    return graph_mod.fit(net)
+
+
 def _nmf_streaming(data, k, is_spz: bool, *, mask, graph_W, graph_H, w_init,
                    h_init, chunk_cols, on_iteration, checkpoint_path,
                    checkpoint_every, device, kwargs):
@@ -471,7 +517,14 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
     those of :func:`build_config`.
     """
     if isinstance(data, (list, tuple, dict)) and not _is_sparse(data):
-        raise unported("multi-modal nmf(list/dict)", "Queue 1 item 12")
+        return _nmf_multimodal(
+            data, k, device=device, kwargs=kwargs, streaming=streaming,
+            unsupported={"mask": mask, "graph_W": graph_W,
+                         "graph_H": graph_H, "target_H": target_H,
+                         "target_W": target_W, "w_init": w_init,
+                         "h_init": h_init, "mesh": mesh,
+                         "on_iteration": on_iteration,
+                         "checkpoint_path": checkpoint_path})
     seed_arg = kwargs.get("seed")
     if isinstance(seed_arg, np.ndarray) and seed_arg.ndim == 2:
         # seed = matrix -> custom W init (test_parameters.R:149)

@@ -169,3 +169,44 @@ def svd_result_from_reference(res) -> result_mod.SVDResult:
     """The port's SVDResult for a result of ``rcppml_tpu`` (numpy
     fields)."""
     return _numpy_fields(result_mod.SVDResult, res)
+
+
+def global_config_from_reference(gc):
+    """The port's GlobalConfig for a graph config of ``rcppml_tpu`` (any
+    object with the field names of its ``GlobalConfig``); ``dots`` copied."""
+    from .models.graph import GlobalConfig
+    out = _copy_fields(GlobalConfig, gc)
+    out.dots = dict(gc.dots)
+    return out
+
+
+def graph_result_from_reference(res):
+    """The port's GraphResult for a GraphResult of ``rcppml_tpu``: every
+    LayerResult's arrays (``W_blocks`` too) as numpy arrays, so that a net
+    fitted by the JAX package can go to the port's ``predict``."""
+    from .models import graph
+
+    def layer(lr):
+        blocks = lr.W_blocks
+        return graph.LayerResult(**{
+            **{f.name: getattr(lr, f.name)
+               for f in dataclasses.fields(graph.LayerResult)},
+            "W": np.asarray(lr.W), "d": np.asarray(lr.d),
+            "H": np.asarray(lr.H),
+            "W_blocks": None if blocks is None else {
+                name: np.asarray(w) for name, w in blocks.items()}})
+
+    return graph.GraphResult(
+        layers={name: layer(lr) for name, lr in res.layers.items()},
+        total_iterations=int(res.total_iterations),
+        total_loss=float(res.total_loss), converged=bool(res.converged),
+        logger=res.logger, chain_topology=bool(res.chain_topology))
+
+
+def graph_states_from_numpy(states, *, device):
+    """Per-layer numpy factors ``[(W_T (k, m), H (k, n), d (k,)), ...]`` as
+    the port's outer-ALS states on ``device`` (contiguous float32 tensors):
+    ``FactorNet._fit_deep_fused(data_map, device, warm_states=...)`` then
+    runs the port's outer loop from another package's warm factors."""
+    return [tuple(torch.from_numpy(np.array(x, np.float32, order="C")).to(
+        device) for x in state) for state in states]

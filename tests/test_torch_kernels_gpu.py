@@ -29,7 +29,11 @@ group width the plan can take.  The rank-2 clustering on the card equals the
 CPU port's split and tree on planted groups; checkpointed fits on the card
 are the uninterrupted fit bit for bit, with its kernel launches.  A
 ``.spz`` stream on the card holds to the same stream on the CPU port, and
-its wire-cached run to its uncached one within 1e-5.
+its wire-cached run to its uncached one within 1e-5.  The graph engine's
+outer ALS on the card holds to the same net on the CPU (loss 1e-4,
+factors 1e-2 of the largest entry), with kernels 6 and 1 bitwise their
+twins at its deep layer's shapes, and a multi-modal fit is the stacked
+matrix's fit bit for bit.
 """
 
 import numpy as np
@@ -1107,3 +1111,81 @@ def test_streaming_fit_on_the_card_matches_the_cpu(cuda, case, tmp_path):
 def test_streaming_kl_on_the_card_matches_the_cpu_over_seeds(cuda, seed,
                                                              tmp_path):
     _stream_card_against_cpu("kl", seed, tmp_path)
+
+
+# ---------------------------------------------------------------------------
+# the graph engine (models/graph.py): the deep layer's solves at the pbmc3k
+# net's shapes (k2 = 8 against k1 = 20 columns, and against the samples)
+# ---------------------------------------------------------------------------
+
+GRAPH_LAYER2 = [(8, 20), (8, 2638)]
+
+
+@pytest.mark.parametrize("k,n", GRAPH_LAYER2)
+def test_graph_layer2_solves_bitwise(cuda, k, n):
+    from rcppml_tpu_torch.ops import cd_nnls
+    from rcppml_tpu_torch.ops import cholesky_clip as cc
+    G, B = _chol_system(k, n, cuda, seed=k + n)
+    for nonneg in (True, False):
+        out = cc.cholesky_clip(G, B, nonneg=nonneg)
+        torch.cuda.synchronize()
+        assert torch.equal(out, cc.cholesky_clip_plain(G, B, nonneg=nonneg))
+    G, B_res, X0 = _system(k, n, k * n, cuda)
+    for l1 in (0.0, 0.25):
+        out = cd_nnls.cd_nnls_shared(G, B_res, X0, l1, 5e-6, nonneg=True,
+                                     maxit=100)
+        torch.cuda.synchronize()
+        assert torch.equal(out, cd_nnls.cd_nnls_shared_plain(
+            G, B_res, X0, l1, 5e-6, nonneg=True, maxit=100))
+
+
+def _graph_net(A, solver):
+    from rcppml_tpu_torch.models import graph as tg
+    inp = tg.Input(A, "x")
+    l2 = tg.NMFLayer(tg.NMFLayer(inp, 20, name="L1", solver=solver), 8,
+                     name="L2", solver=solver)
+    return tg.factor_net(inp, l2, maxit=8, tol=0.0, seed=42)
+
+
+@pytest.mark.parametrize("solver,kernel", [("auto", "cholesky_clip"),
+                                           ("cd", "cd_nnls_shared")])
+def test_graph_fused_net_on_the_card_matches_the_cpu(cuda, solver, kernel):
+    """The 2-layer net's outer ALS on the card: the solver's kernel twice a
+    warmup iteration and twice a layer a sweep, no host read at tol=0,
+    bitwise repeatable, within 1e-4 in loss and 1e-2 of the factors'
+    largest entry of the same net on the CPU."""
+    from rcppml_tpu_torch.models import graph as tg
+    from rcppml_tpu_torch.ops import cd_nnls, cholesky_clip
+    from rcppml_tpu_torch.utils.simulate import simulate_nmf
+    fn = {"cholesky_clip": cholesky_clip.cholesky_clip,
+          "cd_nnls_shared": cd_nnls.cd_nnls_shared}[kernel]
+    A = simulate_nmf(1200, 400, 20, noise=0.5, dropout=0.9, seed=3)["A"]
+    net = _graph_net(torch.from_numpy(A).to(cuda), solver)
+    before, reads = fn.launches, tg._outer_als.host_reads
+    res = tg.fit(net)
+    assert net._fused_fn is not None
+    assert fn.launches - before == 2 * sum(net._warm_iterations) + 4 * 8
+    assert tg._outer_als.host_reads == reads
+    again = tg.fit(net)
+    cpu = tg.fit(_graph_net(A, solver), device="cpu")
+    assert res.total_iterations == cpu.total_iterations == 8
+    np.testing.assert_allclose(res.total_loss, cpu.total_loss, rtol=1e-4)
+    for name in ("L1", "L2"):
+        for f in ("W", "d", "H"):
+            a, b = getattr(res[name], f), getattr(cpu[name], f)
+            np.testing.assert_array_equal(a, getattr(again[name], f))
+            assert np.abs(a - b).max() <= 1e-2 * np.abs(b).max(), (name, f)
+
+
+def test_multimodal_fit_is_the_stacked_fit_bitwise(cuda):
+    import rcppml_tpu_torch as rtt
+    from rcppml_tpu_torch.utils.simulate import simulate_nmf
+    A = torch.from_numpy(simulate_nmf(900, 300, 10, noise=0.5, seed=4)[
+        "A"]).to(cuda)
+    multi = rtt.nmf([A[:600], A[600:]], 10, maxit=10, tol=0, seed=42)
+    single = rtt.nmf(A, 10, maxit=10, tol=0, seed=42)
+    lr = multi["L1"]
+    np.testing.assert_array_equal(lr.W_blocks["modal1"], single.W[:600])
+    np.testing.assert_array_equal(lr.W_blocks["modal2"], single.W[600:])
+    np.testing.assert_array_equal(lr.H, single.H)
+    np.testing.assert_array_equal(lr.d, single.d)

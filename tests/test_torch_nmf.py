@@ -455,7 +455,11 @@ def test_unported_inputs_raise(args, data, tmp_path):
     paths did so until cross-validation, masks and streaming were ported;
     now a list of ranks gives one row per rank, ``"auto"`` a fit at the rank
     it chose, NaN entries a masked fit and a warning, a ``.spz`` path the
-    streaming fit of the file, within the fit bars of the JAX package's."""
+    streaming fit of the file, within the fit bars of the JAX package's.
+    A list or dict of matrices did so until the graph engine was ported;
+    now it is a shared-H fit whose W comes back split per matrix, within
+    the fit bars of the JAX package's (``tests/test_torch_graph.py`` holds
+    it in full)."""
     what, k = args
     if what == "x.spz":
         path = str(tmp_path / what)
@@ -480,8 +484,16 @@ def test_unported_inputs_raise(args, data, tmp_path):
         assert np.isfinite(res.W).all() and res.test_loss_history.shape == (4,)
     else:
         A = {"list": [data, data], "dict": {"a": data, "b": data}}[what]
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rtt.nmf(A, k, device="cpu")
+        res = rtt.nmf(A, k, tol=0, maxit=4, seed=1, device="cpu")
+        ref = rt.nmf(A, k, tol=0, maxit=4, seed=1)
+        names = ["modal1", "modal2"] if what == "list" else ["a", "b"]
+        assert list(res["L1"].W_blocks) == list(ref["L1"].W_blocks) == names
+        assert res.total_iterations == ref.total_iterations == 4
+        stacked = np.vstack([data, data])
+        trAtA = float((stacked.astype(np.float64) ** 2).sum())
+        assert abs(res.total_loss - ref.total_loss) <= \
+            1e-4 * abs(ref.total_loss) + 10 * EPS32 * trAtA
+        _assert_factors_close(res["L1"], ref["L1"])
 
 
 def test_invalid_inputs_raise_value_errors(data):
