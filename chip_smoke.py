@@ -76,7 +76,20 @@ the card, and times kernels, twins and fits with CUDA events:
     bit the stacked fit; (c) a conditioned concat of two branches on the
     fused path; (d) a GP layer under an MSE layer through the host loop
     (kernel 2); (e) ``cross_validate_graph`` (kernel 2); (f) ``predict`` of
-    1,000 held-back columns against the CPU port's.
+    1,000 held-back columns against the CPU port's;
+  * the device mesh at the pbmc3k shape (phase 31): (a) the (1, 1) mesh at
+    world size 1 over NCCL, bit for bit the plain MSE fits with both
+    solvers and their launches; (b) 8 ranks sharing the card over gloo
+    (``torch.multiprocessing``, spawn) in a (2, 4) mesh, where 2,638
+    columns do not divide by 4: MSE default, CD and ``bf16_data`` at k=20,
+    KL and CV at k=16 and a masked fit at k=20, each rank's kernel launches
+    checked, every rank's result the same, rank 0's held to the single-card
+    fit of the same call (the bfloat16 and KL fits to the single-card fit
+    with its sums made in the mesh's order, ``tests/torch_mesh_order.py``:
+    over 20 iterations a last-bit change of a sum's order grows past the
+    bars, on one card too), the wall clock and each rank's device time
+    printed; the twin phases hold kernels 6, 1, 2, 7 and 8 at the ranks'
+    block shapes.
 
 Each phase prints its own lines and any failure raises, so the exit code is
 non-zero.  There is no CPU fallback: without a CUDA card of compute
@@ -393,6 +406,87 @@ def graph_cdb_cases(nmf_irls):
     out = set()
     for k in (GRAPH_HOST_K, *GRAPH_CV_KS):
         for rows, cols in ((m, n), (n, m)):
+            bc = nmf_irls._block_count(cols, k, rows,
+                                       kr=nmf_irls._use_kr(k, rows))
+            out |= {(k, min(bc, cols - j0), 0.0, 0.0, False)
+                    for j0 in range(0, cols, bc)}
+    return sorted(out)
+
+
+# the device mesh (phase 31) at the pbmc3k shape: (a) the (1, 1) mesh at
+# world size 1 over NCCL, bit for bit the plain fits of phases 4 and 5 with
+# their launches; (b) MESH_RANKS ranks sharing the card over gloo (NCCL
+# refuses two ranks on one card) in a MESH_SHAPE mesh, where 2,638 columns
+# do not divide by 4: each rank runs MESH_FITS on its block (MSE default, CD
+# and bf16_data at k=20, KL and CV at k=16, a masked fit at k=20) and is
+# held to the single-card fit of the same call (MESH_REORDERED: with its
+# sums in the mesh's order): the MSE loss within
+# MESH_LOSS_TR tr(A'A) (tests/test_parallel.py:38), W and H within
+# STREAM_W_TOL of their largest entry, the IRLS loss within MESH_IRLS_RTOL
+# (tests/test_parallel.py:162), the CV test loss within MESH_CV_RTOL (:154).
+# The ranks join within MESH_TIMEOUT_S or are killed and fail the run
+MESH_SHAPE, MESH_RANKS, MESH_TIMEOUT_S = (2, 4), 8, 420.0
+MESH_LOSS_TR, MESH_IRLS_RTOL, MESH_CV_RTOL = 1e-6, 1e-5, 1e-4
+MESH_FITS = {
+    "MSE default k=20": ("A", PBMC["k"], dict(maxit=MAXIT, tol=0, seed=1)),
+    "MSE CD k=20": ("A", PBMC["k"], dict(solver="cd", maxit=MAXIT, tol=0,
+                                         seed=1)),
+    "MSE bf16_data k=20": ("A", PBMC["k"], dict(bf16_data=True, maxit=MAXIT,
+                                                tol=0, seed=1)),
+    f"KL k={KL_K}": ("counts", KL_K, dict(loss="kl", maxit=KL_MAXIT, tol=0,
+                                          seed=1)),
+    f"CV k={CV_K} CD": ("A", CV_K, dict(
+        test_fraction=CV_FRACTION, cv_seed=1, solver="cd", maxit=MAXIT,
+        tol=0, cv_patience=MAXIT + 1, seed=1)),
+    f"masked k={MASK_K} CD": ("A", MASK_K, dict(masked=True, solver="cd",
+                                                maxit=MAXIT, tol=0, seed=1)),
+}
+# the fits whose twenty iterations grow a last-bit difference in a sum past
+# the bars (it flips a bfloat16 rounding, or an IRLS column's freeze and CD
+# exit): the single-card fit splits its sums alike and lands as far from
+# itself.  They are held to the single-card fit with its sums made in the
+# mesh's order (mesh_order_fit); the gap to the plain single-card fit is
+# printed
+MESH_REORDERED = ("MSE bf16_data k=20", f"KL k={KL_K}")
+
+
+def mesh_blocks():
+    """(rows, columns) of one rank's block of the pbmc3k matrix on
+    MESH_SHAPE, from the port's own mesh padding."""
+    import types
+    from rcppml_tpu_torch.parallel.mesh import mesh_padding
+    r, c = MESH_SHAPE
+    pm, pn = mesh_padding(types.SimpleNamespace(
+        shape={"rows": r, "cols": c}), PBMC["m"], PBMC["n"])
+    return (PBMC["m"] + pm) // r, (PBMC["n"] + pn) // c
+
+
+def mesh_order_fit(data, label, plain):
+    """The single-card fit of MESH_FITS ``label`` with its sums made in the
+    MESH_SHAPE mesh's order (``tests/torch_mesh_order.py``: the single-card
+    loop, its Grams, right-hand sides and row norms added from the ranks'
+    blocks in rank order, its solves on the ranks' columns).  ``plain``: the
+    plain single-card fit of the same call, whose config it takes."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from torch_mesh_order import mesh_order_fit as fit
+    return fit(data[MESH_FITS[label][0]], plain.misc["config"], MESH_SHAPE)
+
+
+def mesh_chol_cases():
+    """Kernel 6 (and kernel 1) at the mesh fits' per-rank solves: k=20
+    against the block's columns (H side) and rows (W side)."""
+    mb, nb = mesh_blocks()
+    return [(PBMC["k"], nb), (PBMC["k"], mb)]
+
+
+def mesh_cdb_cases(nmf_irls):
+    """Kernel 2's column blocks in the mesh fits' KL, CV and masked solves,
+    on both sides of a rank's block, cut as nmf_irls and nmf_cv cut them."""
+    mb, nb = mesh_blocks()
+    out = set()
+    for k in (KL_K, CV_K, MASK_K):
+        for rows, cols in ((mb, nb), (nb, mb)):
             bc = nmf_irls._block_count(cols, k, rows,
                                        kr=nmf_irls._use_kr(k, rows))
             out |= {(k, min(bc, cols - j0), 0.0, 0.0, False)
@@ -1052,7 +1146,7 @@ def check_cholesky_clip():
     all_equal = True
     cases = [(k, n) for k in CHOL_KS for n in CHOL_NS] + [
         (k, n) for k in CHOL_EDGE_KS for n in CHOL_EDGE_NS] + \
-        STREAM_CHOL_CASES + GRAPH_CHOL_CASES
+        STREAM_CHOL_CASES + GRAPH_CHOL_CASES + mesh_chol_cases()
     for k, n in cases:
         G, B = chol_system(k, n, seed=k * 7919 + n)
         L = torch.linalg.cholesky(G)
@@ -2462,6 +2556,305 @@ def graph_phase(rtt, card, counted, reset_counts, kernels, A_ct):
     return times, launches
 
 
+# ---------------------------------------------------------------------------
+# The device mesh (phase 31)
+# ---------------------------------------------------------------------------
+
+def kernel_wrappers():
+    """The eight kernel wrappers by name, each with its ``launches``."""
+    from rcppml_tpu_torch.ops import (cd_nnls, cd_nnls_batched,
+                                      cholesky_clip, fused_als, rhs_tall,
+                                      weighted_gram, wgram)
+    return {"cd_nnls_shared": cd_nnls.cd_nnls_shared,
+            "cd_nnls_batched": cd_nnls_batched.cd_nnls_batched,
+            "weighted_gram_rhs": wgram.weighted_gram_rhs,
+            "fused_als": fused_als.fused_als,
+            "rhs_tall": rhs_tall.rhs_tall, "rhs_tall_t": rhs_tall.rhs_tall_t,
+            "weighted_gram": weighted_gram.weighted_gram,
+            "cholesky_clip": cholesky_clip.cholesky_clip}
+
+
+def mesh_fit(rtt, data, label, mesh=None):
+    """The MESH_FITS call ``label`` on the host arrays of ``data`` (``A``,
+    ``counts``, ``mask``), on ``mesh`` or on the card alone."""
+    matrix, k, kw = MESH_FITS[label]
+    kw = dict(kw)
+    mask = data["mask"] if kw.pop("masked", False) else None
+    return rtt.nmf(data[matrix], k, mask=mask, mesh=mesh, **kw)
+
+
+def result_digest(res) -> str:
+    """A SHA-256 of a result's factors and histories (bit for bit)."""
+    import hashlib
+    h = hashlib.sha256()
+    for name in ("W", "d", "H", "loss_history", "test_loss_history"):
+        val = getattr(res, name, None)
+        if val is not None:
+            h.update(np.ascontiguousarray(val).tobytes())
+    return h.hexdigest()
+
+
+def mesh_rank(rank, init_file, data_dir, out_dir):
+    """One rank of phase 31 (b), started by ``torch.multiprocessing`` with
+    the spawn method: joins the gloo group of MESH_RANKS ranks, all on card
+    0, and runs every MESH_FITS call on MESH_SHAPE from the host matrices
+    in ``data_dir`` (memory-mapped: a rank copies only its block to the
+    card).  Each fit runs twice: timed on the host clock, then under
+    ``torch.profiler`` for the device time of this rank's kernels.  Rank 0
+    gathers every rank's launches, times and result digest and writes them,
+    with its own results, to ``out_dir``."""
+    import warnings
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    # one profile a fit: the warning about cycles of a schedule is not ours
+    warnings.filterwarnings("ignore", message=".*Profiler clears events")
+
+    import rcppml_tpu_torch as rtt
+    from rcppml_tpu_torch.parallel import multihost
+    torch.cuda.set_device(0)
+    rtt.set_fp32_precision()
+    os.environ.pop("RCPPML_FUSED_WGRAM", None)
+    multihost.initialize(init_method=f"file://{init_file}",
+                         num_processes=MESH_RANKS, process_id=rank,
+                         backend="gloo", device="cuda:0")
+    mesh = rtt.default_mesh(shape=MESH_SHAPE)
+    ready = time.time()
+    wrappers = kernel_wrappers()
+    data = {name: np.load(os.path.join(data_dir, f"{name}.npy"),
+                          mmap_mode="r") for name in ("A", "counts", "mask")}
+    report = {}
+    for label in MESH_FITS:
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = mesh_fit(rtt, data, label, mesh)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        dist.barrier()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            mesh_fit(rtt, data, label, mesh)
+            torch.cuda.synchronize()
+        device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA) / 1e3
+        mine = {"launches": launches, "wall_s": wall_s,
+                "device_ms": device_ms, "digest": result_digest(res),
+                "inner": res.misc.get("irls_inner_iterations"),
+                "host_syncs": res.misc.get("host_syncs")}
+        every = [None] * MESH_RANKS
+        dist.all_gather_object(every, mine)
+        report[label] = every
+        if rank == 0:
+            np.savez(os.path.join(out_dir, f"fit{list(MESH_FITS).index(label)}"
+                                  ".npz"),
+                     **{name: np.asarray(getattr(res, name))
+                        for name in ("W", "d", "H", "loss_history",
+                                     "test_loss_history")
+                        if getattr(res, name, None) is not None},
+                     train_loss=res.train_loss, test_loss=res.test_loss,
+                     iterations=res.iterations)
+    if rank == 0:
+        with open(os.path.join(out_dir, "report.json"), "w") as f:
+            json.dump({"ready": ready, "fits": report}, f)
+    dist.destroy_process_group()
+
+
+def mesh_phase_one_rank(rtt, counted, reset_counts, chol, cd_shared, A_pb,
+                        res_ch, res_cd):
+    """Phase 31 (a): the (1, 1) mesh at world size 1 over NCCL.  The fits
+    are bit for bit the plain ones of phases 4 and 5, with the same
+    launches (no collective runs on an axis of one rank).  Returns the
+    launches by label."""
+    import socket
+    import torch.distributed as dist
+    from rcppml_tpu_torch.parallel import multihost
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    info = multihost.initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        check(info["backend"] == "nccl" and info["process_count"] == 1,
+              f"a one-rank NCCL group on the card: {info}")
+        probe = torch.arange(4, dtype=torch.float32, device="cuda")
+        dist.all_reduce(probe)
+        torch.cuda.synchronize()
+        check(probe.tolist() == [0.0, 1.0, 2.0, 3.0],
+              "an all-reduce over the one-rank NCCL group")
+        mesh = rtt.default_mesh(health_check=True)
+        check(mesh.shape == {"rows": 1, "cols": 1},
+              f"the default mesh of one rank: {mesh.shape}")
+        launches = {}
+        for label, plain, kernel, kw in (
+                ("MSE default k=20", res_ch, chol, {}),
+                ("MSE CD k=20", res_cd, cd_shared, {"solver": "cd"})):
+            reset_counts()
+            res = rtt.nmf(A_pb, PBMC["k"], maxit=MAXIT, tol=0, seed=1,
+                          mesh=mesh, **kw)
+            launches[label] = kernel.launches
+            check(kernel.launches == 2 * MAXIT and sum(
+                fn.launches for fn in counted) == kernel.launches,
+                f"{label} on the (1, 1) mesh: {2 * MAXIT} launches of "
+                f"{kernel.__name__} and no other: {kernel.launches}")
+            check(same_factors(res, plain) and np.array_equal(
+                res.loss_history, plain.loss_history),
+                f"{label} on the (1, 1) mesh is the plain fit bit for bit")
+            print(f"(a) {label}, (1, 1) mesh over NCCL: {kernel.launches} "
+                  f"launches of {kernel.__name__}; W, d, H and the loss "
+                  f"history bit for bit the plain fit's", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def mesh_gaps(res, ref, tr, label):
+    """(gap, bar, what, W error, H error) of a mesh fit's result ``res``
+    (a dict of arrays) against the single-card fit ``ref``, with the bars of
+    ``label``'s kind."""
+    W_err = float(np.abs(res["W"] - ref.W).max() / np.abs(ref.W).max())
+    H_err = float(np.abs(res["H"] - ref.H).max() / np.abs(ref.H).max())
+    if label.startswith(("CV", "masked")):
+        gap = abs(float(res["test_loss"]) / ref.test_loss - 1)
+        return gap, MESH_CV_RTOL, "test loss, relative", W_err, H_err
+    if label.startswith("KL"):
+        gap = abs(float(res["train_loss"]) / ref.train_loss - 1)
+        return gap, MESH_IRLS_RTOL, "loss, relative", W_err, H_err
+    gap = abs(float(res["train_loss"]) - ref.train_loss) / tr
+    return gap, MESH_LOSS_TR, "loss over tr(A'A)", W_err, H_err
+
+
+def mesh_phase_ranks(rtt, card, refs, order_refs, A_pb, A_ct, M_pb):
+    """Phase 31 (b): MESH_RANKS ranks sharing the card over gloo, a
+    MESH_SHAPE mesh at the pbmc3k shape.  ``refs``: the single-card fit of
+    each MESH_FITS label; ``order_refs``: for MESH_REORDERED, the
+    single-card fit with its sums in the mesh's order (mesh_order_fit).
+    Checks each rank's launches, that every rank returned the same result,
+    and rank 0's result against the single-card fit (in the mesh's order
+    where there is one); prints the times.  Returns {kernel: {label:
+    launches per rank}}."""
+    import tempfile
+    import torch.multiprocessing as mp
+    mb, nb = mesh_blocks()
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, t in (("A", A_pb), ("counts", A_ct), ("mask", M_pb)):
+            np.save(os.path.join(tmp, f"{name}.npy"), t.cpu().numpy())
+        t0, spawned = time.perf_counter(), time.time()
+        ctx = mp.start_processes(
+            mesh_rank, args=(os.path.join(tmp, "store"), tmp, tmp),
+            nprocs=MESH_RANKS, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > MESH_TIMEOUT_S:
+                    raise RuntimeError(f"chip_smoke: the {MESH_RANKS} mesh "
+                                       f"ranks did not finish within "
+                                       f"{MESH_TIMEOUT_S:.0f} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join()
+        ranks_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "report.json")) as f:
+            report = json.load(f)
+        ready_s, report = report["ready"] - spawned, report["fits"]
+        got = {label: dict(np.load(os.path.join(tmp, f"fit{i}.npz")))
+               for i, label in enumerate(MESH_FITS)}
+    print(f"(b) {MESH_RANKS} ranks, gloo on one card ({card}), mesh "
+          f"{MESH_SHAPE}, blocks of {mb} x {nb}: {ranks_s:.1f} s from spawn "
+          f"to join, the mesh ready after {ready_s:.1f} s", flush=True)
+    launches_by, failed = {}, []
+    A64 = A_pb.double()
+    tr = float((A64 * A64).sum())
+    for label, every in report.items():
+        plain = refs[label]
+        k = MESH_FITS[label][1]
+        digests = {r["digest"] for r in every}
+        check(len(digests) == 1, f"{label}: every rank returns the same "
+              f"result ({len(digests)} digests)")
+        maxit = MESH_FITS[label][2]["maxit"]
+        expect = {}
+        if label.startswith("MSE"):
+            expect["cd_nnls_shared" if "CD" in label else "cholesky_clip"] \
+                = 2 * maxit
+            if "bf16" in label:
+                expect["rhs_tall"] = expect["rhs_tall_t"] = maxit
+        for rank, r in enumerate(every):
+            want = dict(expect)
+            if label.startswith("KL"):
+                want["cd_nnls_batched"] = r["inner"]
+            elif not label.startswith("MSE"):
+                blocks = sum(-(-cols // _block_cols(k, rows, cols))
+                             for rows, cols in ((mb, nb), (nb, mb)))
+                want["cd_nnls_batched"] = blocks * maxit
+            nonzero = {name: n for name, n in r["launches"].items() if n}
+            check(nonzero == want, f"{label}, rank {rank}: launches "
+                  f"{nonzero}, expected {want}")
+        for name, n in every[0]["launches"].items():
+            if n:
+                launches_by.setdefault(name, {})[
+                    f"mesh {MESH_SHAPE} {label}, per rank"] = [
+                        r["launches"][name] for r in every]
+        res = got[label]
+        held = order_refs.get(label, plain)
+        gap, bar, what, W_err, H_err = mesh_gaps(res, held, tr, label)
+        against = ("the single card in the mesh's order"
+                   if label in order_refs else "the single card")
+        same = all(np.array_equal(res[f], getattr(held, f)) for f in "WdH")
+        bits = "; W, d, H bit for bit" if same else ""
+        print(f"  {label}, against {against}: {what} {gap:.2e} (bar "
+              f"{bar:g}), W {W_err:.2e}, H {H_err:.2e} of the largest entry "
+              f"(bar {STREAM_W_TOL:g}){bits}"
+              f"; W after matching columns "
+              f"{matched_err(res['W'], held.W):.2e}; "
+              f"launches per rank "
+              f"{ {n: v for n, v in every[0]['launches'].items() if v} }; "
+              f"wall {max(r['wall_s'] for r in every):.2f} s (slowest "
+              f"rank), device ms per rank "
+              f"{[round(r['device_ms'], 1) for r in every]} (gloo on one "
+              f"card, {card})", flush=True)
+        hist = np.abs(np.asarray(res["loss_history"], np.float64)
+                      / np.asarray(held.loss_history, np.float64) - 1)
+        print(f"    loss history against {against}, relative: "
+              f"{' '.join(f'{v:.1e}' for v in hist)}", flush=True)
+        if label in order_refs:
+            spread = mesh_gaps(res, plain, tr, label)
+            print(f"    against the plain single-card fit (its own order of "
+                  f"sums, not held): {what} {spread[0]:.2e}, W "
+                  f"{spread[3]:.2e}, H {spread[4]:.2e}; the single card in "
+                  f"the mesh's order against it: "
+                  f"{mesh_gaps(vars(held), plain, tr, label)[0]:.2e}",
+                  flush=True)
+        if int(res["iterations"]) != held.iterations:
+            failed.append(f"{label}: {int(res['iterations'])} iterations, "
+                          f"the single card {held.iterations}")
+        if gap > bar:
+            failed.append(f"{label}: {what} {gap:.3g} past {bar:g}")
+        if W_err > STREAM_W_TOL or H_err > STREAM_W_TOL:
+            failed.append(f"{label}: W, H {W_err:.3g}, {H_err:.3g} of the "
+                          f"largest entry past {STREAM_W_TOL}")
+    check(not failed, "every mesh fit within its bars of the single-card "
+          "fit: " + "; ".join(failed))
+    return launches_by
+
+
+def matched_err(W, V):
+    """The largest entry of W - V over V's largest, after each column of W
+    is matched with its closest column of V (the factors' order is free)."""
+    W, V = np.asarray(W, np.float64), np.asarray(V, np.float64)
+    cos = (W / np.linalg.norm(W, axis=0)).T @ (V / np.linalg.norm(V, axis=0))
+    return float(np.abs(W - V[:, np.argmax(cos, axis=1)]).max()
+                 / np.abs(V).max())
+
+
+def _block_cols(k, rows, cols):
+    """The column block width of a per-column-Gram solve (nmf_irls)."""
+    from rcppml_tpu_torch.models import nmf_irls
+    return nmf_irls._block_count(cols, k, rows, kr=nmf_irls._use_kr(k, rows))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
@@ -2528,6 +2921,8 @@ def main():
     err_shared = check_cd_kernel(cd_shared, cd_nnls.cd_nnls_shared_plain,
                                  cd_nnls.plan_cd, cd_system,
                                  CD_CASES + STREAM_CD_CASES
+                                 + [(k, n, 0.0, 0.0, False)
+                                    for k, n in mesh_chol_cases()]
                                  + GRAPH_CD_CASES)
 
     phase("4 MSE path, CD solver")
@@ -2605,7 +3000,8 @@ def main():
                                   cd_nnls_batched.cd_nnls_batched_plain,
                                   cd_nnls_batched.plan_cd, cd_batched_system,
                                   CDB_CASES + stream_cdb_cases(nmf_irls)
-                                  + graph_cdb_cases(nmf_irls))
+                                  + graph_cdb_cases(nmf_irls)
+                                  + mesh_cdb_cases(nmf_irls))
 
     phase("7 fused weight + Gram + RHS kernel against its plain twin "
           f"(within {WGRAM_RTOL} of the twin's largest entry)")
@@ -2777,6 +3173,9 @@ def main():
     A_rhs = {label: torch.from_numpy((rs.rand(*shape) * (rs.rand(*shape) < 0.3))
                                      .astype(np.float32)).cuda()
              for label, shape in rhs_shapes.items()}
+    # a rank's block of phase 31's bf16_data fit, where kernels 7 and 8 run
+    mb, nb = mesh_blocks()
+    A_rhs[f"pbmc3k mesh {MESH_SHAPE} block"] = A_pb[:mb, :nb].contiguous()
     errs_rhs = check_rhs_kernels({"movielens": A_ml, "pbmc3k": A_pb, **A_rhs})
     for name, (err, rel) in errs_rhs.items():
         print(f"{name}, largest float32 error: {rel:.3e} relative, "
@@ -3573,6 +3972,23 @@ def main():
     _, graph_launches = graph_phase(rtt, card, counted, reset_counts,
                                     kernels, A_ct)
     print(f"phase 30: {time.perf_counter() - t_new:.1f} s", flush=True)
+    t_new = time.perf_counter()
+    phase(f"31 the device mesh at the pbmc3k shape: (a) the (1, 1) mesh "
+          f"over NCCL, (b) {MESH_RANKS} ranks sharing the card over gloo, "
+          f"mesh {MESH_SHAPE}")
+    mesh_one = mesh_phase_one_rank(rtt, counted, reset_counts, chol,
+                                   cd_shared, A_pb, res_ch, res_cd)
+    mesh_data = {"A": A_pb, "counts": A_ct, "mask": M_pb}
+    refs = {"MSE default k=20": res_ch, "MSE CD k=20": res_cd,
+            "MSE bf16_data k=20": res_bf, f"KL k={KL_K}": res_kl,
+            f"CV k={CV_K} CD": res_cv_cd,
+            f"masked k={MASK_K} CD": mesh_fit(rtt, mesh_data,
+                                              f"masked k={MASK_K} CD")}
+    order_refs = {label: mesh_order_fit(mesh_data, label, refs[label])
+                  for label in MESH_REORDERED}
+    mesh_launches = mesh_phase_ranks(rtt, card, refs, order_refs, A_pb,
+                                     A_ct, M_pb)
+    print(f"phase 31: {time.perf_counter() - t_new:.1f} s", flush=True)
 
     # launches of each kernel on the paths after phase 16, each counted
     # from zero
@@ -3593,6 +4009,11 @@ def main():
     for name, by_path in stream_launches.items():
         path_launches[name].update(by_path)
     for name, by_path in graph_launches.items():
+        path_launches[name].update(by_path)
+    for label, n in mesh_one.items():
+        name = "cd_nnls_shared" if "CD" in label else "cholesky_clip"
+        path_launches[name][f"mesh (1, 1) NCCL {label}"] = n
+    for name, by_path in mesh_launches.items():
         path_launches[name].update(by_path)
 
     def entry(name, source, replaces, launches, err, rel, key,

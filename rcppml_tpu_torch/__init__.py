@@ -65,8 +65,12 @@ is too large for the Khatri-Rao product, and the shared-Gram Cholesky solve +
 clip (``csrc/cholesky_clip.cu``), the solve of every default MSE fit.
 
 Entry points run on the CUDA card unless the caller asks for ``device="cpu"``
-or passes a CPU tensor.  Still raising ``NotImplementedError`` with its
-ROADMAP.md item, or absent: meshes (``mesh=``, ``default_mesh``).
+or passes a CPU tensor.  A device mesh over ``torch.distributed``
+(``parallel/``: ``default_mesh``, ``multihost.initialize``,
+``multihost.shard_host_data``) runs ``nmf(..., mesh=)`` with one process a
+rank: MSE, IRLS, cross-validated and masked fits.  Still raising
+``NotImplementedError`` with its ROADMAP.md item: checkpointed fits,
+streaming and the graph engine under a mesh.
 
 It imports ``torch`` and never ``jax``; kernels are built with ``nvcc`` at
 first use, never at import.
@@ -92,6 +96,7 @@ from .models.graph import (GlobalConfig, H, W, cross_validate_graph,
                            factor_shared, fit, nmf_layer, svd_layer)
 from .models.project import evaluate, mse, nnls, nnls_streaming, predict
 from .models.svd import pca, streaming_svd, svd
+from .parallel.mesh import default_mesh
 from .result import NMFResult, SVDResult
 from .rng import r_binom, r_matrix, r_sample, r_sparsematrix, r_unif
 from .utils.diagnostics import (auto_nmf_distribution, diagnose_dispersion,
@@ -167,4 +172,4 @@ __all__ = ["nmf", "build_config", "svd", "pca", "nnls", "predict",
            "gpu_info", "set_verbosity", "get_verbosity", "LogLevel",
            "streaming_svd", "nnls_streaming", "load_data",
            "select_resources", "datasets", "st_read_gpu", "st_free_gpu",
-           "st_free_device", *_ST_NAMES, *_GRAPH_NAMES]
+           "st_free_device", "default_mesh", *_ST_NAMES, *_GRAPH_NAMES]

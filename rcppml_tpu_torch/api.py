@@ -38,8 +38,14 @@ engine (``models/nmf_chunked.py``), on the card unless ``device="cpu"``;
 other file paths load in memory through ``load_data``.  A list or dict of
 matrices with the same columns is a multi-modal fit: a shared-H
 ``factor_net`` (``models/graph.py``) whose W comes back split per input.
-``mesh=`` is not ported yet and raises ``NotImplementedError`` naming its
-ROADMAP.md item; it never falls back silently.  ``checkpoint_path=`` runs
+``mesh=`` (a ``parallel.mesh.Mesh``, every rank of it calling ``nmf`` with
+the same arguments) fits each rank's (rows, cols) block of A and returns
+the whole result on every rank: MSE, IRLS, cross-validated and masked fits
+(``parallel/mesh.py``); with ``checkpoint_path=`` or streaming it raises
+``NotImplementedError`` naming its ROADMAP.md item, and it never falls back
+silently.  As in the JAX package, a mesh fit runs the plain loop:
+``on_iteration`` is taken and never called, and ``profile=True`` times no
+MSE section.  ``checkpoint_path=`` runs
 the dense fit (MSE or IRLS) in segments of ``checkpoint_every`` iterations,
 writing the whole state after each and resuming from the file when it
 exists (``utils/checkpoint.py``).
@@ -487,6 +493,48 @@ def _nmf_streaming(data, k, is_spz: bool, *, mask, graph_W, graph_H, w_init,
                        checkpoint_every=checkpoint_every, device=device)
 
 
+def _aux_arrays(cfg, graph_W, graph_H, target_H, target_W) -> dict:
+    """The dense auxiliary arrays of a fit: graph Laplacians, targets and
+    the PROJ_ADV target Grams."""
+    aux = {}
+    if graph_W is not None:
+        aux["graph_W"] = _to_dense_f32(graph_W)
+    if graph_H is not None:
+        aux["graph_H"] = _to_dense_f32(graph_H)
+    for side, target in (("H", target_H), ("W", target_W)):
+        if target is None:
+            continue
+        t = _to_dense_f32(target)
+        aux[f"target_{side}"] = t
+        if getattr(cfg, side).target_lambda < 0:
+            # PROJ_ADV precompute: T @ T.T / n (nmf/fit.hpp:250-274)
+            aux[f"target_{side}_gram"] = (t @ t.T) / t.shape[1]
+    return aux
+
+
+def _nmf_sharded_input(data, k, mesh, *, mask, graph_W, graph_H, target_H,
+                       target_W, w_init, h_init, device, kwargs):
+    """``nmf`` of a ``parallel.mesh.ShardedMatrix`` (no rank holds the whole
+    matrix): the plain sharded fit, without a mask or a holdout (those
+    read the whole matrix; pass the host matrix for them)."""
+    from .parallel.mesh import fit_sharded
+    if not np.isscalar(k) or isinstance(k, str):
+        raise ValueError("a ShardedMatrix fits one integer rank")
+    if (mask is not None or kwargs.get("mask_zeros")
+            or float(kwargs.get("test_fraction", 0) or 0)):
+        raise ValueError("a ShardedMatrix fits without mask= or "
+                         "test_fraction=; pass the host matrix for those")
+    cfg = build_config(int(k), has_graph_W=graph_W is not None,
+                       has_graph_H=graph_H is not None,
+                       has_target_H=target_H is not None,
+                       has_target_W=target_W is not None, **kwargs)
+    res = fit_sharded(data, cfg, mesh, w_init=w_init, h_init=h_init,
+                      aux=_aux_arrays(cfg, graph_W, graph_H, target_H,
+                                      target_W), device=device)
+    res.misc["config"] = cfg
+    return res
+
+
 def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
         target_W=None, w_init=None, h_init=None, streaming=False,
         chunk_cols=None, on_iteration=None, mesh=None,
@@ -558,13 +606,25 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
     if kwargs.pop("sparse", False):
         # R sparse=TRUE: treat zeros as missing (R/parse_dots.R:65)
         kwargs.setdefault("mask_zeros", True)
-    if mesh is not None:
-        raise unported("mesh=", "Queue 1 item 14")
     # streaming / out-of-core dispatch (nmf/fit_streaming_spz.hpp:54)
     is_spz = isinstance(data, str) and data.endswith(".spz")
+    from .parallel.mesh import ShardedMatrix
+    if isinstance(data, ShardedMatrix) and mesh is None:
+        mesh = data.mesh        # no rank holds the matrix: fit on its mesh
+    if mesh is not None:
+        if checkpoint_path is not None:
+            raise unported("checkpoint_path= with mesh=",
+                           "Queue 1 item 14b")
+        if is_spz or streaming:
+            raise unported("mesh= (sharded streaming)", "Queue 1 item 14b")
+        if isinstance(data, ShardedMatrix):
+            return _nmf_sharded_input(
+                data, k, mesh, mask=mask, graph_W=graph_W, graph_H=graph_H,
+                target_H=target_H, target_W=target_W, w_init=w_init,
+                h_init=h_init, device=device, kwargs=kwargs)
     to_card = (torch.device(device).type == "cuda" if device is not None
                else torch.cuda.is_available())
-    if (not is_spz and not streaming and to_card
+    if (not is_spz and not streaming and to_card and mesh is None
             and not isinstance(data, (str, torch.Tensor))
             and hasattr(data, "shape") and np.isscalar(k)):
         # switch to streaming when the dense fp32 matrix cannot fit the
@@ -643,20 +703,7 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
     # and never called, as in the JAX package (its nmf_fit returns the IRLS
     # fit before the callback branch; fit_cv_or_masked takes none)
     masked = cfg.is_cv() or mask is not None
-
-    aux = {}
-    if graph_W is not None:
-        aux["graph_W"] = _to_dense_f32(graph_W)
-    if graph_H is not None:
-        aux["graph_H"] = _to_dense_f32(graph_H)
-    for side, target in (("H", target_H), ("W", target_W)):
-        if target is None:
-            continue
-        t = _to_dense_f32(target)
-        aux[f"target_{side}"] = t
-        if getattr(cfg, side).target_lambda < 0:
-            # PROJ_ADV precompute: T @ T.T / n (nmf/fit.hpp:250-274)
-            aux[f"target_{side}_gram"] = (t @ t.T) / t.shape[1]
+    aux = _aux_arrays(cfg, graph_W, graph_H, target_H, target_W)
 
     verbose = cfg.verbose or None
     logmod.log_summary(
@@ -680,7 +727,12 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
         from .models.nmf_cv import fit_cv_or_masked
         res = fit_cv_or_masked(A, cfg, mask=mask, aux=aux, w_init=w_init,
                                h_init=h_init, sparse_zeros=sparse_input,
-                               device=device)
+                               mesh=mesh, device=device)
+    elif mesh is not None:
+        # the JAX package's mesh branch: the plain loop, no callback
+        from .parallel.mesh import fit_sharded
+        res = fit_sharded(A, cfg, mesh, w_init=w_init, h_init=h_init,
+                          aux=aux, sparse_zeros=sparse_input, device=device)
     else:
         res = nmf_fit(A, cfg, w_init=w_init, h_init=h_init, aux=aux,
                       device=device, sparse_zeros=sparse_input,

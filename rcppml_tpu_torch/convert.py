@@ -51,6 +51,18 @@ def state_from_numpy(W_T, H, d, *, device, max_iter: int) -> FitState:
                           W_T, H, d, device=device)
 
 
+def shard_state_from_numpy(W_T, H, d, ctx, *, device,
+                           max_iter: int) -> FitState:
+    """Whole numpy factors (W_T (k, m), H (k, n), d (k,)), for example the
+    JAX package's sharded initial state gathered to the host, laid onto one
+    rank's block: W_T's columns of its row block and H's of its column
+    block, zero-padded past the true (m, n), as the port's FitState before
+    its first iteration on ``device``.  ``ctx``: the rank's
+    ``parallel.mesh.ShardContext``."""
+    return state_from_numpy(ctx.row_block(W_T), ctx.col_block(H), d,
+                            device=device, max_iter=max_iter)
+
+
 def irls_state_from_numpy(W_T, H, d, *, disp_row, disp_col, pi_row, pi_col,
                           A_imp, device, max_iter: int,
                           it: int = 0) -> IRLSState:

@@ -27,7 +27,7 @@ Execution (graph/fit.hpp):
 Results are host numpy arrays, as in ``NMFResult``.  ``fit``,
 ``cross_validate_graph`` and ``GraphResult.predict`` run on the CUDA card
 unless given ``device="cpu"`` or CPU tensors; without a card they raise.
-``mesh=`` raises ``NotImplementedError`` (ROADMAP.md queue 1 item 14).
+``mesh=`` raises ``NotImplementedError`` (ROADMAP.md queue 1 item 14b).
 """
 
 from __future__ import annotations
@@ -738,7 +738,7 @@ class FactorNet:
         if not self._compiled:
             self.compile()
         if mesh is not None:
-            raise unported("mesh=", "Queue 1 item 14")
+            raise unported("mesh=", "Queue 1 item 14b")
 
         # materialize data-bearing nodes once; then the device (everything
         # that needs none is checked by now)
@@ -948,7 +948,7 @@ def fit(net: FactorNet, *, logger=None, mesh=None, device=None) -> GraphResult:
     (R/factor_methods.R fit.factor_net logger wiring).  ``device``: where
     the fit runs (by default the net's, else a tensor input's device, else
     the CUDA card: without one it raises).  ``mesh=`` is not ported
-    (ROADMAP.md queue 1 item 14)."""
+    (ROADMAP.md queue 1 item 14b)."""
     return net.fit(logger=logger, mesh=mesh, device=device)
 
 

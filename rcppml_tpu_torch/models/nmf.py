@@ -34,6 +34,7 @@ from ..device import set_fp32_precision
 from ..ops import features as feat
 from ..ops import fused_als as fused_mod
 from ..ops import linalg, solvers
+from ..parallel.mesh import NO_AXIS
 from ..result import NMFResult
 
 
@@ -77,18 +78,23 @@ def _solve(cfg: NMFConfig, G, B, X_warm, fc, it: int):
         maxit=cfg.cd_max_iter, cd_tol=cfg.cd_tol)
 
 
-def _posthoc(X, fc):
+def _posthoc(X, fc, axis=NO_AXIS):
     """Post-NNLS upper bound + angular decorrelation (fit_cpu.hpp:637-645)."""
     if fc.upper_bound > 0:
         X = feat.apply_upper_bound(X, fc.upper_bound)
     if fc.angular > 0:
-        X = feat.apply_angular_posthoc(X, fc.angular)
+        X = feat.apply_angular_posthoc(X, fc.angular, axis)
     return X
 
 
-def make_updates(cfg: NMFConfig, aux: dict):
+def make_updates(cfg: NMFConfig, aux: dict, ctx=None):
     """Build the H-update / W-update / loss functions for one config
-    (standard, projective and symmetric variants)."""
+    (standard, projective and symmetric variants).
+
+    ``ctx``: a ``parallel.mesh.ShardContext`` when A, W_T and H are one
+    rank's blocks of a sharded fit: the H side's Gram and RHS sum over
+    "rows", the W side's over "cols", each factor's row norms over its own
+    axis, the loss over both.  Without it every sum is the local one."""
     graph_W = aux.get("graph_W")
     graph_H = aux.get("graph_H")
     target_H = aux.get("target_H")
@@ -96,48 +102,60 @@ def make_updates(cfg: NMFConfig, aux: dict):
     target_W = aux.get("target_W")
     target_W_gram = aux.get("target_W_gram")
     use_saved_loss = not (cfg.projective or cfg.symmetric)
+    rows = ctx.rows if ctx is not None else NO_AXIS  # W_T's columns
+    cols = ctx.cols if ctx is not None else NO_AXIS  # H's columns
 
     def h_update(A, W_T, H, d, it):
         if cfg.projective:
             # H = diag(d) . W_T . A, no solve (variant_helpers.hpp:321-338)
-            H_new = linalg.rhs(W_T * d[:, None], A)
-            return linalg.extract_scaling(H_new, cfg.norm)
+            H_new = rows.sum(linalg.rhs(W_T * d[:, None], A))
+            return linalg.extract_scaling(H_new, cfg.norm, cols)
         if cfg.symmetric:
             return H, d  # set after W-update (variant_helpers.hpp:56)
-        G = linalg.gram(W_T)
-        B = linalg.rhs(W_T, A)
+        G = linalg.gram(W_T, rows)
+        B = rows.sum(linalg.rhs(W_T, A))
         G, B = feat.apply_features(G, B, H, cfg.H, graph=graph_H,
-                                   target=target_H, target_gram=target_H_gram)
-        H_new = _posthoc(_solve(cfg, G, B, H, cfg.H, it), cfg.H)
-        return linalg.extract_scaling(H_new, cfg.norm)
+                                   target=target_H, target_gram=target_H_gram,
+                                   axis=cols)
+        H_new = _posthoc(_solve(cfg, G, B, H, cfg.H, it), cfg.H, cols)
+        return linalg.extract_scaling(H_new, cfg.norm, cols)
 
     def w_update(A, W_T, H, d, it):
         """Returns (W_T, H, d, B_w_saved, G_w_saved)."""
         if cfg.symmetric:
-            # A ~ W'.diag(d).W — one update on the W side (fit_cpu.hpp:657-705)
-            G = linalg.gram(W_T)
-            B = linalg.rhs(W_T, A)
+            # A ~ W'.diag(d).W — one update on the W side
+            # (fit_cpu.hpp:657-705); the solve is over A's columns, so under
+            # a mesh the new factor is split over "cols" and its row blocks
+            # are gathered from it
+            G = linalg.gram(W_T, rows)
+            B = rows.sum(linalg.rhs(W_T, A))
             G, B = feat.apply_features(G, B, W_T, cfg.W, graph=graph_W,
                                        target=target_W,
-                                       target_gram=target_W_gram)
-            W_new = _posthoc(_solve(cfg, G, B, W_T, cfg.W, it), cfg.W)
-            W_new, d_new = linalg.extract_scaling(W_new, cfg.norm)
-            return W_new, W_new, d_new, None, None
-        G_w = linalg.gram(H)                                   # saved pre-features
-        B_w = linalg.rhs(H, A.T)                               # saved pre-features
+                                       target_gram=target_W_gram, axis=rows)
+            W_new = _posthoc(_solve(cfg, G, B, H, cfg.W, it), cfg.W, cols)
+            W_new, d_new = linalg.extract_scaling(W_new, cfg.norm, cols)
+            W_rows = W_new if ctx is None else ctx.cols_to_rows(W_new)
+            return W_rows, W_new, d_new, None, None
+        G_w = linalg.gram(H, cols)                     # saved pre-features
+        B_w = cols.sum(linalg.rhs(H, A.T))             # saved pre-features
         G, B = feat.apply_features(G_w, B_w, W_T, cfg.W, graph=graph_W,
-                                   target=target_W, target_gram=target_W_gram)
-        W_new = _posthoc(_solve(cfg, G, B, W_T, cfg.W, it), cfg.W)
-        W_new, d_new = linalg.extract_scaling(W_new, cfg.norm)
+                                   target=target_W, target_gram=target_W_gram,
+                                   axis=rows)
+        W_new = _posthoc(_solve(cfg, G, B, W_T, cfg.W, it), cfg.W, rows)
+        W_new, d_new = linalg.extract_scaling(W_new, cfg.norm, rows)
         return W_new, H, d_new, B_w, G_w
 
     def compute_loss(trAtA, A, W_T, H, d, B_w, G_w):
         if use_saved_loss:
             # saved-matrix Gram-trick loss (fit_cpu.hpp:1710-1753)
-            return linalg.mse_loss_from_saved(trAtA, W_T, d, B_w, G_w)
-        W_Td = W_T * d[:, None]
-        return linalg.gram_trick_loss(trAtA, linalg.gram(W_Td),
-                                      linalg.rhs(W_Td, A), H)
+            loss = linalg.mse_loss_from_saved(trAtA, W_T, d, B_w, G_w, rows)
+        else:
+            W_Td = W_T * d[:, None]
+            loss = linalg.gram_trick_loss(
+                trAtA, linalg.gram(W_Td, rows),
+                rows.sum(linalg.rhs(W_Td, A)), H, cols)
+        # every rank takes rank 0's value: the convergence test reads it
+        return loss if ctx is None else ctx.agree(loss)
 
     return h_update, w_update, compute_loss
 
@@ -164,26 +182,30 @@ def init_fit_state(cfg: NMFConfig, W_T0, H0, d0, *,
     )
 
 
-def loop_operands(cfg: NMFConfig, A: torch.Tensor):
+def loop_operands(cfg: NMFConfig, A: torch.Tensor, ctx=None):
     """What the loop needs of A: tr(A'A), always from the float32 matrix
-    (fit_cpu.hpp:224), and the matrix its products read, bfloat16 with
-    ``bf16_data`` (half the bytes of the dominant operand; the loss
-    bookkeeping stays float32)."""
+    (fit_cpu.hpp:224; under a mesh summed over every block), and the matrix
+    its products read, bfloat16 with ``bf16_data`` (half the bytes of the
+    dominant operand; the loss bookkeeping stays float32)."""
     trAtA = (A * A).sum()
+    if ctx is not None:
+        trAtA = ctx.sum_all(trAtA)
     return trAtA, (A.to(torch.bfloat16) if cfg.bf16_data else A)
 
 
 def fit_mse(cfg: NMFConfig, A: torch.Tensor, state: FitState,
             aux: Optional[dict] = None, seg_end: Optional[int] = None,
-            operands=None) -> FitState:
+            operands=None, ctx=None) -> FitState:
     """Run the dense MSE ALS loop from ``state`` to convergence or
     ``cfg.max_iter`` (the port of ``_fit_mse`` / ``_mse_loop``).  With
     ``seg_end`` the loop stops after that many iterations in all, and a later
     call carries on from the returned state (``_fit_mse_seg``);
     ``operands`` is :func:`loop_operands` of A, for a caller that runs many
-    segments."""
-    h_update, w_update, compute_loss = make_updates(cfg, aux or {})
-    trAtA, A = operands if operands is not None else loop_operands(cfg, A)
+    segments.  ``ctx``: the ``parallel.mesh.ShardContext`` of a sharded fit,
+    whose A and state are this rank's blocks (:func:`make_updates`)."""
+    h_update, w_update, compute_loss = make_updates(cfg, aux or {}, ctx)
+    trAtA, A = (operands if operands is not None
+                else loop_operands(cfg, A, ctx))
     bound = cfg.max_iter if seg_end is None else min(seg_end, cfg.max_iter)
     W_T, H, d, it = state.W_T, state.H, state.d, state.it
     prev_loss, patience_ctr = state.prev_loss, state.patience_ctr
@@ -510,18 +532,24 @@ def nmf_fit(A, cfg: NMFConfig, *, w_init=None, h_init=None,
 
 
 def finalize_result(cfg: NMFConfig, state: FitState,
-                    extra: Optional[dict] = None) -> NMFResult:
+                    extra: Optional[dict] = None, ctx=None) -> NMFResult:
     """Copy a FitState to a host NMFResult (fit_cpu.hpp:1827-1854).
     ``extra``: further result fields by name (the IRLS fit's ``theta``,
-    ``dispersion``, ``pi_row``, ``pi_col``)."""
+    ``dispersion``, ``pi_row``, ``pi_col``).  ``ctx``: a sharded fit's
+    ``ShardContext``; W's row blocks are gathered over "rows" and H's column
+    blocks over "cols", so that every rank returns the whole (padded)
+    factors."""
     def host(t):
         return t.detach().cpu().numpy()
 
+    W_T, H = state.W_T, state.H
+    if ctx is not None:
+        W_T, H = ctx.gather_rows(W_T), ctx.gather_cols(H)
     it = state.it
     res = NMFResult(
-        W=host(state.W_T).T,
+        W=host(W_T).T,
         d=host(state.d),
-        H=host(state.H),
+        H=host(H),
         iterations=it,
         converged=bool(state.converged),
         final_tol=float(state.final_tol),

@@ -335,7 +335,7 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
     an IRLS fit, ``inner_iters`` and ``host_syncs`` of its panel solves.
     ``mesh=`` is not ported."""
     if mesh is not None:
-        raise unported("mesh= (sharded streaming)", "Queue 1 item 14")
+        raise unported("mesh= (sharded streaming)", "Queue 1 item 14b")
     if isinstance(loader, (str, bytes)):
         loader = SpzLoader(loader)
     m, n = loader.shape

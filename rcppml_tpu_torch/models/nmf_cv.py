@@ -39,8 +39,9 @@ from ..config import Dispersion, Loss, NMFConfig, Solver, ZI
 from ..device import set_fp32_precision
 from ..ops import features as feat
 from ..ops import linalg, losses, solvers
+from ..parallel.mesh import NO_AXIS
 from ..result import NMFResult
-from .nmf import device_matrix, fit_device, init_factors, unported
+from .nmf import device_matrix, fit_device, init_factors
 from .nmf_irls import (_POWER_LOSSES, _block_count, _init_dispersion,
                        _posthoc, _use_kr, _zi_pi_init, gp_theta_update,
                        irls_solve_batch, nb_size_update, phi_update,
@@ -98,7 +99,7 @@ def _solve_block(Gb, b, cfg: NMFConfig, fc, X0, eye):
 
 
 def masked_mse_solve_batch(A_data, F, train_w, cfg: NMFConfig, fc, X_warm,
-                           G_add=None, target=None):
+                           G_add=None, target=None, axis=NO_AXIS):
     """MSE masked solve: per-column Gram over train entries only.
 
     A_data (m, nc), F (k, m), train_w (m, nc) 0/1.  Blocked batched solve;
@@ -110,7 +111,9 @@ def masked_mse_solve_batch(A_data, F, train_w, cfg: NMFConfig, fc, X_warm,
     every per-column Gram, the reference's apply_cv_features semantics
     (fit_cv.hpp:417,581).  ``target``: optional (k, nc) enrichment target
     (fc.target_lambda > 0): G.diag += lam, b += lam * T
-    (factor_config.hpp:80-102).
+    (factor_config.hpp:80-102).  ``axis``: under a mesh, the axis A_data's
+    rows are split over; each column's Gram and RHS are summed over it
+    before the solve.
     """
     k, m = F.shape
     n = A_data.shape[1]
@@ -122,6 +125,7 @@ def masked_mse_solve_batch(A_data, F, train_w, cfg: NMFConfig, fc, X_warm,
     def solve_block(lo: int, hi: int):
         Gb, b = linalg.weighted_gram_and_rhs(
             F, train_w[:, lo:hi], A_data[:, lo:hi], KR=KR)
+        Gb, b = axis.sum(Gb), axis.sum(b)
         Gb = Gb + (1e-15 + fc.L2) * eye[None]
         if G_add is not None:
             Gb = Gb + G_add[None]
@@ -135,7 +139,7 @@ def masked_mse_solve_batch(A_data, F, train_w, cfg: NMFConfig, fc, X_warm,
 
 
 def masked_downdate_solve_batch(B_full, F, G_feat, idx, val, cfg: NMFConfig,
-                                fc, X_warm, target=None):
+                                fc, X_warm, target=None, axis=NO_AXIS):
     """MSE masked solve via gathered per-column Gram downdates.
 
     ``B_full`` (k, n) = F @ (train .* A), one dense product; ``G_feat``
@@ -143,6 +147,9 @@ def masked_downdate_solve_batch(B_full, F, G_feat, idx, val, cfg: NMFConfig,
     = excluded-row indices + validity per column.  Equivalent to
     :func:`masked_mse_solve_batch` for 0/1 train weights, with about
     inv_prob times fewer operations (see linalg.gathered_gram_downdate).
+    ``axis``: under a mesh, the axis F's columns are split over (``B_full``
+    and ``G_feat`` are summed over it already); the downdates are summed
+    over it.
     """
     k, n = B_full.shape
     T = idx.shape[0]
@@ -151,8 +158,8 @@ def masked_downdate_solve_batch(B_full, F, G_feat, idx, val, cfg: NMFConfig,
 
     def solve_block(lo: int, hi: int):
         b = B_full[:, lo:hi]
-        Gb = G_feat[None] - linalg.gathered_gram_downdate(
-            F, idx[:, lo:hi], val[:, lo:hi])
+        dd = linalg.gathered_gram_downdate(F, idx[:, lo:hi], val[:, lo:hi])
+        Gb = G_feat[None] - axis.sum(dd)
         if target is not None:
             b = b + fc.target_lambda * target[:, lo:hi]
         return _solve_block(Gb, b, cfg, fc, X_warm[:, lo:hi], eye)
@@ -189,7 +196,7 @@ class _Weights:
 
 
 def build_weights(cfg: NMFConfig, A: torch.Tensor, masks: dict,
-                  sparse_zeros: bool, is_cv: bool) -> _Weights:
+                  sparse_zeros: bool, is_cv: bool, ctx=None) -> _Weights:
     """Train and test weights from the speckled hash (computed on A's
     device), the optional ``user_mask`` (m, n) bool and the optional
     ``rows_ok`` / ``cols_ok`` subsample vectors.
@@ -197,17 +204,20 @@ def build_weights(cfg: NMFConfig, A: torch.Tensor, masks: dict,
     User-masked entries leave both train and test accounting
     (fit_cv.hpp:1391-1393): the CV test statistic stays a pure
     speckled-holdout quantity.  For a pure masked fit (no CV) the masked
-    entries themselves are reported as the held-out set."""
-    if "valid_rows" in masks or "valid_cols" in masks:
-        raise unported("valid_rows / valid_cols (mesh padding)",
-                       "Queue 1 item 14")
+    entries themselves are reported as the held-out set.  ``valid_rows`` /
+    ``valid_cols`` (mesh padding): the pads leave train and test.
+
+    ``ctx``: a sharded fit's ``ShardContext``; A and the masks are this
+    rank's block, the holdout is hashed at the block's global offsets (bit
+    for bit the whole matrix's), the counts are summed over the mesh."""
     m, n = A.shape
     f32 = torch.float32
+    row0, col0 = (ctx.row0, ctx.col0) if ctx is not None else (0, 0)
     M_test = None
     if is_cv and cfg.test_fraction > 0:
         inv_prob = int(1.0 / cfg.test_fraction)
         M_test = rng_mod.is_holdout(int(np.uint32(cfg.cv_seed)), m, n,
-                                    inv_prob, A.device)
+                                    inv_prob, A.device, row0=row0, col0=col0)
         if cfg.mask_zeros:
             M_test = M_test & (A != 0)
         if "rows_ok" in masks:
@@ -222,15 +232,29 @@ def build_weights(cfg: NMFConfig, A: torch.Tensor, masks: dict,
     M_excl = M_test if um is None else (M_test | um)
     if um is not None:
         M_test = M_test & (~um)
-    train_w = (~M_excl).to(f32)
+    train_ok = ~M_excl
+    valid = None
+    if "valid_rows" in masks:
+        valid = masks["valid_rows"][:, None]
+    if "valid_cols" in masks:
+        vc = masks["valid_cols"][None, :]
+        valid = vc if valid is None else (valid & vc)
+    if valid is not None:
+        M_test = M_test & valid
+        train_ok = train_ok & valid
+    train_w = train_ok.to(f32)
     test_w = M_test.to(f32)
-    n_test = test_w.sum()
+
+    def total(x):
+        return x if ctx is None else ctx.sum_all(x)
+
+    n_test = total(test_w.sum())
     nz = None
     if sparse_zeros:
         nz = (A != 0).to(f32)
-        n_train = (nz * train_w).sum()
+        n_train = total((nz * train_w).sum())
     else:
-        n_train = train_w.sum()
+        n_train = total(train_w.sum())
     if is_cv and cfg.mask_zeros and cfg.requires_irls():
         # speckled CV + mask_zeros under IRLS: zeros leave the weighted
         # solves entirely (cv_detail.hpp:123-126,222-232 collect only
@@ -238,7 +262,7 @@ def build_weights(cfg: NMFConfig, A: torch.Tensor, masks: dict,
         # reference does (compute_train_rhs + apply_gram_correction only
         # downdate holdout rows)
         train_w = train_w * (A != 0).to(f32)
-        n_train = train_w.sum()
+        n_train = total(train_w.sum())
     # ZI accounting sees trained entries only: user-masked entries leave all
     # accounting (fit_cv.hpp:1391-1393) and held-out zeros must not inflate
     # the dropout estimates
@@ -248,8 +272,9 @@ def build_weights(cfg: NMFConfig, A: torch.Tensor, masks: dict,
 
 
 def init_cv_state(cfg: NMFConfig, A: torch.Tensor, W_T0, H0, d0,
-                  disp_row0, disp_col0, zi_valid=None) -> CVState:
-    """The state before the first iteration, on A's device."""
+                  disp_row0, disp_col0, zi_valid=None, ctx=None) -> CVState:
+    """The state before the first iteration, on A's device (``ctx``: a
+    sharded fit's ``ShardContext``; everything is this rank's block)."""
     m, n = A.shape
     dev, f32 = A.device, torch.float32
 
@@ -261,7 +286,7 @@ def init_cv_state(cfg: NMFConfig, A: torch.Tensor, W_T0, H0, d0,
         return torch.tensor(v, dtype=dtype, device=dev)
 
     if cfg.has_zi():
-        pi_row0, pi_col0 = _zi_pi_init(A, cfg, valid=zi_valid)
+        pi_row0, pi_col0 = _zi_pi_init(A, cfg, valid=zi_valid, ctx=ctx)
     else:
         pi_row0 = torch.zeros((m,), dtype=f32, device=dev)
         pi_col0 = torch.zeros((n,), dtype=f32, device=dev)
@@ -284,7 +309,7 @@ def init_cv_state(cfg: NMFConfig, A: torch.Tensor, W_T0, H0, d0,
 
 def run_masked(cfg: NMFConfig, A: torch.Tensor, weights: _Weights, aux: dict,
                state: CVState, sparse_zeros: bool, is_cv: bool,
-               t_max=None) -> CVState:
+               t_max=None, ctx=None, masks: Optional[dict] = None) -> CVState:
     """The unified masked / CV ALS loop, from ``state`` to convergence or
     ``cfg.max_iter`` (the port of ``_fit_masked_jit``'s loop).
 
@@ -295,7 +320,14 @@ def run_masked(cfg: NMFConfig, A: torch.Tensor, weights: _Weights, aux: dict,
     ``is_cv``: test-loss early stopping and best-iteration tracking;
     otherwise the standard patience on the masked train loss.  ``t_max``:
     (T_h, T_w), the bounds on excluded rows per column that switch the MSE
-    solves to the gathered downdate."""
+    solves to the gathered downdate.
+
+    ``ctx``: a sharded fit's ``ShardContext``: A, the weights and the state
+    are this rank's blocks; each side's per-column Grams and RHS are summed
+    over the axis its data rows are split over before the solve, the row
+    norms over the factor's own axis, the losses and counts over the mesh.
+    ``masks``: ``valid_rows`` / ``valid_cols`` (mesh padding) multiply the
+    pad factors back to exact zeros."""
     train_w, train_w_T = weights.train_w, weights.train_w_T
     test_w, nz = weights.test_w, weights.nz
     n_train = torch.clamp_min(weights.n_train, 1.0)
@@ -316,6 +348,17 @@ def run_masked(cfg: NMFConfig, A: torch.Tensor, weights: _Weights, aux: dict,
     eye = torch.eye(k, dtype=A.dtype, device=A.device)
     counts = {"inner_iters": state.inner_iters,
               "host_syncs": state.host_syncs}
+    rows = ctx.rows if ctx is not None else NO_AXIS  # W_T's columns
+    cols = ctx.cols if ctx is not None else NO_AXIS  # H's columns
+    masks = masks or {}
+    keep_cols = keep_rows = None
+    if "valid_cols" in masks:
+        keep_cols = masks["valid_cols"][None, :].to(A.dtype)
+    if "valid_rows" in masks:
+        keep_rows = masks["valid_rows"][None, :].to(A.dtype)
+
+    def total(x):
+        return x if ctx is None else ctx.sum_all(x)
 
     # The W side solves on the transpose, kept contiguous (the kernels read
     # rows).  Without ZI it is made once per fit.
@@ -330,10 +373,12 @@ def run_masked(cfg: NMFConfig, A: torch.Tensor, weights: _Weights, aux: dict,
         dd_w = (*_excl_indices(train_w_T, t_max[1]), A_train.T.contiguous())
 
     def solve_side(A_side, F, w_side, fc, X_warm, it, th_row, th_col, graph,
-                   target, dd):
+                   target, dd, data_axis, own_axis):
         # tier-2 features from the previous iterate of the factor being
-        # solved, shared by all per-column Grams (cv_detail.hpp:168,272)
-        G_add = feat.tier2_gram_addition(X_warm, fc, graph)
+        # solved, shared by all per-column Grams (cv_detail.hpp:168,272);
+        # ``data_axis``: the mesh axis A_side's rows are split over,
+        # ``own_axis``: the one the solved factor's columns are split over
+        G_add = feat.tier2_gram_addition(X_warm, fc, graph, own_axis)
         tgt = target if (target is not None and fc.target_lambda > 0) else None
         # warm start only after the first iteration, as the JAX package
         Xw = X_warm * float(it > 0)
@@ -343,18 +388,21 @@ def run_masked(cfg: NMFConfig, A: torch.Tensor, weights: _Weights, aux: dict,
             return irls_solve_batch(A_side, F, cfg, active_loss, th_row,
                                     th_col, fc, sparse_zeros and not is_zi,
                                     extra_w=w_side, X_warm=Xw, G_add=G_add,
-                                    target=tgt, counts=counts)
+                                    target=tgt, counts=counts, axis=data_axis)
         if dd is not None:
             idxs, vals, A_tr = dd
-            G_feat = linalg.gram(F) + fc.L2 * eye   # gram() adds the 1e-15
+            G_feat = linalg.gram(F, data_axis) + fc.L2 * eye  # adds the 1e-15
             if G_add is not None:
                 G_feat = G_feat + G_add
             if tgt is not None:
                 G_feat = G_feat + fc.target_lambda * eye
-            return masked_downdate_solve_batch(F @ A_tr, F, G_feat, idxs,
-                                               vals, cfg, fc, Xw, target=tgt)
+            B_full = data_axis.sum(F @ A_tr)
+            return masked_downdate_solve_batch(B_full, F, G_feat, idxs,
+                                               vals, cfg, fc, Xw, target=tgt,
+                                               axis=data_axis)
         return masked_mse_solve_batch(A_side, F, w_side, cfg, fc, Xw,
-                                      G_add=G_add, target=tgt)
+                                      G_add=G_add, target=tgt,
+                                      axis=data_axis)
 
     W_T, H, d, it = state.W_T, state.H, state.d, state.it
     disp_row, disp_col = state.disp_row, state.disp_col
@@ -375,15 +423,22 @@ def run_masked(cfg: NMFConfig, A: torch.Tensor, weights: _Weights, aux: dict,
         th_col = disp_col if (is_nb and per_col) else None
         H_new = solve_side(A_solve, W_T, train_w, cfg.H, H, it, th_row,
                            th_col, aux.get("graph_H"), aux.get("target_H"),
-                           dd_h)
-        H, d = linalg.extract_scaling(_posthoc(H_new, cfg.H), cfg.norm)
+                           dd_h, rows, cols)
+        H_new = _posthoc(H_new, cfg.H, cols)
+        if keep_cols is not None:
+            # mesh padding: the fully excluded pad columns stay exact zeros
+            H_new = H_new * keep_cols
+        H, d = linalg.extract_scaling(H_new, cfg.norm, cols)
 
         th_row_w = disp_col if (is_nb and per_col) else None
         th_col_w = disp_row if (is_nb and not per_col) else None
         W_new = solve_side(A_solve_T, H, train_w_T, cfg.W, W_T, it, th_row_w,
                            th_col_w, aux.get("graph_W"), aux.get("target_W"),
-                           dd_w)
-        W_T, d = linalg.extract_scaling(_posthoc(W_new, cfg.W), cfg.norm)
+                           dd_w, cols, rows)
+        W_new = _posthoc(W_new, cfg.W, rows)
+        if keep_rows is not None:
+            W_new = W_new * keep_rows
+        W_T, d = linalg.extract_scaling(W_new, cfg.norm, rows)
 
         # --- dispersion updates on train entries only ---
         W_Td = W_T * d[:, None]
@@ -395,11 +450,11 @@ def run_masked(cfg: NMFConfig, A: torch.Tensor, weights: _Weights, aux: dict,
             if is_gp:
                 disp = gp_theta_update(A_train, S_train,
                                        disp_col if per_col else disp_row,
-                                       cfg, axis)
+                                       cfg, axis, ctx)
             elif is_nb:
-                disp = nb_size_update(A_train, S_train, cfg, axis)
+                disp = nb_size_update(A_train, S_train, cfg, axis, ctx)
             else:
-                disp = phi_update(A_train, S_train, cfg, axis)
+                disp = phi_update(A_train, S_train, cfg, axis, ctx)
             if per_col:
                 disp_col = disp
             else:
@@ -411,7 +466,7 @@ def run_masked(cfg: NMFConfig, A: torch.Tensor, weights: _Weights, aux: dict,
                 pi_row, pi_col, A_imp = zi_em_step(
                     A, S, cfg, disp_row, pi_row, pi_col,
                     valid=weights.zi_valid,
-                    disp_col=disp_col if per_col else None)
+                    disp_col=disp_col if per_col else None, ctx=ctx)
             if cfg.theta_min > 0 and is_gp:
                 disp_row = torch.clamp_min(disp_row, cfg.theta_min)
                 disp_col = torch.clamp_min(disp_col, cfg.theta_min)
@@ -423,8 +478,8 @@ def run_masked(cfg: NMFConfig, A: torch.Tensor, weights: _Weights, aux: dict,
         train_contrib = contrib * train_w
         if sparse_zeros:
             train_contrib = train_contrib * nz
-        train_loss = train_contrib.sum() / n_train
-        test_loss = (contrib * test_w).sum() / n_test
+        train_loss = total(train_contrib.sum()) / n_train
+        test_loss = total((contrib * test_w).sum()) / n_test
 
         conv_loss = test_loss if is_cv else train_loss
         rel = (prev_conv_loss - conv_loss).abs() / (prev_conv_loss.abs()
@@ -484,11 +539,13 @@ def build_speckled_mask(cfg: NMFConfig, A: np.ndarray) -> np.ndarray:
     return mask
 
 
-def _downdate_bounds(cfg: NMFConfig, m: int, n: int, user_mask, is_cv: bool):
+def _downdate_bounds(cfg: NMFConfig, m: int, n: int, user_mask, is_cv: bool,
+                     pads=(0, 0)):
     """(T_h, T_w), the most excluded rows a column of A and of A^T can have:
-    an 8-sigma binomial tail of the holdout plus the exact user-mask counts;
-    None when either exceeds half the dimension (the downdate then saves
-    nothing)."""
+    an 8-sigma binomial tail of the holdout plus the exact user-mask counts
+    (plus ``pads``, the mesh padding of each dimension, which is excluded
+    too); None when either exceeds half the dimension (the downdate then
+    saves nothing)."""
     def cv_bound(dim):
         if not (is_cv and cfg.test_fraction > 0):
             return 0
@@ -503,8 +560,8 @@ def _downdate_bounds(cfg: NMFConfig, m: int, n: int, user_mask, is_cv: bool):
     if user_mask is not None:
         um_col_max = int(user_mask.sum(dim=0).max())
         um_row_max = int(user_mask.sum(dim=1).max())
-    t_h = min(m, cv_bound(m) + um_col_max)
-    t_w = min(n, cv_bound(n) + um_row_max)
+    t_h = min(m, cv_bound(m) + um_col_max + pads[0])
+    t_w = min(n, cv_bound(n) + um_row_max + pads[1])
     if t_h <= m // 2 and t_w <= n // 2:
         return t_h, t_w
     return None
@@ -521,69 +578,140 @@ def fit_cv_or_masked(A, cfg: NMFConfig, *, mask=None, aux=None, w_init=None,
     missing.  ``device``: where the fit runs, as in ``nmf_fit`` (the CUDA
     card for a host array unless ``device="cpu"``).  ``use_downdate``
     switches the MSE solves to the gathered Gram downdate when the masks are
-    sparse enough (opt-in, as in the JAX package).  ``mesh`` is not ported
-    and raises."""
-    if mesh is not None:
-        raise unported("mesh=", "Queue 1 item 14")
+    sparse enough (opt-in, as in the JAX package).
+
+    ``mesh``: a ``parallel.mesh.Mesh``; every rank calls this with the same
+    arguments, fits its (rows, cols) block of A (zero-padded to divide the
+    mesh; the pads leave train and test) and returns the whole result.  The
+    holdout of each block is hashed at its global offsets, so no mask
+    travels; ``device=``, when given, must be the rank's device."""
     cfg.validate()
     if np.ndim(A) != 2:
         raise ValueError("data must be a 2-D matrix")
     m, n = A.shape
     is_cv = cfg.is_cv()
-    dev = fit_device(A, device)
+    ctx = None
+    if mesh is not None:
+        from ..parallel.mesh import ShardContext, rank_device, shard_aux
+        dev = rank_device(mesh, device)
+        ctx = ShardContext(mesh, m, n)
+    else:
+        dev = fit_device(A, device)
     set_fp32_precision()
-    A_dev = device_matrix(A, dev)
+    # the whole matrix goes to the device only where something reads it
+    # whole: a fit on one device, or the SVD seeding
+    A_full = (device_matrix(A, dev) if ctx is None or cfg.init_mode in (1, 2)
+              else None)
+    A_dev = A_full if ctx is None else ctx.block(A, dev)
+
+    def rows_part(v):
+        return v if ctx is None else _pad_part(v, ctx.row0, ctx.m_blk, m)
+
+    def cols_part(v):
+        return v if ctx is None else _pad_part(v, ctx.col0, ctx.n_blk, n)
 
     masks = {}
     if mask is not None:
         if hasattr(mask, "todense"):
             mask = np.asarray(mask.todense())
-        if isinstance(mask, torch.Tensor):
+        if np.shape(mask) != (m, n):
+            raise ValueError(f"mask has shape {tuple(np.shape(mask))}, data "
+                             f"{(m, n)}")
+        if ctx is not None:
+            masks["user_mask"] = ctx.block(mask, dev) > 0
+        elif isinstance(mask, torch.Tensor):
             masks["user_mask"] = mask.to(device=dev, dtype=torch.bool)
         else:
             masks["user_mask"] = torch.from_numpy(
                 np.ascontiguousarray(np.asarray(mask).astype(bool))).to(dev)
-        if masks["user_mask"].shape != (m, n):
-            raise ValueError(f"mask has shape "
-                             f"{tuple(masks['user_mask'].shape)}, data "
-                             f"{(m, n)}")
     seed32 = int(np.uint32(cfg.cv_seed))
     if is_cv and cfg.cv_row_subsample < 1.0:
-        masks["rows_ok"] = torch.from_numpy(rng_mod.subsample_mask_1d(
-            seed32, m, cfg.cv_row_subsample, use_col_constant=False)).to(dev)
+        masks["rows_ok"] = rows_part(torch.from_numpy(
+            rng_mod.subsample_mask_1d(seed32, m, cfg.cv_row_subsample,
+                                      use_col_constant=False)).to(dev))
     if is_cv and cfg.cv_col_subsample < 1.0:
-        masks["cols_ok"] = torch.from_numpy(rng_mod.subsample_mask_1d(
-            seed32, n, cfg.cv_col_subsample, use_col_constant=True)).to(dev)
+        masks["cols_ok"] = cols_part(torch.from_numpy(
+            rng_mod.subsample_mask_1d(seed32, n, cfg.cv_col_subsample,
+                                      use_col_constant=True)).to(dev))
+    if ctx is not None and (ctx.M, ctx.N) != (m, n):
+        # pads leave train and test; their factors are multiplied to zero
+        if ctx.M != m:
+            masks["valid_rows"] = torch.arange(ctx.m_blk, device=dev) < ctx.vm
+        if ctx.N != n:
+            masks["valid_cols"] = torch.arange(ctx.n_blk, device=dev) < ctx.vn
 
-    aux_dev = {key: (val if isinstance(val, torch.Tensor) else
-                     torch.as_tensor(np.asarray(val, np.float32))
-                     ).to(dev, torch.float32)
-               for key, val in (aux or {}).items()
-               if val is not None and not key.endswith("_gram")}
-    W_T0, H0, d0 = init_factors(cfg, m, n, A=A_dev, w_init=w_init,
+    if ctx is None:
+        aux_dev = {key: (val if isinstance(val, torch.Tensor) else
+                         torch.as_tensor(np.asarray(val, np.float32))
+                         ).to(dev, torch.float32)
+                   for key, val in (aux or {}).items()
+                   if val is not None and not key.endswith("_gram")}
+    else:
+        # Laplacians zero-padded (zero cross-terms), targets cut to blocks
+        aux_dev = shard_aux(ctx, {key: val for key, val in (aux or {}).items()
+                                  if not key.endswith("_gram")}, dev,
+                            symmetric=cfg.symmetric)
+    W_T0, H0, d0 = init_factors(cfg, m, n, A=A_full, w_init=w_init,
                                 h_init=h_init)
-    disp_row0, disp_col0 = _init_dispersion(cfg, m, n, np.float32)
+    mb, nb = A_dev.shape
+    disp_row0, disp_col0 = _init_dispersion(cfg, mb, nb, np.float32)
+    if ctx is not None:
+        W_T0, H0 = ctx.row_block(W_T0), ctx.col_block(H0)
 
-    weights = build_weights(cfg, A_dev, masks, sparse_zeros, is_cv)
+    weights = build_weights(cfg, A_dev, masks, sparse_zeros, is_cv, ctx)
     t_max = None
     if use_downdate and not cfg.requires_irls():
-        t_max = _downdate_bounds(cfg, m, n, masks.get("user_mask"), is_cv)
+        if ctx is None:
+            t_max = _downdate_bounds(cfg, m, n, masks.get("user_mask"), is_cv)
+        else:
+            # the bound is global, on the padded dimensions, from the whole
+            # mask (its most masked column and row)
+            um = None
+            if mask is not None:
+                um = (mask.cpu() if isinstance(mask, torch.Tensor)
+                      else torch.from_numpy(np.asarray(mask))).to(torch.bool)
+            t_max = _downdate_bounds(cfg, ctx.M, ctx.N, um, is_cv,
+                                     pads=(ctx.M - m, ctx.N - n))
     init = init_cv_state(cfg, A_dev, W_T0, H0, d0, disp_row0, disp_col0,
-                         zi_valid=weights.zi_valid)
+                         zi_valid=weights.zi_valid, ctx=ctx)
     state = run_masked(cfg, A_dev, weights, aux_dev, init, sparse_zeros,
-                       is_cv, t_max=t_max)
-    return finalize_cv_result(cfg, state)
+                       is_cv, t_max=t_max, ctx=ctx, masks=masks)
+    return finalize_cv_result(cfg, state, ctx)
 
 
-def finalize_cv_result(cfg: NMFConfig, state: CVState) -> NMFResult:
-    """Copy the final CVState (all but A_imp) to a host NMFResult."""
+def _pad_part(v: torch.Tensor, lo: int, width: int, true: int):
+    """Entries ``lo .. lo + width`` of a length-``true`` vector, padded with
+    False (zeros)."""
+    out = torch.zeros((width,), dtype=v.dtype, device=v.device)
+    hi = min(lo + width, true)
+    if hi > lo:
+        out[:hi - lo] = v[lo:hi]
+    return out
+
+
+def finalize_cv_result(cfg: NMFConfig, state: CVState,
+                       ctx=None) -> NMFResult:
+    """Copy the final CVState (all but A_imp) to a host NMFResult.  ``ctx``:
+    a sharded fit's ``ShardContext``: the factors and the per-row
+    (per-column) vectors are gathered over "rows" ("cols") and the mesh
+    padding is sliced off."""
     def host(t):
         return t.detach().cpu().numpy()
+
+    def rows_of(v):
+        if ctx is None:
+            return host(v)
+        return host(ctx.gather_rows(v))[..., :ctx.m]
+
+    def cols_of(v):
+        if ctx is None:
+            return host(v)
+        return host(ctx.gather_cols(v))[..., :ctx.n]
 
     it = state.it
     train_hist, test_hist = host(state.train_hist), host(state.test_hist)
     res = NMFResult(
-        W=host(state.W_T).T, d=host(state.d), H=host(state.H),
+        W=rows_of(state.W_T).T, d=host(state.d), H=cols_of(state.H),
         iterations=it, converged=bool(state.converged),
         final_tol=float(state.final_tol),
         train_loss=float(train_hist[it - 1]) if it > 0 else float("nan"),
@@ -595,7 +723,7 @@ def finalize_cv_result(cfg: NMFConfig, state: CVState) -> NMFResult:
     if cfg.requires_irls():
         res.misc["irls_inner_iterations"] = state.inner_iters
     per_col = cfg.dispersion == Dispersion.PER_COL
-    disp = host(state.disp_col if per_col else state.disp_row)
+    disp = cols_of(state.disp_col) if per_col else rows_of(state.disp_row)
     if cfg.dispersion == Dispersion.NONE:
         pass    # dispersion='none' estimates nothing and returns nothing
     elif cfg.loss in (Loss.GP, Loss.NB):
@@ -604,9 +732,9 @@ def finalize_cv_result(cfg: NMFConfig, state: CVState) -> NMFResult:
         res.dispersion = disp
     if cfg.has_zi():
         if cfg.zi == ZI.ROW:
-            res.pi_row = host(state.pi_row)
+            res.pi_row = rows_of(state.pi_row)
         else:
-            res.pi_col = host(state.pi_col)
+            res.pi_col = cols_of(state.pi_col)
     if cfg.sort_model:
         res.sort()
     return res

@@ -38,9 +38,9 @@ from ..config import Dispersion, Loss, NMFConfig, ZI
 from ..ops import features as feat
 from ..ops import linalg, losses, solvers
 from ..ops.wgram import weighted_gram_rhs
+from ..parallel.mesh import NO_AXIS
 from ..result import NMFResult
-from .nmf import (FitState, _wait, finalize_result, init_fit_state,
-                  unported)
+from .nmf import FitState, _wait, finalize_result, init_fit_state
 
 
 @dataclass
@@ -104,7 +104,7 @@ def _power(cfg: NMFConfig, loss: Loss) -> float:
 def irls_solve_batch(A_data, F, cfg: NMFConfig, active_loss: Loss,
                      theta_row, theta_col, fc, sparse_zeros: bool,
                      extra_w=None, X_warm=None, G_add=None, target=None,
-                     counts: Optional[dict] = None):
+                     counts: Optional[dict] = None, axis=NO_AXIS):
     """Solve min over X>=0 of the weighted LS for every column of A_data.
 
     A_data (m, nc) data panel; F (k, m) fixed factor.  Returns X (k, nc).
@@ -117,6 +117,9 @@ def irls_solve_batch(A_data, F, cfg: NMFConfig, active_loss: Loss,
     target, ``fc.target_lambda > 0``.  ``extra_w``: optional (m, nc) weights
     multiplied into w (the CV path's holdout weights).  ``counts``: optional
     dict; ``inner_iters`` and ``host_syncs`` in it are increased.
+    ``axis``: under a mesh, the axis A_data's rows (F's columns) are split
+    over: each column's weighted Gram and RHS are summed over it before the
+    solve, so every rank of the axis solves the same columns alike.
 
     With ``RCPPML_FUSED_WGRAM`` set in the environment, the weight, Gram and
     RHS of a ``kl`` / ``power`` / ``nb`` solve without robust or extra
@@ -181,6 +184,7 @@ def irls_solve_batch(A_data, F, cfg: NMFConfig, active_loss: Loss,
                 if w_extra is not None:
                     w = w * w_extra
                 Gb, b = linalg.weighted_gram_and_rhs(F, w, A_blk, KR=KR)
+            Gb, b = axis.sum(Gb), axis.sum(b)
             if fc.L2 > 0:
                 Gb = Gb + fc.L2 * eye[None]
             if G_add is not None:
@@ -219,23 +223,61 @@ def _expand(v: torch.Tensor, red: int) -> torch.Tensor:
     return v[:, None] if red == 1 else v[None, :]
 
 
-def _global_median(v: torch.Tensor) -> torch.Tensor:
+# Under a mesh (``ctx``, a ``parallel.mesh.ShardContext``) the statistics
+# below run on this rank's block: a sum over a block's columns (``red`` 1,
+# statistics per row) is summed over "cols", over its rows over "rows".  A
+# global statistic reads every row's (column's) value: the mean sums the
+# valid ones over the other axis, the median gathers them.
+
+def _rsum(ctx, red: int, x: torch.Tensor) -> torch.Tensor:
+    if ctx is None:
+        return x
+    return ctx.sum_cols(x) if red == 1 else ctx.sum_rows(x)
+
+
+def _entities(ctx, red: int):
+    """(the axis the entities are split over, the valid ones in this block,
+    the block's length, their true count) for per-row (``red`` 1) or
+    per-column statistics."""
+    if red == 1:
+        return ctx.rows, ctx.vm, ctx.m_blk, ctx.m
+    return ctx.cols, ctx.vn, ctx.n_blk, ctx.n
+
+
+def _global_mean(v: torch.Tensor, red: int = 1, ctx=None) -> torch.Tensor:
+    """The mean of a per-row (per-column) vector over every valid entry,
+    on every entry.  ``v``: this block's entries (valid ones first)."""
+    if ctx is None or not ctx.distributed:
+        return v.mean().expand_as(v).clone()
+    axis, valid, _, total = _entities(ctx, red)
+    return (axis.sum(v[:valid].sum()) / total).expand_as(v).clone()
+
+
+def _global_median(v: torch.Tensor, red: int = 1, ctx=None) -> torch.Tensor:
     """The median as numpy defines it (the mean of the two middle elements
-    of an even count); ``torch.median`` would return the lower one."""
+    of an even count); ``torch.median`` would return the lower one.  Under a
+    mesh over the gathered valid entries of every block."""
+    if ctx is not None and ctx.distributed:
+        axis, valid, blk, total = _entities(ctx, red)
+        part = torch.zeros((blk,), dtype=v.dtype, device=v.device)
+        part[:valid] = v[:valid]
+        return torch.quantile(axis.gather(part)[:total],
+                              0.5).expand_as(v).clone()
     return torch.quantile(v, 0.5).expand_as(v).clone()
 
 
-def gp_theta_update(A, S, theta, cfg: NMFConfig, axis: int):
+def gp_theta_update(A, S, theta, cfg: NMFConfig, axis: int, ctx=None):
     """MM theta update (fit_cpu.hpp:914-1086; Ohashi et al. 2025 Eq. 24).
 
     ``axis`` = 1 for per-row (reduce over columns), 0 for per-col.
-    S = max(W_Td^T H, 1e-10) reconstruction.
+    S = max(W_Td^T H, 1e-10) reconstruction.  ``ctx``: a sharded fit's
+    ``ShardContext`` (A, S and theta are this rank's block).
     """
     red = axis
-    sum_y = A.sum(dim=red)
-    sum_s = S.sum(dim=red)
+    sum_y = _rsum(ctx, red, A.sum(dim=red))
+    sum_s = _rsum(ctx, red, S.sum(dim=red))
     nz = A >= 1.0
-    n_nz = nz.sum(dim=red).to(A.dtype)
+    n_nz = _rsum(ctx, red, nz.sum(dim=red).to(A.dtype))
     cap = cfg.theta_max
     zeros = torch.zeros_like(A)
     am1 = A - 1.0
@@ -243,8 +285,10 @@ def gp_theta_update(A, S, theta, cfg: NMFConfig, axis: int):
     for _ in range(5):                                  # THETA_INNER_ITERS
         denom = torch.clamp_min(S + _expand(theta, red) * A, 1e-10)
         eta1 = S / denom
-        alpha_d = torch.where(nz, am1 * eta1, zeros).sum(dim=red)
-        gamma_d = torch.where(nz, am1 * (1.0 - eta1), zeros).sum(dim=red)
+        alpha_d = _rsum(ctx, red, torch.where(nz, am1 * eta1,
+                                              zeros).sum(dim=red))
+        gamma_d = _rsum(ctx, red, torch.where(nz, am1 * (1.0 - eta1),
+                                              zeros).sum(dim=red))
         alpha = alpha_d + n_nz
         beta = (sum_y - sum_s) - gamma_d + alpha
         disc = beta * beta + 4.0 * alpha * gamma_d
@@ -254,28 +298,28 @@ def gp_theta_update(A, S, theta, cfg: NMFConfig, axis: int):
         ok = ok & torch.isfinite(new_th) & (new_th >= 0)
         theta = torch.where(ok, torch.clamp_max(new_th, cap), theta)
     if cfg.dispersion == Dispersion.GLOBAL:
-        theta = theta.mean().expand_as(theta).clone()
+        theta = _global_mean(theta, red, ctx)
     return theta
 
 
-def nb_size_update(A, S, cfg: NMFConfig, axis: int):
+def nb_size_update(A, S, cfg: NMFConfig, axis: int, ctx=None):
     """NB size MoM: r = sum mu^2 / max(sum[(y-mu)^2 - mu], eps)
     (fit_cpu.hpp:1094-1265).  GLOBAL mode takes the median."""
     red = axis
     mu = torch.clamp_min(S, 1e-10)
     resid = A - mu
-    sum_mu_sq = (mu * mu).sum(dim=red)
-    sum_excess = (resid * resid - mu).sum(dim=red)
+    sum_mu_sq = _rsum(ctx, red, (mu * mu).sum(dim=red))
+    sum_excess = _rsum(ctx, red, (resid * resid - mu).sum(dim=red))
     r_new = sum_mu_sq / torch.clamp_min(sum_excess, 1e-30)
     r_new = torch.clamp(r_new, cfg.nb_size_min, cfg.nb_size_max)
     ok = (sum_excess > 1e-10) & (sum_mu_sq > 1e-10) & torch.isfinite(r_new)
     r = torch.where(ok, r_new, torch.full_like(r_new, cfg.nb_size_max))
     if cfg.dispersion == Dispersion.GLOBAL:
-        r = _global_median(r)
+        r = _global_median(r, red, ctx)
     return r
 
 
-def phi_update(A, S, cfg: NMFConfig, axis: int):
+def phi_update(A, S, cfg: NMFConfig, axis: int, ctx=None):
     """Pearson MoM dispersion for Gamma/IG/Tweedie (fit_cpu.hpp:1561-1672).
     Only entries with y > 0 contribute."""
     red = axis
@@ -284,18 +328,18 @@ def phi_update(A, S, cfg: NMFConfig, axis: int):
     pos = A > 0
     v_mu = torch.clamp_min(mu ** p, 1e-20)
     pear = torch.where(pos, (A - mu) ** 2 / v_mu, torch.zeros_like(mu))
-    cnt = pos.sum(dim=red).to(A.dtype)
-    phi_new = pear.sum(dim=red) / torch.clamp_min(cnt, 1.0)
+    cnt = _rsum(ctx, red, pos.sum(dim=red).to(A.dtype))
+    phi_new = _rsum(ctx, red, pear.sum(dim=red)) / torch.clamp_min(cnt, 1.0)
     phi_new = torch.clamp(phi_new, cfg.gamma_phi_min, cfg.gamma_phi_max)
     phi = torch.where((cnt > 0) & torch.isfinite(phi_new), phi_new,
                       torch.ones_like(phi_new))
     if cfg.dispersion == Dispersion.GLOBAL:
-        phi = _global_median(phi)
+        phi = _global_median(phi, red, ctx)
     return phi
 
 
 def zi_em_step(A, S, cfg: NMFConfig, disp_row, pi_row, pi_col, valid=None,
-               disp_col=None):
+               disp_col=None, ctx=None):
     """ZI E/M-step + soft imputation (fit_cpu.hpp:1285-1552).
 
     Returns (pi_row, pi_col, A_imputed): zero entries of A are imputed with
@@ -303,8 +347,12 @@ def zi_em_step(A, S, cfg: NMFConfig, disp_row, pi_row, pi_col, valid=None,
     entries that count (unobserved ones leave the zero counts and the pi
     denominators; the CV path uses it).  ``disp_col``: the fitted per-column
     dispersion when ``dispersion='per_col'``; without it the dropout prior
-    p0 would come from the row dispersion, which that mode never updates."""
+    p0 would come from the row dispersion, which that mode never updates.
+    ``ctx``: a sharded fit's ``ShardContext`` (every tensor is this rank's
+    block; the counts and denominators are summed over the mesh)."""
     m, n = A.shape
+    if ctx is not None:
+        m, n = ctx.m, ctx.n
     is_zero = A == 0
     if valid is not None:
         is_zero = is_zero & valid
@@ -321,16 +369,18 @@ def zi_em_step(A, S, cfg: NMFConfig, disp_row, pi_row, pi_col, valid=None,
     z = torch.where(is_zero, z, torch.zeros_like(z))
 
     if cfg.zi == ZI.ROW:
-        zero_cnt = is_zero.sum(dim=1)
-        denom = (torch.clamp_min(valid.sum(dim=1), 1)
+        zero_cnt = _rsum(ctx, 1, is_zero.sum(dim=1))
+        denom = (torch.clamp_min(_rsum(ctx, 1, valid.sum(dim=1)), 1)
                  if valid is not None else n)
-        new_pi = torch.clamp(z.sum(dim=1) / denom, 0.001, 0.999)
+        new_pi = torch.clamp(_rsum(ctx, 1, z.sum(dim=1)) / denom, 0.001,
+                             0.999)
         pi_row = torch.where(zero_cnt > 0, new_pi, pi_row)
     else:
-        zero_cnt = is_zero.sum(dim=0)
-        denom = (torch.clamp_min(valid.sum(dim=0), 1)
+        zero_cnt = _rsum(ctx, 0, is_zero.sum(dim=0))
+        denom = (torch.clamp_min(_rsum(ctx, 0, valid.sum(dim=0)), 1)
                  if valid is not None else m)
-        new_pi = torch.clamp(z.sum(dim=0) / denom, 0.001, 0.999)
+        new_pi = torch.clamp(_rsum(ctx, 0, z.sum(dim=0)) / denom, 0.001,
+                             0.999)
         pi_col = torch.where(zero_cnt > 0, new_pi, pi_col)
 
     A_imp = torch.where(is_zero, z * s, A)
@@ -356,11 +406,13 @@ def _init_dispersion(cfg: NMFConfig, m: int, n: int, dtype=np.float32):
     return np.full((m,), init, dtype), np.full((n,), init, dtype)
 
 
-def _zi_pi_init(A: torch.Tensor, cfg: NMFConfig, valid=None):
+def _zi_pi_init(A: torch.Tensor, cfg: NMFConfig, valid=None, ctx=None):
     """Data-driven pi init: min(zero_rate * 0.5, 0.3) (fit_cpu.hpp:355-400),
     computed on A's device.  ``valid``: optional (m, n) bool; entries outside
-    it leave the zero rate's numerator and denominator."""
+    it leave the zero rate's numerator and denominator.  ``ctx``: a sharded
+    fit's ``ShardContext`` (A and valid are this rank's block)."""
     m, n = A.shape
+    tm, tn = (m, n) if ctx is None else (ctx.m, ctx.n)
     f32 = torch.float32
     pi_row = torch.zeros((m,), dtype=f32, device=A.device)
     pi_col = torch.zeros((n,), dtype=f32, device=A.device)
@@ -369,28 +421,33 @@ def _zi_pi_init(A: torch.Tensor, cfg: NMFConfig, valid=None):
         v = valid.to(f32)
         nzm = nzm * v
     if cfg.zi == ZI.ROW:
-        denom = (torch.clamp_min(v.sum(dim=1), 1.0) if valid is not None
-                 else float(n))
-        zr = 1.0 - nzm.sum(dim=1) / denom
+        denom = (torch.clamp_min(_rsum(ctx, 1, v.sum(dim=1)), 1.0)
+                 if valid is not None else float(tn))
+        zr = 1.0 - _rsum(ctx, 1, nzm.sum(dim=1)) / denom
         pi_row = torch.clamp_max(zr * 0.5, 0.3).to(f32)
     elif cfg.zi == ZI.COL:
-        denom = (torch.clamp_min(v.sum(dim=0), 1.0) if valid is not None
-                 else float(m))
-        zr = 1.0 - nzm.sum(dim=0) / denom
+        denom = (torch.clamp_min(_rsum(ctx, 0, v.sum(dim=0)), 1.0)
+                 if valid is not None else float(tm))
+        zr = 1.0 - _rsum(ctx, 0, nzm.sum(dim=0)) / denom
         pi_col = torch.clamp_max(zr * 0.5, 0.3).to(f32)
     return pi_row, pi_col
 
 
 def _init_irls_state(A_dev: torch.Tensor, cfg: NMFConfig, W_T0, H0,
-                     d0) -> IRLSState:
+                     d0, ctx=None) -> IRLSState:
     """The state before the first iteration, on A's device (dispersion and
-    ZI priors included)."""
+    ZI priors included).  ``ctx``: the ``ShardContext`` of a sharded fit or
+    of a zero-padded A; the pads leave the zero rates of the ZI prior."""
     m, n = A_dev.shape
     dev = A_dev.device
     base = init_fit_state(cfg, W_T0, H0, d0, device=dev)
     disp_row0, disp_col0 = _init_dispersion(cfg, m, n)
     if cfg.has_zi():
-        pi_row0, pi_col0 = _zi_pi_init(A_dev, cfg)
+        vmask = None
+        if ctx is not None and (ctx.M, ctx.N) != (ctx.m, ctx.n):
+            vmask = ((torch.arange(m, device=dev) < ctx.vm)[:, None]
+                     & (torch.arange(n, device=dev) < ctx.vn)[None, :])
+        pi_row0, pi_col0 = _zi_pi_init(A_dev, cfg, valid=vmask, ctx=ctx)
     else:
         pi_row0 = torch.zeros((m,), dtype=torch.float32, device=dev)
         pi_col0 = torch.zeros((n,), dtype=torch.float32, device=dev)
@@ -404,21 +461,37 @@ def _init_irls_state(A_dev: torch.Tensor, cfg: NMFConfig, W_T0, H0,
         loss_hist=base.loss_hist)
 
 
-def _posthoc(X, fc):
+def _posthoc(X, fc, axis=NO_AXIS):
     if fc.upper_bound > 0:
         X = feat.apply_upper_bound(X, fc.upper_bound)
     if fc.angular > 0:
-        X = feat.apply_angular_posthoc(X, fc.angular)
+        X = feat.apply_angular_posthoc(X, fc.angular, axis)
     return X
 
 
+def _keep_pads(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """A per-row (per-column) vector computed on the valid entries, its pad
+    entries left as they were (finite: they meet only zero factors)."""
+    if new.shape[0] == old.shape[0]:
+        return new
+    return torch.cat([new, old[new.shape[0]:]])
+
+
 def run_irls(cfg: NMFConfig, A: torch.Tensor, aux: dict, state: IRLSState,
-             sparse_zeros: bool, seg_end: Optional[int] = None) -> IRLSState:
+             sparse_zeros: bool, seg_end: Optional[int] = None,
+             ctx=None) -> IRLSState:
     """Run the IRLS ALS loop from ``state`` to convergence or
-    ``cfg.max_iter`` (the port of ``_fit_irls_jit``, without its mesh
-    padding).  With ``seg_end`` the loop stops after that many iterations in
-    all, and a later call carries on from the returned state, the same
-    trajectory bit for bit."""
+    ``cfg.max_iter`` (the port of ``_fit_irls_jit``).  With ``seg_end`` the
+    loop stops after that many iterations in all, and a later call carries
+    on from the returned state, the same trajectory bit for bit.
+
+    ``ctx``: a ``parallel.mesh.ShardContext``.  Under a mesh A and the state
+    are this rank's blocks: the per-column weighted Grams sum over the
+    sharded axis before the solves, the row norms over theirs, the
+    dispersion, ZI and loss sums over the mesh.  With padding (a mesh, or
+    one device's zero-padded A) the accounting (loss, dispersion, ZI) runs
+    on the valid region only, and the solves on the padded shapes (pads
+    solve to exact zeros)."""
     is_gp = cfg.loss == Loss.GP
     is_nb = cfg.loss == Loss.NB
     is_phi = cfg.loss in _POWER_LOSSES
@@ -429,6 +502,13 @@ def run_irls(cfg: NMFConfig, A: torch.Tensor, aux: dict, state: IRLSState,
     # (fit_cpu.hpp:569-575).  NB uses NB weights directly.
     active_loss = Loss.KL if is_gp else cfg.loss
     solve_sparse = sparse_zeros and not is_zi
+    rows = ctx.rows if ctx is not None else NO_AXIS
+    cols = ctx.cols if ctx is not None else NO_AXIS
+    padded = ctx is not None and ctx.padded
+    vm, vn = (ctx.vm, ctx.vn) if padded else A.shape
+
+    def _t(X):
+        return X[:vm, :vn] if padded else X
 
     tgt_h = aux.get("target_H") if cfg.H.target_lambda > 0 else None
     tgt_w = aux.get("target_W") if cfg.W.target_lambda > 0 else None
@@ -446,6 +526,7 @@ def run_irls(cfg: NMFConfig, A: torch.Tensor, aux: dict, state: IRLSState,
     # of a product's operand selects its kernel, and with it the rounding,
     # and the fused kernel reads rows.  Without ZI it is made once per fit.
     A_T = None if is_zi else A.T.contiguous()
+    A_t = _t(A)
     check_each_iteration = cfg.tol > 0
     bound = cfg.max_iter if seg_end is None else min(seg_end, cfg.max_iter)
 
@@ -463,9 +544,10 @@ def run_irls(cfg: NMFConfig, A: torch.Tensor, aux: dict, state: IRLSState,
         H_new = irls_solve_batch(
             A_solve, W_T, cfg, active_loss, th_row, th_col, cfg.H,
             solve_sparse, X_warm=H * warm_gate,
-            G_add=feat.tier2_gram_addition(H, cfg.H, graph_H),
-            target=tgt_h, counts=counts)
-        H, d = linalg.extract_scaling(_posthoc(H_new, cfg.H), cfg.norm)
+            G_add=feat.tier2_gram_addition(H, cfg.H, graph_H, cols),
+            target=tgt_h, counts=counts, axis=rows)
+        H, d = linalg.extract_scaling(_posthoc(H_new, cfg.H, cols),
+                                      cfg.norm, cols)
 
         # --- W update (on A^T; theta roles swap: fit_cpu.hpp:821-833) ---
         th_row_w = disp_col if (is_nb and per_col) else None
@@ -473,43 +555,54 @@ def run_irls(cfg: NMFConfig, A: torch.Tensor, aux: dict, state: IRLSState,
         W_new = irls_solve_batch(
             A_solve_T, H, cfg, active_loss, th_row_w, th_col_w, cfg.W,
             solve_sparse, X_warm=W_T * warm_gate,
-            G_add=feat.tier2_gram_addition(W_T, cfg.W, graph_W),
-            target=tgt_w, counts=counts)
-        W_T, d = linalg.extract_scaling(_posthoc(W_new, cfg.W), cfg.norm)
+            G_add=feat.tier2_gram_addition(W_T, cfg.W, graph_W, rows),
+            target=tgt_w, counts=counts, axis=cols)
+        W_T, d = linalg.extract_scaling(_posthoc(W_new, cfg.W, rows),
+                                        cfg.norm, rows)
 
         # --- dispersion updates on the reconstruction S ---
         W_Td = W_T * d[:, None]
-        S = torch.clamp_min(W_Td.T @ H, 1e-10)
+        S_t = _t(torch.clamp_min(W_Td.T @ H, 1e-10))
         if has_disp and (is_gp or is_nb or is_phi):
             axis = 0 if per_col else 1
             if is_gp:
                 disp = gp_theta_update(
-                    A, S, disp_col if per_col else disp_row, cfg, axis)
+                    A_t, S_t, disp_col[:vn] if per_col else disp_row[:vm],
+                    cfg, axis, ctx)
             elif is_nb:
-                disp = nb_size_update(A, S, cfg, axis)
+                disp = nb_size_update(A_t, S_t, cfg, axis, ctx)
             else:
-                disp = phi_update(A, S, cfg, axis)
+                disp = phi_update(A_t, S_t, cfg, axis, ctx)
             if per_col:
-                disp_col = disp
+                disp_col = _keep_pads(disp, disp_col)
             else:
-                disp_row = disp
+                disp_row = _keep_pads(disp, disp_row)
 
         # --- ZI EM + soft imputation (fit_cpu.hpp:1285-1552) ---
         if is_zi:
+            pr, pc = pi_row[:vm], pi_col[:vn]
             for _ in range(max(1, cfg.zi_em_iters)):
-                pi_row, pi_col, A_imp = zi_em_step(
-                    A, S, cfg, disp_row, pi_row, pi_col,
-                    disp_col=disp_col if per_col else None)
+                pr, pc, A_imp_t = zi_em_step(
+                    A_t, S_t, cfg, disp_row[:vm], pr, pc,
+                    disp_col=disp_col[:vn] if per_col else None, ctx=ctx)
+            pi_row, pi_col = _keep_pads(pr, pi_row), _keep_pads(pc, pi_col)
+            if padded:
+                A_imp = torch.zeros_like(A)
+                A_imp[:vm, :vn] = A_imp_t
+            else:
+                A_imp = A_imp_t
             if cfg.theta_min > 0 and is_gp:
                 disp_row = torch.clamp_min(disp_row, cfg.theta_min)
                 disp_col = torch.clamp_min(disp_col, cfg.theta_min)
 
         # --- explicit loss on the original A (fit_cpu.hpp:1690-1709) ---
         loss = losses.explicit_loss(
-            A, W_Td, H, cfg,
-            theta_row=None if per_col else disp_row,
-            theta_col=disp_col if per_col else None,
+            A_t, W_Td[:, :vm], H[:, :vn], cfg,
+            theta_row=None if per_col else disp_row[:vm],
+            theta_col=disp_col[:vn] if per_col else None,
             nz_only=sparse_zeros)
+        if ctx is not None:
+            loss = ctx.sum_all(loss)
 
         rel = (prev_loss - loss).abs() / (prev_loss.abs() + 1e-15)
         loss_conv = (rel < cfg.tol) & (it > 0)
@@ -531,27 +624,35 @@ def run_irls(cfg: NMFConfig, A: torch.Tensor, aux: dict, state: IRLSState,
 
 
 def fit_irls(A_dev: torch.Tensor, cfg: NMFConfig, W_T0, H0, d0, aux,
-             sparse_zeros: bool = False, valid_dims=None) -> NMFResult:
-    """Entry of the IRLS path (dispatched from ``models.nmf.nmf_fit``).
+             sparse_zeros: bool = False, valid_dims=None,
+             ctx=None) -> NMFResult:
+    """Entry of the IRLS path (dispatched from ``models.nmf.nmf_fit`` and
+    ``parallel.mesh.fit_sharded``).
 
     ``A_dev``: the (m, n) float32 matrix on the fit's device; ``W_T0``,
     ``H0``, ``d0``: host arrays.  With ``cfg.enable_profiling`` the same
     loop runs in timed segments (:func:`_fit_irls_profiled`).
-    ``valid_dims`` (a matrix padded for a device mesh) is not ported and
-    raises."""
-    if valid_dims is not None:
-        raise unported("valid_dims (mesh padding)", "Queue 1 item 14")
+    ``valid_dims``: the true (m, n) when A arrives zero-padded beyond them;
+    the accounting is then restricted to the valid region.  ``ctx``: a
+    sharded fit's ``ShardContext`` (A and the factors are this rank's
+    blocks; its valid extents take the place of ``valid_dims``)."""
+    if ctx is None and valid_dims is not None:
+        from ..parallel.mesh import ShardContext
+        ctx = ShardContext(None, *valid_dims, padded=tuple(A_dev.shape))
     aux_dev = {key: val for key, val in (aux or {}).items()
                if val is not None and not key.endswith("_gram")}
-    init = _init_irls_state(A_dev, cfg, W_T0, H0, d0)
+    init = _init_irls_state(A_dev, cfg, W_T0, H0, d0, ctx)
     if cfg.enable_profiling:
-        return _fit_irls_profiled(cfg, A_dev, aux_dev, init, sparse_zeros)
+        return _fit_irls_profiled(cfg, A_dev, aux_dev, init, sparse_zeros,
+                                  ctx)
     return finalize_irls_result(
-        cfg, run_irls(cfg, A_dev, aux_dev, init, sparse_zeros))
+        cfg, run_irls(cfg, A_dev, aux_dev, init, sparse_zeros, ctx=ctx),
+        ctx)
 
 
 def _fit_irls_profiled(cfg: NMFConfig, A_dev: torch.Tensor, aux: dict,
-                       init: IRLSState, sparse_zeros: bool) -> NMFResult:
+                       init: IRLSState, sparse_zeros: bool,
+                       ctx=None) -> NMFResult:
     """Profile the production IRLS loop (``nmf_irls.py:626-668`` of the JAX
     package): :func:`run_irls` in segments of ``max(1, min(32, maxit // 8))``
     iterations, the trajectory bit for bit the unprofiled fit's, each
@@ -567,13 +668,13 @@ def _fit_irls_profiled(cfg: NMFConfig, A_dev: torch.Tensor, aux: dict,
     while state.it < cfg.max_iter and not bool(state.converged):
         it0, t0 = state.it, time.perf_counter()
         state = run_irls(cfg, A_dev, aux, state, sparse_zeros,
-                         seg_end=it0 + seg)
+                         seg_end=it0 + seg, ctx=ctx)
         _wait(A_dev.device)
         state.host_syncs += 1       # the segment end's read of converged
         if state.it > it0:
             seg_times.append((state.it - it0, time.perf_counter() - t0))
     per_iter_s = min((t / k for k, t in seg_times), default=0.0)
-    res = finalize_irls_result(cfg, state)
+    res = finalize_irls_result(cfg, state, ctx)
     res.profile = {
         "irls_iteration": per_iter_s * 1e3 * state.it,
         "fused_total_ms": (time.perf_counter() - t_all0) * 1e3,
@@ -586,14 +687,23 @@ def _fit_irls_profiled(cfg: NMFConfig, A_dev: torch.Tensor, aux: dict,
     return res
 
 
-def finalize_irls_result(cfg: NMFConfig, state: IRLSState) -> NMFResult:
-    """Copy the final IRLSState (all but A_imp) to a host NMFResult."""
+def finalize_irls_result(cfg: NMFConfig, state: IRLSState,
+                         ctx=None) -> NMFResult:
+    """Copy the final IRLSState (all but A_imp) to a host NMFResult.
+    ``ctx``: a sharded fit's ``ShardContext``; the per-row (per-column)
+    vectors are gathered over "rows" ("cols") as the factors are."""
     def host(t):
         return t.detach().cpu().numpy()
 
+    def rows_of(v):
+        return host(v if ctx is None else ctx.gather_rows(v))
+
+    def cols_of(v):
+        return host(v if ctx is None else ctx.gather_cols(v))
+
     per_col = cfg.dispersion == Dispersion.PER_COL
     extra = {}
-    disp = host(state.disp_col if per_col else state.disp_row)
+    disp = cols_of(state.disp_col) if per_col else rows_of(state.disp_row)
     # dispersion='none' estimates nothing and returns nothing
     if cfg.dispersion == Dispersion.NONE:
         pass
@@ -603,14 +713,14 @@ def finalize_irls_result(cfg: NMFConfig, state: IRLSState) -> NMFResult:
         extra["dispersion"] = disp
     if cfg.has_zi():
         if cfg.zi == ZI.ROW:
-            extra["pi_row"] = host(state.pi_row)
+            extra["pi_row"] = rows_of(state.pi_row)
         else:
-            extra["pi_col"] = host(state.pi_col)
+            extra["pi_col"] = cols_of(state.pi_col)
 
     fit_state = FitState(state.W_T, state.H, state.d, state.it,
                          state.prev_loss, state.patience_ctr, state.converged,
                          state.final_tol, state.loss_hist)
-    res = finalize_result(cfg, fit_state, extra)
+    res = finalize_result(cfg, fit_state, extra, ctx)
     res.misc["irls_inner_iterations"] = state.inner_iters
     res.misc["host_syncs"] = state.host_syncs
     return res

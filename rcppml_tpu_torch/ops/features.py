@@ -3,7 +3,10 @@
 The port of ``rcppml_tpu/ops/features.py:21-152`` (with
 ``tier2_gram_addition`` for the per-column-Gram solves), itself the shared
 application sequence of the reference (``nmf/variant_helpers.hpp:89-146``).
-All of these touch only k x k or k x cols matrices.
+All of these touch only k x k or k x cols matrices.  ``axis`` (a
+``parallel.mesh.Axis``; ``NO_AXIS`` on one device): the mesh axis the factor's
+columns are split over; a feature that reads the whole factor sums its row
+norms and products over it, or gathers the factor.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..config import FactorConfig
+from ..parallel.mesh import NO_AXIS
 
 
 def _eye(G: torch.Tensor) -> torch.Tensor:
@@ -26,21 +30,23 @@ def apply_l1_l2(G, B, L1: float, L2: float):
     return G, B
 
 
-def apply_l21(G, factor, lam: float):
+def apply_l21(G, factor, lam: float, axis=NO_AXIS):
     """features/L21.hpp:52-66: G(i,i) += lam / ||row_i||_2 (guarded)."""
     if lam <= 0:
         return G
-    row_norm = (factor * factor).sum(dim=1).sqrt()
+    row_norm = axis.sum((factor * factor).sum(dim=1)).sqrt()
     add = torch.where(row_norm > 1e-10,
                       lam / torch.clamp_min(row_norm, 1e-10),
                       torch.zeros_like(row_norm))
     return G + torch.diag(add.to(G.dtype))
 
 
-def apply_graph_reg(G, laplacian, factor, lam: float):
-    """features/graph_reg.hpp:46-59: G += lam * F @ L @ F.T (L dense)."""
+def apply_graph_reg(G, laplacian, factor, lam: float, axis=NO_AXIS):
+    """features/graph_reg.hpp:46-59: G += lam * F @ L @ F.T (L dense).  Under
+    a mesh the factor is gathered whole (L is the whole padded Laplacian)."""
     if lam <= 0 or laplacian is None:
         return G
+    factor = axis.gather(factor)
     return G + lam * ((factor @ laplacian) @ factor.T)
 
 
@@ -73,18 +79,19 @@ def apply_target(G, B, fc: FactorConfig, target, target_gram):
 
 
 def apply_features(G, B, factor, fc: FactorConfig, *, graph=None,
-                   target=None, target_gram=None):
+                   target=None, target_gram=None, axis=NO_AXIS):
     """The full shared sequence (variant_helpers.hpp:89-146)."""
     G, B = apply_l1_l2(G, B, fc.L1, fc.L2)
     if fc.graph_lambda > 0:
-        G = apply_graph_reg(G, graph, factor, fc.graph_lambda)
-    G = apply_l21(G, factor, fc.L21)
+        G = apply_graph_reg(G, graph, factor, fc.graph_lambda, axis)
+    G = apply_l21(G, factor, fc.L21, axis)
     if fc.target_lambda != 0:
         G, B = apply_target(G, B, fc, target, target_gram)
     return G, B
 
 
-def tier2_gram_addition(factor, fc: FactorConfig, graph=None):
+def tier2_gram_addition(factor, fc: FactorConfig, graph=None,
+                        axis=NO_AXIS):
     """Shared tier-2 Gram addition for per-column-Gram solves.
 
     Graph regularization and L21 depend only on the previous iterate of the
@@ -98,9 +105,9 @@ def tier2_gram_addition(factor, fc: FactorConfig, graph=None):
     k = factor.shape[0]
     GA = torch.zeros((k, k), dtype=factor.dtype, device=factor.device)
     if has_graph:
-        GA = apply_graph_reg(GA, graph, factor, fc.graph_lambda)
+        GA = apply_graph_reg(GA, graph, factor, fc.graph_lambda, axis)
     if fc.L21 > 0:
-        GA = apply_l21(GA, factor, fc.L21)
+        GA = apply_l21(GA, factor, fc.L21, axis)
     return GA
 
 
@@ -111,29 +118,29 @@ def apply_upper_bound(X, upper_bound: float):
     return torch.clamp_max(X, upper_bound)
 
 
-def apply_angular_posthoc(factor, lam: float):
+def apply_angular_posthoc(factor, lam: float, axis=NO_AXIS):
     """Post-NNLS angular decorrelation (features/angular.hpp:95-135).
 
     Gradient step on the sum of pairwise cosines, then clip to nonneg.
     """
     if lam <= 0:
         return factor
-    row_norms = (factor * factor).sum(dim=1).sqrt()
+    row_norms = axis.sum((factor * factor).sum(dim=1)).sqrt()
     safe = torch.clamp_min(row_norms, 1e-15)
     F_hat = torch.where(row_norms[:, None] > 1e-15, factor / safe[:, None],
                         factor)
-    cos_mat = F_hat @ F_hat.T
+    cos_mat = axis.sum(F_hat @ F_hat.T)
     cos_mat = cos_mat - torch.diag(torch.diag(cos_mat))
     grad = (cos_mat @ F_hat) * row_norms[:, None]
     return torch.clamp_min(factor - lam * grad, 0.0)
 
 
-def apply_angular_gram(G, factor, lam: float):
+def apply_angular_gram(G, factor, lam: float, axis=NO_AXIS):
     """Gram-based angular penalty of the SVD paths (angular.hpp:44-70):
     G += lam * the cosine overlap of the factor's rows."""
     if lam <= 0:
         return G
-    overlap = factor @ factor.T
+    overlap = axis.sum(factor @ factor.T)
     norms = torch.diagonal(overlap).sqrt()
     safe = torch.where(norms > 0, norms, torch.ones_like(norms))
     overlap = overlap / safe[:, None] / safe[None, :]

@@ -31,13 +31,16 @@ import torch
 
 from .. import constants
 from ..config import Norm
+from ..parallel.mesh import NO_AXIS
 from .rhs_tall import rhs_tall, rhs_tall_t
 from .weighted_gram import weighted_gram
 
 
-def gram(F: torch.Tensor) -> torch.Tensor:
-    """G = F @ F.T with the reference's +1e-15 diagonal guard (gram.hpp:30-62)."""
-    G = F @ F.T
+def gram(F: torch.Tensor, axis=NO_AXIS) -> torch.Tensor:
+    """G = F @ F.T with the reference's +1e-15 diagonal guard (gram.hpp:30-62).
+    ``axis``: the mesh axis F's columns are split over; the product is
+    summed over it before the guard is added once."""
+    G = axis.sum(F @ F.T)
     G.diagonal().add_(constants.TINY_NUM)     # in place: G is a fresh tensor
     return G
 
@@ -57,39 +60,46 @@ def rhs(F: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     return F @ A
 
 
-def extract_scaling(X: torch.Tensor, norm: Norm):
+def extract_scaling(X: torch.Tensor, norm: Norm, axis=NO_AXIS):
     """d = row norms of X (+1e-15), X normalized (variant_helpers.hpp:287-305).
+    ``axis``: the mesh axis X's columns are split over; the row sums are
+    summed over it before the root and the division, so that d is the same
+    on every rank.
 
     Returns (X_normalized, d).
     """
     if norm == Norm.NONE:
         return X, torch.ones((X.shape[0],), dtype=X.dtype, device=X.device)
     if norm == Norm.L1:
-        d = X.abs().sum(dim=1)
+        d = axis.sum(X.abs().sum(dim=1))
     else:
-        d = (X * X).sum(dim=1).sqrt()
+        d = axis.sum((X * X).sum(dim=1)).sqrt()
     d = d + constants.TINY_NUM
     return X / d[:, None], d
 
 
-def gram_trick_loss(trAtA, G: torch.Tensor, B: torch.Tensor, H: torch.Tensor):
+def gram_trick_loss(trAtA, G: torch.Tensor, B: torch.Tensor, H: torch.Tensor,
+                    axis=NO_AXIS):
     """SSE via the Gram trick: ||A - F.T H||^2 = tr(A'A) - 2 tr(B'H) + tr(G HH')
-    where B = F @ A and G = F @ F.T (nmf/fit_cpu.hpp:17-20)."""
-    cross = (B * H).sum()
-    recon = (G * (H @ H.T)).sum()
+    where B = F @ A and G = F @ F.T (nmf/fit_cpu.hpp:17-20).  ``axis``: the
+    mesh axis B's and H's columns are split over."""
+    cross = axis.sum((B * H).sum())
+    recon = (G * axis.sum(H @ H.T)).sum()
     return trAtA - 2.0 * cross + recon
 
 
-def mse_loss_from_saved(trAtA, W_T, d, B_w, G_w):
+def mse_loss_from_saved(trAtA, W_T, d, B_w, G_w, axis=NO_AXIS):
     """Per-iteration MSE (SSE) reusing the W-update's matrices
     (fit_cpu.hpp:1710-1753):
 
       cross = sum_i d_i * <W_T[i, :], B_w[i, :]>      with B_w = H @ A.T
       recon = sum_ij d_i d_j gram(W_T)_ij * G_w_ij    with G_w = gram(H)
       loss  = tr(A'A) - 2*cross + recon
+
+    ``axis``: the mesh axis W_T's and B_w's columns are split over.
     """
-    G_wt = gram(W_T)
-    cross = (d[:, None] * W_T * B_w).sum()
+    G_wt = gram(W_T, axis)
+    cross = axis.sum((d[:, None] * W_T * B_w).sum())
     recon = ((d[:, None] * d[None, :]) * G_wt * G_w).sum()
     return trAtA - 2.0 * cross + recon
 

@@ -1,7 +1,7 @@
 """Checkpoint / resume for factor models.
 
 The port of ``rcppml_tpu/utils/checkpoint.py:24-578``, without the device
-mesh (ROADMAP.md, Queue 1 item 14).  The files are the JAX package's: the same ``.npz`` keys, shapes and types, the
+mesh (ROADMAP.md, Queue 1 item 14b).  The files are the JAX package's: the same ``.npz`` keys, shapes and types, the
 config as the same JSON, ``mesh_shape`` written as ``(0, 0)``.  A file
 written by either package loads in the other.
 

@@ -16,13 +16,26 @@ def gpu_available() -> bool:
     return torch.cuda.is_available()
 
 
+def _default_mesh_shape():
+    """The shape ``default_mesh()`` gives over this process's world, or None
+    where it cannot be made (no card for this rank)."""
+    from ..parallel.mesh import default_mesh
+    try:
+        return dict(default_mesh().shape)
+    except (RuntimeError, ValueError):
+        return None
+
+
 def gpu_info() -> dict:
-    """The cards: name, compute capability, memory and count, and whether
-    the hand-written kernels (sm_90a) can run on card 0."""
+    """The cards: name, compute capability, memory and count, whether the
+    hand-written kernels (sm_90a) can run on card 0, and ``default_mesh``,
+    the (rows, cols) shape of the default mesh over the process group's
+    ranks (None without a card).  Every rank of a process group calls it
+    together, as it does ``default_mesh``."""
     from ..device import kernels_available
     if not gpu_available():
         return {"backend": "cpu", "num_devices": 0, "devices": [],
-                "kernels_available": False}
+                "kernels_available": False, "default_mesh": None}
     devices = []
     for i in range(torch.cuda.device_count()):
         props = torch.cuda.get_device_properties(i)
@@ -31,7 +44,8 @@ def gpu_info() -> dict:
                         "total_memory": int(props.total_memory),
                         "multiprocessors": int(props.multi_processor_count)})
     return {"backend": "cuda", "num_devices": len(devices),
-            "devices": devices, "kernels_available": kernels_available()}
+            "devices": devices, "kernels_available": kernels_available(),
+            "default_mesh": _default_mesh_shape()}
 
 
 def select_resources(nnz: int = 0, n: int = 0) -> str:

@@ -271,10 +271,23 @@ def test_mask_errors():
                 device="cpu")
     with pytest.raises(ValueError, match="use an int"):
         rtt.nmf(np.ones((6, 5), np.float32), "best", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        nmf_cv.fit_cv_or_masked(np.ones((6, 5), np.float32),
-                                rtt.build_config(2, test_fraction=0.2),
-                                mesh=object(), device="cpu")
+    # mesh= raised until queue 1 item 14a was ported: a (1, 1) mesh now
+    # fits as the JAX package's does, and device= must be the rank's
+    A = simulate_nmf(30, 20, 2, noise=0.05, seed=0)["A"]
+    kw = dict(test_fraction=0.2, cv_seed=3, maxit=4, tol=0, seed=1,
+              sort_model=False)
+    one = rtt.default_mesh(devices=["cpu"], shape=(1, 1))
+    port = nmf_cv.fit_cv_or_masked(A, rtt.build_config(2, **kw), mesh=one,
+                                   device="cpu")
+    import jax
+    from rcppml_tpu.parallel.mesh import default_mesh as ref_mesh
+    ref = ref_cv.fit_cv_or_masked(A, rt.build_config(2, **kw),
+                                  mesh=ref_mesh(jax.devices()[:1], (1, 1)))
+    np.testing.assert_allclose(port.test_loss_history, ref.test_loss_history,
+                               rtol=1e-4)
+    with pytest.raises(ValueError, match="disagrees"):
+        nmf_cv.fit_cv_or_masked(A, rtt.build_config(2, **kw), mesh=one,
+                                device="cuda")
     # a callback is taken and never called here, as in the JAX package
     # (it raised until queue 1 item 6 was ported)
     calls = []

@@ -357,8 +357,23 @@ def test_unported_irls_branch_raises(branch, counts):
 
 
 def test_valid_dims_is_not_ported(counts):
-    cfg = rtt.build_config(K, loss="kl", maxit=1)
+    """``valid_dims`` (A zero-padded beyond the true (m, n), the accounting
+    on the valid region) raised until queue 1 item 14a was ported; now the
+    fit is held to the JAX package's ``fit_irls(valid_dims=)`` on the same
+    padded matrix and factors, NB with per-row dispersion and per-row zero
+    inflation, and its pads stay exact zeros."""
+    kw = dict(loss="nb", zi="row", maxit=3, tol=0, sort_model=False)
+    cfg, ref_cfg = rtt.build_config(K, **kw), rt.build_config(K, **kw)
     W_T0, H0, d0 = port_nmf.init_factors(cfg, M, N)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        nmf_irls.fit_irls(torch.from_numpy(counts), cfg, W_T0, H0, d0, {},
-                          valid_dims=(M - 1, N - 1))
+    pm, pn = 3, 5
+    A_p = np.pad(counts, ((0, pm), (0, pn)))
+    W_p, H_p = np.pad(W_T0, ((0, 0), (0, pm))), np.pad(H0, ((0, 0), (0, pn)))
+    port = nmf_irls.fit_irls(torch.from_numpy(A_p), cfg, W_p, H_p, d0, {},
+                             valid_dims=(M, N))
+    ref = ref_irls.fit_irls(jnp.asarray(A_p), ref_cfg, jnp.asarray(W_p),
+                            jnp.asarray(H_p), jnp.asarray(d0), {},
+                            valid_dims=(M, N))
+    for res in (port, ref):
+        res.theta, res.pi_row = res.theta[:M], res.pi_row[:M]
+    assert not port.W[M:].any() and not port.H[:, N:].any()
+    _assert_same_fit(port, ref, 3)

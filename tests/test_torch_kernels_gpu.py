@@ -1189,3 +1189,74 @@ def test_multimodal_fit_is_the_stacked_fit_bitwise(cuda):
     np.testing.assert_array_equal(lr.W_blocks["modal2"], single.W[600:])
     np.testing.assert_array_equal(lr.H, single.H)
     np.testing.assert_array_equal(lr.d, single.d)
+
+
+def test_one_by_one_mesh_over_nccl_is_the_plain_fit(cuda):
+    """A (1, 1) mesh at world size 1 over NCCL: the MSE fit is the plain fit
+    bit for bit, with kernel 6 launched twice an iteration (no collective
+    runs on an axis of one rank)."""
+    import socket
+    import torch.distributed as dist
+    import rcppml_tpu_torch as rtt
+    from rcppml_tpu_torch.ops import cholesky_clip
+    from rcppml_tpu_torch.parallel import multihost
+    from rcppml_tpu_torch.utils.simulate import simulate_nmf
+    A = torch.from_numpy(simulate_nmf(1200, 400, 20, noise=0.5, dropout=0.9,
+                                      seed=3)["A"]).to(cuda)
+    plain = rtt.nmf(A, 20, maxit=10, tol=0, seed=1)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    info = multihost.initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        assert info["backend"] == "nccl" and info["process_count"] == 1
+        mesh = rtt.default_mesh()
+        assert mesh.shape == {"rows": 1, "cols": 1}
+        before = cholesky_clip.cholesky_clip.launches
+        res = rtt.nmf(A, 20, maxit=10, tol=0, seed=1, mesh=mesh)
+        assert cholesky_clip.cholesky_clip.launches - before == 20
+    finally:
+        dist.destroy_process_group()
+        multihost._RANK_DEVICE.clear()
+    for name in ("W", "d", "H", "loss_history"):
+        np.testing.assert_array_equal(getattr(res, name),
+                                      getattr(plain, name))
+
+
+def test_two_ranks_share_the_card_over_gloo(cuda, tmp_path):
+    """Two processes on card 0 join over gloo, each passing only its column
+    half through ``shard_host_data`` on a (1, 2) mesh: the fit equals the
+    single-card fit (rtol 1e-4, atol 1e-5), kernel 6 launched twice an
+    iteration on each rank's block."""
+    import os
+    import subprocess
+    import sys
+    import rcppml_tpu_torch as rtt
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "torch_multiproc_worker.py")
+    out = tmp_path / "mp.npz"
+    env = dict(os.environ)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    procs = [subprocess.Popen(
+        [sys.executable, worker, str(i), str(tmp_path / "store"), str(out),
+         "cuda"], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for i in range(2)]
+    logs = []
+    for p in procs:
+        try:
+            log, _ = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            log, _ = p.communicate()
+        logs.append(log)
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    z = np.load(out)
+    rs = np.random.RandomState(0)
+    A = np.abs(rs.rand(24, 32)).astype(np.float32)
+    ref = rtt.nmf(torch.from_numpy(A).to(cuda), 4, seed=42, maxit=20, tol=0,
+                  sort_model=False)
+    assert int(z["iterations"]) == ref.iterations
+    assert int(z["launches"]) == 2 * 20
+    np.testing.assert_allclose(z["W"], ref.W, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(z["H"], ref.H, rtol=1e-4, atol=1e-5)

@@ -244,7 +244,7 @@ UNPORTED = {
     "multi_restart_checkpoint": dict(seed=[1, 2], checkpoint_path="fit.ckpt"),
     "svd_init": dict(seed="lanczos"),
     "streaming": dict(streaming=True),
-    "mesh": dict(mesh=object()),
+    "mesh": dict(mesh=(1, 1)),
 }
 
 
@@ -259,8 +259,22 @@ def test_unported_branch_raises(branch, data, tmp_path):
     fit, one file per restart (``tests/test_torch_checkpoint.py`` holds
     them in full).  ``streaming=True`` runs the streaming engine, within
     the fit bars of the JAX package's streaming fit
-    (``tests/test_torch_streaming.py`` holds it in full)."""
+    (``tests/test_torch_streaming.py`` holds it in full).  ``mesh=`` fits on
+    a (1, 1) mesh as the JAX package does (``tests/test_torch_parallel.py``
+    holds the sharded fits in full)."""
     kw = UNPORTED[branch]
+    if branch == "mesh":
+        import jax
+        from rcppml_tpu.parallel.mesh import default_mesh as ref_mesh
+        shape = kw["mesh"]
+        res = rtt.nmf(data, K, tol=0, maxit=4, seed=1, device="cpu",
+                      mesh=rtt.default_mesh(devices=["cpu"], shape=shape))
+        ref = rt.nmf(data, K, tol=0, maxit=4, seed=1,
+                     mesh=ref_mesh(jax.devices()[:1], shape))
+        _assert_loss_close(res.loss_history, ref.loss_history, data)
+        assert np.abs(res.W - ref.W).max() <= 2e-3 * np.abs(ref.W).max()
+        assert "config" in res.misc
+        return
     if "checkpoint_path" in kw:
         path = tmp_path / kw["checkpoint_path"]
         kw = dict(kw, checkpoint_path=str(path))
