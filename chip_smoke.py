@@ -89,7 +89,18 @@ the card, and times kernels, twins and fits with CUDA events:
     over 20 iterations a last-bit change of a sum's order grows past the
     bars, on one card too), the wall clock and each rank's device time
     printed; the twin phases hold kernels 6, 1, 2, 7 and 8 at the ranks'
-    block shapes.
+    block shapes;
+  * the mesh's three consumers on phase 31's ranks and mesh (phase 32):
+    (a) checkpointed mesh fits at the pbmc3k shape (MSE default, CD and
+    ``bf16_data`` k=20, KL k=16, NB + ZI by row k=20), each stopped at
+    half its iterations and resumed from its file, bit for bit the
+    uninterrupted mesh fit with the same launches on every rank; (b)
+    sharded streams of phase 26's (i) (MSE k=20 over 20 sweeps, CV k=16
+    over 5), every rank reading the file with its own loader, held to
+    phase 27's single-card streams; (c) phase 30's nets (a) and (c) on the
+    mesh, held to phase 30's single-card nets; each path's slowest-rank
+    wall, device time a rank, host decode a rank and sweep and the bytes
+    through the collectives printed.
 
 Each phase prints its own lines and any failure raises, so the exit code is
 non-zero.  There is no CPU fallback: without a CUDA card of compute
@@ -111,9 +122,11 @@ consensus_nmf and the graph engine's fused net (a) and host loop (d).
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -425,7 +438,7 @@ def graph_cdb_cases(nmf_irls):
 # STREAM_W_TOL of their largest entry, the IRLS loss within MESH_IRLS_RTOL
 # (tests/test_parallel.py:162), the CV test loss within MESH_CV_RTOL (:154).
 # The ranks join within MESH_TIMEOUT_S or are killed and fail the run
-MESH_SHAPE, MESH_RANKS, MESH_TIMEOUT_S = (2, 4), 8, 420.0
+MESH_SHAPE, MESH_RANKS, MESH_TIMEOUT_S = (2, 4), 8, 600.0
 MESH_LOSS_TR, MESH_IRLS_RTOL, MESH_CV_RTOL = 1e-6, 1e-5, 1e-4
 MESH_FITS = {
     "MSE default k=20": ("A", PBMC["k"], dict(maxit=MAXIT, tol=0, seed=1)),
@@ -448,6 +461,77 @@ MESH_FITS = {
 # mesh's order (mesh_order_fit); the gap to the plain single-card fit is
 # printed
 MESH_REORDERED = ("MSE bf16_data k=20", f"KL k={KL_K}")
+# phase 32, on the same ranks and mesh.  (a) checkpointed mesh fits: label
+# -> (matrix, k, keywords, checkpoint_every), phase 24's fits and phase
+# 31's bf16_data fit (kernels 7 and 8); each runs to half its maxit, then
+# resumes, and is held bit for bit to the uninterrupted mesh fit (phase
+# 31's where it ran the same call) with the same launches a rank.  (b) sharded streams of phase 26's (i), phase 27's
+# calls, held to phase 27's single-card streams within STREAM_LOSS_RTOL
+# (the loss) and STREAM_W_TOL (W's largest entry).  (c) phase 30's nets (a)
+# and (c), held to phase 30's single-card nets with phase 30's bars for
+# the same net with its sums in another order (the card against the CPU):
+# the loss within SMALL_RTOL, each factor within SMALL_FACTOR_TOL of its
+# largest entry.  Net (c)'s top layer turns a last-bit change into 1e-3 of
+# its W on one device already (one ulp of one entry of A moves it 1.5e-3 on
+# the CPU), past the host loop's rtol 2e-3 / atol 2e-4
+MESH_CKPT = {
+    "MSE default k=20": ("A", PBMC["k"], dict(maxit=MAXIT, tol=0, seed=1),
+                         CKPT_EVERY),
+    "MSE CD k=20": ("A", PBMC["k"], dict(solver="cd", maxit=MAXIT, tol=0,
+                                         seed=1), CKPT_EVERY),
+    "MSE bf16_data k=20": ("A", PBMC["k"], dict(bf16_data=True, maxit=MAXIT,
+                                                tol=0, seed=1), CKPT_EVERY),
+    f"KL k={KL_K}": ("counts", KL_K, dict(loss="kl", maxit=KL_MAXIT, tol=0,
+                                          seed=1), CKPT_EVERY),
+    f"NB zi=row k={NBZI_K}": ("nb", NBZI_K, dict(
+        loss="nb", zi="row", maxit=NBZI_MAXIT, tol=0, seed=1),
+        NBZI_CKPT_EVERY),
+}
+MESH_STREAMS = {
+    f"MSE k={STREAM_K}": (STREAM_K, dict(maxit=STREAM_MAXIT, tol=0,
+                                         seed=1)),
+    f"CV k={STREAM_CV_K}": (STREAM_CV_K, dict(
+        solver="cd", test_fraction=STREAM_CV_FRACTION, cv_seed=1,
+        cv_patience=STREAM_CV_MAXIT + 1, maxit=STREAM_CV_MAXIT, tol=0,
+        seed=1)),
+}
+MESH_GRAPHS = ("(a)", "(c)")
+
+
+def mesh_stream_blocks():
+    """(rows, columns) of one rank's block of each panel of (i) on
+    MESH_SHAPE: a forward panel split (rows, cols), a transposed one
+    (cols, rows)."""
+    r, c = MESH_SHAPE
+    out = []
+    for rows, width in stream_panels(STREAM_I):
+        split = (r, c) if rows == STREAM_I["m"] else (c, r)
+        out.append((-(-rows // split[0]), -(-width // split[1])))
+    return out
+
+
+def mesh_consumer_chol_cases():
+    """Kernel 6 at the shapes phase 32 gives it beyond phase 31's: the
+    mesh stream's panel blocks, and the blocks of net (c)'s two data
+    layers (rows GRAPH_SPLIT and the rest, k of their branch)."""
+    _, nb = mesh_blocks()
+    r = MESH_SHAPE[0]
+    k1, k2, _ = GRAPH_BRANCH_KS
+    rows2 = PBMC["m"] - GRAPH_SPLIT
+    return sorted({(STREAM_K, w) for _, w in mesh_stream_blocks()}
+                  | {(k1, -(-GRAPH_SPLIT // r)), (k1, nb),
+                     (k2, -(-rows2 // r)), (k2, nb)})
+
+
+def mesh_consumer_cdb_cases(nmf_irls):
+    """Kernel 2's column blocks in the mesh CV stream's panel solves."""
+    out = set()
+    for rows, nc in mesh_stream_blocks():
+        bc = nmf_irls._block_count(nc, STREAM_CV_K, rows,
+                                   kr=nmf_irls._use_kr(STREAM_CV_K, rows))
+        out |= {(STREAM_CV_K, min(bc, nc - j0), 0.0, 0.0, False)
+                for j0 in range(0, nc, bc)}
+    return sorted(out)
 
 
 def mesh_blocks():
@@ -1146,7 +1230,8 @@ def check_cholesky_clip():
     all_equal = True
     cases = [(k, n) for k in CHOL_KS for n in CHOL_NS] + [
         (k, n) for k in CHOL_EDGE_KS for n in CHOL_EDGE_NS] + \
-        STREAM_CHOL_CASES + GRAPH_CHOL_CASES + mesh_chol_cases()
+        STREAM_CHOL_CASES + GRAPH_CHOL_CASES + mesh_chol_cases() + \
+        mesh_consumer_chol_cases()
     for k, n in cases:
         G, B = chol_system(k, n, seed=k * 7919 + n)
         L = torch.linalg.cholesky(G)
@@ -2000,17 +2085,20 @@ def stream_fit(path, k, *, stats=None, **kw):
     from rcppml_tpu_torch.models.nmf_chunked import nmf_chunked
     engine = {key: kw.pop(key) for key in ("panel_cache", "sparse_panels",
                                            "checkpoint_path",
-                                           "checkpoint_every") if key in kw}
+                                           "checkpoint_every", "mesh")
+              if key in kw}
     return nmf_chunked(SpzLoader(path), rtt.build_config(k, **kw),
                        stats=stats, **engine)
 
 
-def streaming_phases(rtt, card, counted, reset_counts, kernels):
+def streaming_phases(rtt, card, counted, reset_counts, kernels, keep):
     """Phases 26-29: the .spz codec on matrices (i) and (ii), streaming MSE
     on (i) with both solvers against the in-memory card fit, its cache,
     sparse-panel and checkpoint modes bit for bit, the wire cache, KL and
     CV streams, streaming SVD and nnls_streaming.  Returns ({label: ms},
-    {kernel name: {path label: launches}})."""
+    {kernel name: {path label: launches}}).  ``keep``: a dict given a copy
+    of (i)'s file in the directory ``keep["dir"]`` ("spz") and phase 27's
+    MSE and CV streams of it (MESH_STREAMS labels), for phase 32."""
     import tempfile
 
     from rcppml_tpu_torch.io.loaders import SpzLoader
@@ -2073,6 +2161,8 @@ def streaming_phases(rtt, card, counted, reset_counts, kernels):
             del back
         del S_ii
         times["phase 26"] = (time.perf_counter() - t_phase) * 1e3
+        keep["spz"] = os.path.join(keep["dir"], "i.spz")
+        shutil.copy(paths["(i)"], keep["spz"])
 
         t_phase = time.perf_counter()
         phase(f"27 streaming MSE from the .spz of (i), k={STREAM_K}, "
@@ -2117,6 +2207,7 @@ def streaming_phases(rtt, card, counted, reset_counts, kernels):
                   f"each)  [{card}]", flush=True)
             if solver == "cholesky":
                 cached = res
+                keep[f"MSE k={STREAM_K}"] = res
         fields = ("W", "d", "H", "loss_history")
 
         def same(a, b):
@@ -2230,6 +2321,7 @@ def streaming_phases(rtt, card, counted, reset_counts, kernels):
             path, STREAM_CV_K, solver="cd", test_fraction=STREAM_CV_FRACTION,
             cv_seed=1, cv_patience=STREAM_CV_MAXIT + 1,
             maxit=STREAM_CV_MAXIT, tol=0, seed=1))
+        keep[f"CV k={STREAM_CV_K}"] = res
         got = only(cd_batched, "streaming CV")
         check(got == STREAM_CV_MAXIT * blocks,
               f"streaming CV: kernel 2 once a column block a sweep ({got} "
@@ -2338,10 +2430,11 @@ def graph_layers_equal(a, b):
         same_factors(a[name], b[name]) for name in a.layers)
 
 
-def graph_phase(rtt, card, counted, reset_counts, kernels, A_ct):
+def graph_phase(rtt, card, counted, reset_counts, kernels, A_ct, keep):
     """Phase 30: the graph engine at the pbmc3k shape, (a) to (f) of the
     module docstring.  Returns ({label: ms}, {kernel name: {path label:
-    launches}})."""
+    launches}}).  ``keep``: a dict given the nets' (a) and (c) results
+    (MESH_GRAPHS labels), for phase 32."""
     from rcppml_tpu_torch.models import graph as tg
     chol, cd_shared, cd_batched = (kernels["cholesky_clip"],
                                    kernels["cd_nnls_shared"],
@@ -2349,6 +2442,7 @@ def graph_phase(rtt, card, counted, reset_counts, kernels, A_ct):
     times = {}
     launches = {name: {} for name in kernels}
     A, A_new = graph_matrix()
+    keep["graph"] = A
     m, n = A.shape
 
     def got():
@@ -2394,7 +2488,7 @@ def graph_phase(rtt, card, counted, reset_counts, kernels, A_ct):
               flush=True)
         if solver != "auto":
             continue
-        res_a = res
+        res_a = keep["(a)"] = res
         # the same net through the host loop, and on the CPU
         net_h = graph_deep_net(rtt, A)
         net_h._fit_deep_fused = lambda *args, **kw: None
@@ -2470,6 +2564,7 @@ def graph_phase(rtt, card, counted, reset_counts, kernels, A_ct):
     net_c = graph_branched_net(rtt, A)
     reset_counts()
     res_b, ms_c = timed_once(lambda: rtt.fit(net_c))
+    keep["(c)"] = res_b
     want = 2 * sum(net_c._warm_iterations) + 2 * 3 * GRAPH["maxit"]
     check(net_c._fused_fn is not None and got() == {"cholesky_clip": want},
           f"(c) the fused path, kernel 6 only, {want} launches: {got()}")
@@ -2656,10 +2751,138 @@ def mesh_rank(rank, init_file, data_dir, out_dir):
                         if getattr(res, name, None) is not None},
                      train_loss=res.train_loss, test_loss=res.test_loss,
                      iterations=res.iterations)
+    consumers = mesh_consumers(rtt, mesh, rank, data_dir, out_dir, data,
+                               wrappers, report)
     if rank == 0:
         with open(os.path.join(out_dir, "report.json"), "w") as f:
-            json.dump({"ready": ready, "fits": report}, f)
+            json.dump({"ready": ready, "fits": report,
+                       "consumers": consumers}, f)
+    dist.barrier()
     dist.destroy_process_group()
+
+
+def mesh_consumers(rtt, mesh, rank, data_dir, out_dir, data, wrappers,
+                   fits):
+    """Phase 32 on one rank of phase 31's mesh: every path of MESH_CKPT,
+    MESH_STREAMS and MESH_GRAPHS once, each under ``torch.profiler`` (the
+    device time of this rank's kernels), its launches counted from zero.
+    ``fits``: phase 31's report (the uninterrupted mesh fits' digests and
+    launches).  Returns, on rank 0, {path: every rank's report}; rank 0
+    writes its own results to ``out_dir``."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    from rcppml_tpu_torch.models import graph as tg
+    from rcppml_tpu_torch.parallel import mesh as mesh_mod
+    data = dict(data, nb=np.load(os.path.join(data_dir, "nb.npy"),
+                                 mmap_mode="r"))
+    spz = os.path.join(data_dir, "i.spz")
+    A_graph = np.load(os.path.join(data_dir, "graph.npy"))
+    report = {}
+
+    def run(path, fn):
+        for w in wrappers.values():
+            w.launches = 0
+        before = dict(mesh_mod.traffic)
+        t_path = time.perf_counter()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            res, extra = fn()
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        # the CUDA activities' durations summed from the raw trace: what
+        # key_averages() sums as their self device time, without building
+        # its event tree (tens of seconds for a stream's events); the paths
+        # other than the streams print key_averages()'s sum beside it
+        device_ms = sum(e.duration_ns()
+                        for e in prof.profiler.kineto_results.events()
+                        if e.device_type() == DeviceType.CUDA) / 1e6
+        mine = {"launches": {name: w.launches
+                             for name, w in wrappers.items()},
+                "wall_s": wall_s, "device_ms": device_ms,
+                "traffic": {key: mesh_mod.traffic[key] - before[key]
+                            for key in before}, **extra}
+        if not path.startswith("stream"):
+            mine["key_averages_ms"] = sum(
+                e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA) / 1e3
+        # the whole path on this rank: the wait for the others, the fit,
+        # the profiler's own work on its events
+        mine["path_s"] = time.perf_counter() - t_path
+        every = [None] * MESH_RANKS
+        dist.all_gather_object(every, mine)
+        report[path] = every
+        if rank == 0:
+            np.savez(os.path.join(out_dir, f"{path}.npz"), **res)
+        return mine
+
+    def arrays(res):
+        return {name: np.asarray(getattr(res, name))
+                for name in ("W", "d", "H", "loss_history",
+                             "test_loss_history", "theta", "pi_row")
+                if getattr(res, name, None) is not None} | {
+            "train_loss": res.train_loss, "test_loss": res.test_loss,
+            "iterations": res.iterations}
+
+    # (a) checkpointed mesh fits
+    for i, (label, (matrix, k, kw, every)) in enumerate(MESH_CKPT.items()):
+        path = os.path.join(out_dir, f"ckpt{i}.npz")
+        half = kw["maxit"] // 2
+
+        def uninterrupted():
+            res = rtt.nmf(data[matrix], k, mesh=mesh, **kw)
+            return arrays(res), {"digest": result_digest(res)}
+        whole = (fits[label][rank] if label in fits
+                 else run(f"uninterrupted {label}", uninterrupted))
+
+        def ckpt():
+            rtt.nmf(data[matrix], k, mesh=mesh, checkpoint_path=path,
+                    checkpoint_every=every, **dict(kw, maxit=half))
+            res = rtt.nmf(data[matrix], k, mesh=mesh, checkpoint_path=path,
+                          checkpoint_every=every, **kw)
+            return arrays(res), {"digest": result_digest(res),
+                                 "uninterrupted": whole["digest"],
+                                 "uninterrupted_launches":
+                                     whole["launches"],
+                                 "segments": -(-half // every) + -(-(
+                                     kw["maxit"] - half) // every)}
+        run(f"checkpointed {label}", ckpt)
+
+    # (b) sharded streams of (i), every rank reading the file itself
+    for label, (k, kw) in MESH_STREAMS.items():
+        def stream():
+            stats = {}
+            res = stream_fit(spz, k, stats=stats, mesh=mesh, **kw)
+            return arrays(res), {"decode_s": stats["decode_s"],
+                                 "sweep_s": stats["sweep_s"],
+                                 "upload_bytes": stats.get("upload_bytes",
+                                                           0),
+                                 "digest": result_digest(res)}
+        run(f"stream {label}", stream)
+
+    # (c) phase 30's nets on the mesh
+    for label in MESH_GRAPHS:
+        net = (graph_deep_net(rtt, A_graph) if label == "(a)"
+               else graph_branched_net(rtt, A_graph))
+
+        def graph():
+            reads = tg._outer_als.host_reads
+            res = rtt.fit(net, mesh=mesh)
+            out = {"total_loss": res.total_loss,
+                   "iterations": res.total_iterations}
+            for name, lr in res.layers.items():
+                for f in ("W", "d", "H"):
+                    out[f"{name}.{f}"] = getattr(lr, f)
+            h = __import__("hashlib").sha256()
+            for key in sorted(out):
+                h.update(np.ascontiguousarray(out[key]).tobytes())
+            return out, {"digest": h.hexdigest(),
+                         "warm": sum(net._warm_iterations),
+                         "host_reads": tg._outer_als.host_reads - reads}
+        run(f"graph {label}", graph)
+    return report
 
 
 def mesh_phase_one_rank(rtt, counted, reset_counts, chol, cd_shared, A_pb,
@@ -2725,43 +2948,49 @@ def mesh_gaps(res, ref, tr, label):
     return gap, MESH_LOSS_TR, "loss over tr(A'A)", W_err, H_err
 
 
-def mesh_phase_ranks(rtt, card, refs, order_refs, A_pb, A_ct, M_pb):
+def mesh_phase_ranks(rtt, card, refs, order_refs, A_pb, A_ct, M_pb, extra):
     """Phase 31 (b): MESH_RANKS ranks sharing the card over gloo, a
     MESH_SHAPE mesh at the pbmc3k shape.  ``refs``: the single-card fit of
     each MESH_FITS label; ``order_refs``: for MESH_REORDERED, the
     single-card fit with its sums in the mesh's order (mesh_order_fit).
     Checks each rank's launches, that every rank returned the same result,
     and rank 0's result against the single-card fit (in the mesh's order
-    where there is one); prints the times.  Returns {kernel: {label:
-    launches per rank}}."""
-    import tempfile
+    where there is one); prints the times.  ``extra``: phase 32's inputs
+    (``nb``, ``graph``: host matrices; ``spz``: the path of (i); ``dir``:
+    an empty directory the caller removes, where the ranks read their
+    inputs and rank 0 writes its results).  Returns ({kernel: {label:
+    launches per rank}}, phase 32's report)."""
     import torch.multiprocessing as mp
     mb, nb = mesh_blocks()
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, t in (("A", A_pb), ("counts", A_ct), ("mask", M_pb)):
-            np.save(os.path.join(tmp, f"{name}.npy"), t.cpu().numpy())
-        t0, spawned = time.perf_counter(), time.time()
-        ctx = mp.start_processes(
-            mesh_rank, args=(os.path.join(tmp, "store"), tmp, tmp),
-            nprocs=MESH_RANKS, join=False, start_method="spawn")
-        try:
-            while not ctx.join(timeout=5):
-                if time.perf_counter() - t0 > MESH_TIMEOUT_S:
-                    raise RuntimeError(f"chip_smoke: the {MESH_RANKS} mesh "
-                                       f"ranks did not finish within "
-                                       f"{MESH_TIMEOUT_S:.0f} s")
-        finally:
-            for proc in ctx.processes:
-                if proc.is_alive():
-                    proc.kill()
-                proc.join()
-        ranks_s = time.perf_counter() - t0
-        with open(os.path.join(tmp, "report.json")) as f:
-            report = json.load(f)
-        ready_s, report = report["ready"] - spawned, report["fits"]
-        got = {label: dict(np.load(os.path.join(tmp, f"fit{i}.npz")))
-               for i, label in enumerate(MESH_FITS)}
+    tmp = extra["dir"]
+    for name, t in (("A", A_pb), ("counts", A_ct), ("mask", M_pb),
+                    ("nb", extra["nb"]), ("graph", extra["graph"])):
+        np.save(os.path.join(tmp, f"{name}.npy"),
+                t.cpu().numpy() if isinstance(t, torch.Tensor) else t)
+    os.symlink(extra["spz"], os.path.join(tmp, "i.spz"))
+    t0, spawned = time.perf_counter(), time.time()
+    ctx = mp.start_processes(
+        mesh_rank, args=(os.path.join(tmp, "store"), tmp, tmp),
+        nprocs=MESH_RANKS, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > MESH_TIMEOUT_S:
+                raise RuntimeError(f"chip_smoke: the {MESH_RANKS} mesh "
+                                   f"ranks did not finish within "
+                                   f"{MESH_TIMEOUT_S:.0f} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+    ranks_s = time.perf_counter() - t0
+    with open(os.path.join(tmp, "report.json")) as f:
+        report = json.load(f)
+    ready_s, consumers = report["ready"] - spawned, report["consumers"]
+    report = report["fits"]
+    got = {label: dict(np.load(os.path.join(tmp, f"fit{i}.npz")))
+           for i, label in enumerate(MESH_FITS)}
     print(f"(b) {MESH_RANKS} ranks, gloo on one card ({card}), mesh "
           f"{MESH_SHAPE}, blocks of {mb} x {nb}: {ranks_s:.1f} s from spawn "
           f"to join, the mesh ready after {ready_s:.1f} s", flush=True)
@@ -2837,7 +3066,118 @@ def mesh_phase_ranks(rtt, card, refs, order_refs, A_pb, A_ct, M_pb):
                           f"largest entry past {STREAM_W_TOL}")
     check(not failed, "every mesh fit within its bars of the single-card "
           "fit: " + "; ".join(failed))
-    return launches_by
+    return launches_by, consumers
+
+
+def consumers_phase(report, out_dir, refs, card, nmf_irls):
+    """Phase 32's checks and lines, from the ranks' ``report`` (one entry a
+    path, every rank's) and rank 0's results in ``out_dir``.  ``refs``:
+    phase 27's streams and phase 30's nets by MESH_STREAMS and MESH_GRAPHS
+    label.  Returns ({kernel: {path label: launches per rank}}, the sum of
+    the paths' slowest-rank walls in seconds)."""
+    launches_by, failed = {}, []
+    panels = len(stream_panels(STREAM_I))
+    cv_blocks = sum(-(-nc // nmf_irls._block_count(
+        nc, STREAM_CV_K, rows, kr=nmf_irls._use_kr(STREAM_CV_K, rows)))
+        for rows, nc in mesh_stream_blocks())
+    walls = 0.0
+    for path, every in report.items():
+        res = dict(np.load(os.path.join(out_dir, f"{path}.npz")))
+        check(len({r["digest"] for r in every}) == 1,
+              f"{path}: every rank returns the same result")
+        nonzero = [{n: v for n, v in r["launches"].items() if v}
+                   for r in every]
+        for name in nonzero[0]:
+            launches_by.setdefault(name, {})[
+                f"mesh {MESH_SHAPE} {path}, per rank"] = [
+                    r["launches"][name] for r in every]
+        wall = max(r["wall_s"] for r in every)
+        walls += wall
+        line = (f"{path}: launches per rank {nonzero[0]}; wall {wall:.2f} s "
+                f"(slowest rank, under the profiler; "
+                f"{max(r['path_s'] for r in every):.2f} s with the wait and "
+                f"the profiler's work), device ms per rank "
+                f"{[round(r['device_ms'], 1) for r in every]}")
+        if "key_averages_ms" in every[0]:
+            line += (" (key_averages: "
+                     f"{[round(r['key_averages_ms'], 1) for r in every]})")
+        label = path.split(" ", 1)[1]
+        if path.startswith("checkpointed"):
+            for rank, r in enumerate(every):
+                check(r["digest"] == r["uninterrupted"],
+                      f"{path}, rank {rank}: bit for bit the uninterrupted "
+                      "mesh fit")
+                want = {n: v for n, v in r["uninterrupted_launches"].items()
+                        if v}
+                check(nonzero[rank] == want, f"{path}, rank {rank}: the "
+                      f"uninterrupted fit's launches {want}: "
+                      f"{nonzero[rank]}")
+            line += (f"; bit for bit the uninterrupted mesh fit on every "
+                     f"rank, with its launches; {every[0]['segments']} "
+                     f"segments, "
+                     f"{every[0]['traffic']['to_root'] / every[0]['segments'] / 2**20:.2f}"
+                     f" MiB gathered to rank 0 a segment")
+        elif path.startswith("stream"):
+            ref = refs[label]
+            sweeps = len(every[0]["sweep_s"])
+            want = ({"cholesky_clip": STREAM_MAXIT * panels}
+                    if label.startswith("MSE")
+                    else {"cd_nnls_batched": STREAM_CV_MAXIT * cv_blocks})
+            for rank in range(MESH_RANKS):
+                check(nonzero[rank] == want, f"{path}, rank {rank}: "
+                      f"launches {want}: {nonzero[rank]}")
+            gap = abs(float(res["train_loss"]) / ref.train_loss - 1)
+            W_err = float(np.abs(res["W"] - ref.W).max()
+                          / np.abs(ref.W).max())
+            if gap > STREAM_LOSS_RTOL or W_err > STREAM_W_TOL:
+                failed.append(f"{path}: loss {gap:.3g}, W {W_err:.3g}")
+            if label.startswith("CV"):
+                line += (f"; test loss {float(res['test_loss']):.6g}, the "
+                         f"single card {ref.test_loss:.6g}")
+            line += (f"; loss {float(res['train_loss']):.6g} against phase "
+                     f"27's {ref.train_loss:.6g} (relative {gap:.2e}, bar "
+                     f"{STREAM_LOSS_RTOL:g}), W within {W_err:.2e} of its "
+                     f"largest entry (bar {STREAM_W_TOL:g}); host decode a "
+                     f"rank {[round(r['decode_s'], 2) for r in every]} s in "
+                     f"{sweeps} sweeps ("
+                     f"{[round(r['decode_s'] / sweeps, 3) for r in every]} "
+                     f"s a sweep), sweeps of rank 0 "
+                     f"{[round(t, 2) for t in every[0]['sweep_s']]} s, "
+                     f"{every[0]['upload_bytes'] / 2**20:.1f} MiB uploaded "
+                     f"a rank, "
+                     f"{every[0]['traffic']['gathered'] / sweeps / 2**20:.2f}"
+                     f" MiB through the collectives a rank and sweep")
+        elif path.startswith("graph"):
+            ref = refs[label]
+            layers = 2 if label == "(a)" else 3
+            for rank, r in enumerate(every):
+                want = {"cholesky_clip": 2 * r["warm"]
+                        + 2 * layers * GRAPH["maxit"]}
+                check(nonzero[rank] == want and r["host_reads"] == 0,
+                      f"{path}, rank {rank}: launches {want} and no host "
+                      f"read: {nonzero[rank]}, {r['host_reads']}")
+            gap = abs(float(res["total_loss"]) / ref.total_loss - 1)
+            offs = {f"{name}.{f}": float(
+                np.abs(res[f"{name}.{f}"] - getattr(ref[name], f)).max()
+                / np.abs(getattr(ref[name], f)).max())
+                for name in ref.layers for f in ("W", "d", "H")}
+            worst = max(offs, key=offs.get)
+            if gap > SMALL_RTOL or offs[worst] > SMALL_FACTOR_TOL:
+                failed.append(f"{path}: loss {gap:.3g}, {worst} "
+                              f"{offs[worst]:.3g}")
+            line += (f"; loss {float(res['total_loss']):.6g} against phase "
+                     f"30's {ref.total_loss:.6g} (relative {gap:.2e}, bar "
+                     f"{SMALL_RTOL:g}), factors within {offs[worst]:.2e} of "
+                     f"their largest entry ({worst}; bar "
+                     f"{SMALL_FACTOR_TOL:g}), "
+                     + ", ".join(f"{key} {v:.1e}" for key, v in offs.items())
+                     + "; "
+                     f"{every[0]['traffic']['gathered'] / GRAPH['maxit'] / 2**20:.2f}"
+                     f" MiB through the collectives a rank and sweep")
+        print(f"{line}  [{card}]", flush=True)
+    check(not failed, "every phase 32 path within its bars: "
+          + "; ".join(failed))
+    return launches_by, walls
 
 
 def matched_err(W, V):
@@ -3001,7 +3341,8 @@ def main():
                                   cd_nnls_batched.plan_cd, cd_batched_system,
                                   CDB_CASES + stream_cdb_cases(nmf_irls)
                                   + graph_cdb_cases(nmf_irls)
-                                  + mesh_cdb_cases(nmf_irls))
+                                  + mesh_cdb_cases(nmf_irls)
+                                  + mesh_consumer_cdb_cases(nmf_irls))
 
     phase("7 fused weight + Gram + RHS kernel against its plain twin "
           f"(within {WGRAM_RTOL} of the twin's largest entry)")
@@ -3960,8 +4301,13 @@ def main():
     print(f"phases 21-25: {time.perf_counter() - t_new:.1f} s; bipartition "
           f"host reads: {cluster_reads}", flush=True)
     t_new = time.perf_counter()
+    # what phase 32 reads of phases 26-30: (i)'s file, the single-card
+    # streams and nets
+    keep_dir = tempfile.TemporaryDirectory()
+    keep = {"dir": keep_dir.name}
     stream_times, stream_launches = streaming_phases(rtt, card, counted,
-                                                     reset_counts, kernels)
+                                                     reset_counts, kernels,
+                                                     keep)
     print(f"phases 26-29: {time.perf_counter() - t_new:.1f} s; "
           + ", ".join(f"phase {i} {stream_times[f'phase {i}'] / 1e3:.1f} s"
                       for i in (26, 27, 28, 29)), flush=True)
@@ -3970,7 +4316,7 @@ def main():
           f"{GRAPH['k2']} net, {GRAPH['maxit']} sweeps, multi-modal, "
           f"branched, host loop, cross_validate_graph, predict")
     _, graph_launches = graph_phase(rtt, card, counted, reset_counts,
-                                    kernels, A_ct)
+                                    kernels, A_ct, keep)
     print(f"phase 30: {time.perf_counter() - t_new:.1f} s", flush=True)
     t_new = time.perf_counter()
     phase(f"31 the device mesh at the pbmc3k shape: (a) the (1, 1) mesh "
@@ -3986,9 +4332,21 @@ def main():
                                               f"masked k={MASK_K} CD")}
     order_refs = {label: mesh_order_fit(mesh_data, label, refs[label])
                   for label in MESH_REORDERED}
-    mesh_launches = mesh_phase_ranks(rtt, card, refs, order_refs, A_pb,
-                                     A_ct, M_pb)
-    print(f"phase 31: {time.perf_counter() - t_new:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as rank_dir:
+        mesh_launches, consumers = mesh_phase_ranks(
+            rtt, card, refs, order_refs, A_pb, A_ct, M_pb,
+            {"nb": A_nb, "graph": keep["graph"], "spz": keep["spz"],
+             "dir": rank_dir})
+        print(f"phase 31: {time.perf_counter() - t_new:.1f} s (with phase "
+              "32 in the same ranks)", flush=True)
+        phase(f"32 the mesh's consumers on phase 31's ranks and mesh "
+              f"{MESH_SHAPE}: (a) checkpointed fits, (b) sharded streams "
+              f"of (i), (c) graph nets (a) and (c)")
+        consumer_launches, consumer_s = consumers_phase(
+            consumers, rank_dir, keep, card, nmf_irls)
+    keep_dir.cleanup()
+    print(f"phase 32: {consumer_s:.1f} s in the ranks (the paths' "
+          f"slowest-rank walls summed)", flush=True)
 
     # launches of each kernel on the paths after phase 16, each counted
     # from zero
@@ -4014,6 +4372,8 @@ def main():
         name = "cd_nnls_shared" if "CD" in label else "cholesky_clip"
         path_launches[name][f"mesh (1, 1) NCCL {label}"] = n
     for name, by_path in mesh_launches.items():
+        path_launches[name].update(by_path)
+    for name, by_path in consumer_launches.items():
         path_launches[name].update(by_path)
 
     def entry(name, source, replaces, launches, err, rel, key,

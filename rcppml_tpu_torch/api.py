@@ -41,9 +41,10 @@ matrices with the same columns is a multi-modal fit: a shared-H
 ``mesh=`` (a ``parallel.mesh.Mesh``, every rank of it calling ``nmf`` with
 the same arguments) fits each rank's (rows, cols) block of A and returns
 the whole result on every rank: MSE, IRLS, cross-validated and masked fits
-(``parallel/mesh.py``); with ``checkpoint_path=`` or streaming it raises
-``NotImplementedError`` naming its ROADMAP.md item, and it never falls back
-silently.  As in the JAX package, a mesh fit runs the plain loop:
+(``parallel/mesh.py``), checkpointed fits (rank 0 reads and writes the
+file) and streams (each rank reads its own panels and uploads its block
+of each, ``models/nmf_chunked.py``); it never falls back silently.  As in
+the JAX package, an in-memory mesh fit runs the plain loop:
 ``on_iteration`` is taken and never called, and ``profile=True`` times no
 MSE section.  ``checkpoint_path=`` runs
 the dense fit (MSE or IRLS) in segments of ``checkpoint_every`` iterations,
@@ -65,7 +66,7 @@ import torch
 
 from . import constants
 from .config import Dispersion, FactorConfig, Loss, NMFConfig, Norm, Solver, ZI
-from .models.nmf import device_matrix, fit_device, nmf_fit, unported
+from .models.nmf import device_matrix, fit_device, nmf_fit
 from .result import NMFResult
 from .utils import logging as logmod
 
@@ -447,10 +448,11 @@ def _nmf_multimodal(data, k, *, device, kwargs, streaming, unsupported):
 
 def _nmf_streaming(data, k, is_spz: bool, *, mask, graph_W, graph_H, w_init,
                    h_init, chunk_cols, on_iteration, checkpoint_path,
-                   checkpoint_every, device, kwargs):
+                   checkpoint_every, mesh, device, kwargs):
     """``nmf`` of a ``.spz`` path, or with ``streaming=True``: the chunked
-    engine over an SpzLoader or an InMemoryLoader, with the in-memory
-    path's NaN / Inf contract (rcppml_tpu/api.py:498-542)."""
+    engine over an SpzLoader or an InMemoryLoader (each rank's own under
+    ``mesh``), with the in-memory path's NaN / Inf contract
+    (rcppml_tpu/api.py:498-542)."""
     if isinstance(mask, str):
         # mask="zeros" was normalized to mask_zeros before; "NA" needs the
         # full matrix in memory (R/nmf_thin.R:463-465)
@@ -487,7 +489,7 @@ def _nmf_streaming(data, k, is_spz: bool, *, mask, graph_W, graph_H, w_init,
     loader = (SpzLoader(data) if is_spz
               else InMemoryLoader(data, chunk_cols=chunk_cols))
     return nmf_chunked(loader, cfg, w_init=w_init, h_init=h_init, mask=mask,
-                       graph_W=graph_W, graph_H=graph_H,
+                       graph_W=graph_W, graph_H=graph_H, mesh=mesh,
                        on_iteration=on_iteration,
                        checkpoint_path=checkpoint_path,
                        checkpoint_every=checkpoint_every, device=device)
@@ -513,11 +515,14 @@ def _aux_arrays(cfg, graph_W, graph_H, target_H, target_W) -> dict:
 
 
 def _nmf_sharded_input(data, k, mesh, *, mask, graph_W, graph_H, target_H,
-                       target_W, w_init, h_init, device, kwargs):
+                       target_W, w_init, h_init, checkpoint_path,
+                       checkpoint_every, device, kwargs):
     """``nmf`` of a ``parallel.mesh.ShardedMatrix`` (no rank holds the whole
-    matrix): the plain sharded fit, without a mask or a holdout (those
-    read the whole matrix; pass the host matrix for them)."""
+    matrix): the plain sharded fit, or with ``checkpoint_path=`` the
+    checkpointed one, without a mask or a holdout (those read the whole
+    matrix; pass the host matrix for them)."""
     from .parallel.mesh import fit_sharded
+    from .utils.checkpoint import fit_checkpointed
     if not np.isscalar(k) or isinstance(k, str):
         raise ValueError("a ShardedMatrix fits one integer rank")
     if (mask is not None or kwargs.get("mask_zeros")
@@ -528,9 +533,15 @@ def _nmf_sharded_input(data, k, mesh, *, mask, graph_W, graph_H, target_H,
                        has_graph_H=graph_H is not None,
                        has_target_H=target_H is not None,
                        has_target_W=target_W is not None, **kwargs)
-    res = fit_sharded(data, cfg, mesh, w_init=w_init, h_init=h_init,
-                      aux=_aux_arrays(cfg, graph_W, graph_H, target_H,
-                                      target_W), device=device)
+    aux = _aux_arrays(cfg, graph_W, graph_H, target_H, target_W)
+    if checkpoint_path is not None:
+        res = fit_checkpointed(data, cfg, checkpoint_path,
+                               every=int(checkpoint_every), w_init=w_init,
+                               h_init=h_init, aux=aux, device=device,
+                               mesh=mesh)
+    else:
+        res = fit_sharded(data, cfg, mesh, w_init=w_init, h_init=h_init,
+                          aux=aux, device=device)
     res.misc["config"] = cfg
     return res
 
@@ -611,17 +622,12 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
     from .parallel.mesh import ShardedMatrix
     if isinstance(data, ShardedMatrix) and mesh is None:
         mesh = data.mesh        # no rank holds the matrix: fit on its mesh
-    if mesh is not None:
-        if checkpoint_path is not None:
-            raise unported("checkpoint_path= with mesh=",
-                           "Queue 1 item 14b")
-        if is_spz or streaming:
-            raise unported("mesh= (sharded streaming)", "Queue 1 item 14b")
-        if isinstance(data, ShardedMatrix):
-            return _nmf_sharded_input(
-                data, k, mesh, mask=mask, graph_W=graph_W, graph_H=graph_H,
-                target_H=target_H, target_W=target_W, w_init=w_init,
-                h_init=h_init, device=device, kwargs=kwargs)
+    if isinstance(data, ShardedMatrix):
+        return _nmf_sharded_input(
+            data, k, mesh, mask=mask, graph_W=graph_W, graph_H=graph_H,
+            target_H=target_H, target_W=target_W, w_init=w_init,
+            h_init=h_init, checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every, device=device, kwargs=kwargs)
     to_card = (torch.device(device).type == "cuda" if device is not None
                else torch.cuda.is_available())
     if (not is_spz and not streaming and to_card and mesh is None
@@ -651,7 +657,8 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
             data, k, is_spz, mask=mask, graph_W=graph_W, graph_H=graph_H,
             w_init=w_init, h_init=h_init, chunk_cols=chunk_cols,
             on_iteration=on_iteration, checkpoint_path=checkpoint_path,
-            checkpoint_every=checkpoint_every, device=device, kwargs=kwargs)
+            checkpoint_every=checkpoint_every, mesh=mesh, device=device,
+            kwargs=kwargs)
     # other file paths load in memory (R/nmf_validation.R:30-120)
     if isinstance(data, str):
         from .utils.resources import load_data
@@ -722,7 +729,8 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
         res = fit_checkpointed(A, cfg, checkpoint_path,
                                every=int(checkpoint_every), w_init=w_init,
                                h_init=h_init, aux=aux,
-                               sparse_zeros=sparse_input, device=device)
+                               sparse_zeros=sparse_input, device=device,
+                               mesh=mesh)
     elif masked:
         from .models.nmf_cv import fit_cv_or_masked
         res = fit_cv_or_masked(A, cfg, mask=mask, aux=aux, w_init=w_init,

@@ -27,7 +27,8 @@ Execution (graph/fit.hpp):
 Results are host numpy arrays, as in ``NMFResult``.  ``fit``,
 ``cross_validate_graph`` and ``GraphResult.predict`` run on the CUDA card
 unless given ``device="cpu"`` or CPU tensors; without a card they raise.
-``mesh=`` raises ``NotImplementedError`` (ROADMAP.md queue 1 item 14b).
+``fit(net, mesh=)`` runs the outer ALS on a ``parallel.mesh.Mesh``, every
+rank calling it alike (:meth:`FactorNet._fit_deep_fused`).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ import torch
 
 from ..device import set_fp32_precision
 from ..ops import linalg
-from .nmf import device_matrix, fit_device, make_updates, unported
+from .nmf import device_matrix, fit_device, make_updates
 
 _counter = itertools.count()
 
@@ -680,14 +681,31 @@ class FactorNet:
                 for l in self._layers]
 
     def _fit_deep_fused(self, data_map, dev, logger=None,
-                        warm_states=None) -> Optional[GraphResult]:
+                        warm_states=None, mesh=None) -> Optional[GraphResult]:
         """The outer ALS on the device.  Returns None when ineligible (then
         the host-driven loop runs, exactly like the reference).
         ``warm_states``: per layer (W_T, H, d) tensors on ``dev`` to start
         from instead of the warmup fits (``convert.graph_states_from_numpy``
-        carries another package's across)."""
+        carries another package's across).
+
+        ``mesh``: a ``parallel.mesh.Mesh`` every rank of which runs this
+        alike (the JAX package's ``_fit_deep_fused(mesh=)``).  The warmup
+        fits run on the unpadded data, alike on every rank, so that mesh
+        and single-device nets start from the same factors bit for bit.
+        Each data layer's input (its data with any covariate columns) is
+        zero-padded to the mesh and split (rows, cols); its updates are
+        ``make_updates(ctx=)``'s, its loss is taken over the true element
+        count and its reconstruction's norm from Grams summed over the
+        mesh.  A deeper layer's input, an upstream H^T (n x k_prev, small),
+        is gathered whole and that layer runs unpadded and alike on every
+        rank.  The pads are cut off before packaging."""
         cfgs_auxs = self._deep_cfgs()
         if cfgs_auxs is None:
+            if mesh is not None:
+                raise ValueError(
+                    "mesh= requires the fused graph path; this graph has "
+                    "a layer configuration (IRLS loss / CV holdout / "
+                    "streaming input) that runs on the host loop")
             return None
         set_fp32_precision()
         dev_map = {nid: (self._on_device(nid, mat, dev), None)
@@ -697,9 +715,14 @@ class FactorNet:
             warm_states = self._warm_states(dev_map, dev, zs)
         auxs = [{key: _tensor(v, dev) for key, v in aux.items()}
                 for _, aux in cfgs_auxs]
+        cfgs = [cfg for cfg, _ in cfgs_auxs]
+        shards = None
+        if mesh is not None:
+            shards, warm_states = self._shard_data_layers(
+                mesh, cfgs, dev_map, dev, zs, warm_states)
         # the whole outer ALS as one call, as the JAX package's executable
-        self._fused_fn = functools.partial(_outer_als, self,
-                                           [cfg for cfg, _ in cfgs_auxs])
+        self._fused_fn = functools.partial(_outer_als, self, cfgs,
+                                           shards=shards)
         out_states, it, loss, conv, hist = self._fused_fn(
             dev_map, zs, auxs, warm_states)
         hist = hist.cpu().numpy()
@@ -721,7 +744,13 @@ class FactorNet:
                 })
             out.logger = logger
         for i, layer in enumerate(self._layers):
-            W_T, Hm, d = (x.cpu().numpy() for x in out_states[i])
+            W_T, Hm, d = out_states[i]
+            if shards is not None and shards[i] is not None:
+                # the whole factors on every rank; the pads solve to zero
+                ctx = shards[i][0]
+                W_T = ctx.gather_rows(W_T)[:, :ctx.m]
+                Hm = ctx.gather_cols(Hm)[:, :ctx.n]
+            W_T, Hm, d = (x.cpu().numpy() for x in (W_T, Hm, d))
             # per-layer loss from the history row of the last completed
             # sweep (hist[:, 1+i]); the total is on the GraphResult
             layer_loss = float(hist[it - 1, 1 + i]) if it > 0 else float("nan")
@@ -734,16 +763,46 @@ class FactorNet:
             out.layers[layer.name] = s
         return out
 
+    def _shard_data_layers(self, mesh, cfgs, dev_map, dev, zs, states):
+        """Per layer, (``ShardContext``, this rank's block of the layer's
+        input, the input's true element count) for a data layer (its source
+        an INPUT / SHARED node), None for a deeper layer; and the warm
+        states with each data layer's W_T and H cut to this rank's blocks,
+        zero-padded."""
+        from ..parallel.mesh import (ShardContext, check_pad_soundness,
+                                     mesh_padding)
+        shards, out = [], []
+        for i, layer in enumerate(self._layers):
+            node, _ = self._resolve_source(layer.input)
+            if not isinstance(node, (Input, Shared)):
+                shards.append(None)
+                out.append(states[i])
+                continue
+            B = self._effective_input(i, [], dev_map, dev, zs=zs[i])
+            a, b = B.shape
+            check_pad_soundness(cfgs[i], *mesh_padding(mesh, a, b))
+            ctx = ShardContext(mesh, a, b)
+            shards.append((ctx, ctx.block(B, dev), a * b))
+            W_T, Hm, d = states[i]
+            out.append((ctx.row_block(W_T), ctx.col_block(Hm), d))
+        return shards, out
+
     def fit(self, logger=None, mesh=None, device=None) -> GraphResult:
         if not self._compiled:
             self.compile()
-        if mesh is not None:
-            raise unported("mesh=", "Queue 1 item 14b")
+        if mesh is not None and self.n_layers == 1:
+            raise ValueError("mesh= on a single-layer graph: call "
+                             "nmf(..., mesh=) / fit_sharded directly")
 
         # materialize data-bearing nodes once; then the device (everything
         # that needs none is checked by now)
         data_map = self._data_map()
-        dev = self._device(data_map, device)
+        if mesh is not None:
+            from ..parallel.mesh import rank_device
+            dev = rank_device(mesh, device if device is not None
+                              else self.device)
+        else:
+            dev = self._device(data_map, device)
 
         if self.n_layers == 1:
             layer = self._layers[0]
@@ -778,7 +837,7 @@ class FactorNet:
             return out
 
         # ---- multi-layer outer ALS ----
-        fused = self._fit_deep_fused(data_map, dev, logger=logger)
+        fused = self._fit_deep_fused(data_map, dev, logger=logger, mesh=mesh)
         if fused is not None:
             if self.verbose:
                 print(f"  fused outer ALS: {fused.total_iterations} iters, "
@@ -865,7 +924,8 @@ class FactorNet:
         return out
 
 
-def _outer_als(net: FactorNet, cfgs, data_map, zs, auxs, states):
+def _outer_als(net: FactorNet, cfgs, data_map, zs, auxs, states, *,
+               shards=None):
     """The fused outer ALS (the JAX package's ``_build_fused`` loop body):
     per sweep and layer, the effective input, ``h_update`` then ``w_update``
     of ``make_updates`` at iteration ``it + 1`` (CD warm-starts from the
@@ -876,10 +936,17 @@ def _outer_als(net: FactorNet, cfgs, data_map, zs, auxs, states):
     total loss, converged flag, history); the history (maxit, 1 + 2L) stays
     on the device.  With ``net.tol > 0`` the host reads the convergence flag
     once a sweep (counted in ``_outer_als.host_reads``), with ``tol == 0``
-    never: ``rel < 0`` cannot hold."""
+    never: ``rel < 0`` cannot hold.
+
+    ``shards``: under a mesh, per layer (``ShardContext``, this rank's block
+    of the input, the input's true element count) for a data layer, whose
+    state is then this rank's blocks; None for a layer that runs whole on
+    every rank, its input built from the upstream H gathered whole."""
     n_layers = net.n_layers
     tol, maxit = net.tol, net.maxit
-    updates = [make_updates(cfg, aux) for cfg, aux in zip(cfgs, auxs)]
+    shards = shards or [None] * n_layers
+    updates = [make_updates(cfg, aux, sh[0] if sh else None)
+               for cfg, aux, sh in zip(cfgs, auxs, shards)]
     dev = states[0][0].device
     f32 = torch.float32
     hist = torch.full((maxit, 1 + 2 * n_layers), float("nan"), dtype=f32,
@@ -887,29 +954,59 @@ def _outer_als(net: FactorNet, cfgs, data_map, zs, auxs, states):
     prev = torch.tensor(float("inf"), dtype=f32, device=dev)
     conv = torch.zeros((), dtype=torch.bool, device=dev)
     states = list(states)
+    mesh_ctx = next((sh[0] for sh in shards if sh is not None), None)
+    # a data layer's tr(B'B) does not change: summed over the mesh once
+    tr_blk = [None if sh is None else sh[0].sum_all((sh[1] * sh[1]).sum())
+              for sh in shards]
+
+    def whole(j):
+        """Layer j's state with H whole (a deeper layer's input reads it)."""
+        if shards[j] is None:
+            return states[j]
+        ctx = shards[j][0]
+        return (None, ctx.gather_cols(states[j][1])[:, :ctx.n], None)
+
     it = 0
     while it < maxit:
         total = torch.zeros((), dtype=f32, device=dev)
         layer_losses, frobs = [], []
         for i in range(n_layers):
             h_upd, w_upd, _ = updates[i]
-            B = net._effective_input(i, states, data_map, dev, zs=zs[i])
+            sh = shards[i]
+            if sh is None:
+                B = net._effective_input(i, _Upstream(whole), data_map, dev,
+                                         zs=zs[i])
+            else:
+                B = sh[1]
             W_T, Hm, d = states[i]
             Hm, d = h_upd(B, W_T, Hm, d, it + 1)
             W_T, Hm, d, B_w, G_w = w_upd(B, W_T, Hm, d, it + 1)
             states[i] = (W_T, Hm, d)
             # per-layer mean-squared loss via the saved-matrix Gram trick
             # (fit.hpp:334-344 computes the dense recon; this avoids the
-            # (m, n) intermediate)
-            sse = linalg.mse_loss_from_saved((B * B).sum(), W_T, d, B_w, G_w)
-            lyr = sse / B.numel()
+            # (m, n) intermediate); under a mesh over the true element
+            # count, the pads adding nothing to the sum
+            Wd = W_T * d[:, None]
+            if sh is None:
+                sse = linalg.mse_loss_from_saved((B * B).sum(), W_T, d, B_w,
+                                                 G_w)
+                lyr = sse / B.numel()
+                GW, GH = Wd @ Wd.T, Hm @ Hm.T
+            else:
+                ctx = sh[0]
+                sse = linalg.mse_loss_from_saved(tr_blk[i], W_T, d, B_w,
+                                                 G_w, ctx.rows)
+                lyr = sse / sh[2]
+                GW, GH = ctx.sum_rows(Wd @ Wd.T), ctx.sum_cols(Hm @ Hm.T)
             total = total + lyr
             layer_losses.append(lyr)
             # recon Frobenius norm via the k x k Gram trick:
             # ||W diag(d) H||_F^2 = tr(diag(d) W'W diag(d) HH')
-            Wd = W_T * d[:, None]
-            frobs.append(torch.sqrt(torch.clamp(
-                ((Wd @ Wd.T) * (Hm @ Hm.T)).sum(), min=0.0)))
+            frobs.append(torch.sqrt(torch.clamp((GW * GH).sum(), min=0.0)))
+        if mesh_ctx is not None:
+            # every rank holds the same sums; the tolerance test still
+            # reads rank 0's
+            total = mesh_ctx.agree(total)
         rel = (prev - total).abs() / (prev.abs() + 1e-15)
         conv = torch.isfinite(prev) & (rel < tol)
         # training_logger history (R/training_log.R records total loss +
@@ -927,6 +1024,17 @@ def _outer_als(net: FactorNet, cfgs, data_map, zs, auxs, states):
 
 
 _outer_als.host_reads = 0
+
+
+class _Upstream:
+    """The layers' states as :meth:`FactorNet._effective_input` reads them,
+    each made (its H gathered, under a mesh) only when a layer reads it."""
+
+    def __init__(self, state_of):
+        self._state_of = state_of
+
+    def __getitem__(self, j):
+        return self._state_of(j)
 
 
 def factor_net(inputs, output, *, config: Optional[GlobalConfig] = None,
@@ -947,8 +1055,12 @@ def fit(net: FactorNet, *, logger=None, mesh=None, device=None) -> GraphResult:
     loss, and per-layer reconstruction Frobenius norm
     (R/factor_methods.R fit.factor_net logger wiring).  ``device``: where
     the fit runs (by default the net's, else a tensor input's device, else
-    the CUDA card: without one it raises).  ``mesh=`` is not ported
-    (ROADMAP.md queue 1 item 14b)."""
+    the CUDA card: without one it raises).  ``mesh``: a
+    ``parallel.mesh.Mesh``, every rank of it calling this alike; the outer
+    ALS runs on it and every rank gets the whole result
+    (:meth:`FactorNet._fit_deep_fused`).  A single-layer graph and one
+    that needs the host loop (IRLS losses, CV holdouts, projective or
+    symmetric layers) raise ``ValueError`` there."""
     return net.fit(logger=logger, mesh=mesh, device=device)
 
 

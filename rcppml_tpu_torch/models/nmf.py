@@ -51,13 +51,6 @@ class FitState:
     loss_hist: torch.Tensor    # (max_iter,), NaN-padded
 
 
-def unported(what: str, item: str) -> NotImplementedError:
-    """The error every branch that is not ported yet raises."""
-    return NotImplementedError(
-        f"{what} is not ported to rcppml_tpu_torch yet (ROADMAP.md, {item}); "
-        "use rcppml_tpu for it")
-
-
 # ---------------------------------------------------------------------------
 # Solve dispatch (fit_cpu.hpp:577-637 solver branches)
 # ---------------------------------------------------------------------------

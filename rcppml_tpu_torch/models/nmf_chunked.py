@@ -58,8 +58,9 @@ from ..io.upload import (STATIC_CACHE_BYTES, dense_cache_fits, device_bytes,
                          upload)
 from ..ops import features as feat
 from ..ops import linalg, losses, solvers
+from ..parallel.mesh import NO_AXIS
 from ..result import NMFResult
-from .nmf import fit_device, init_factors, unported
+from .nmf import fit_device, init_factors
 
 # ---------------------------------------------------------------------------
 # Wire format and the densify on the device
@@ -162,20 +163,22 @@ def _solve_from_B(cfg: NMFConfig, side: str, G, B, X_warm, it: int):
 
 
 def _panel_train_w(seed: int, col0: int, A_panel, inv_prob: int,
-                   mask_zeros: bool, transposed: bool, user_m=None):
+                   mask_zeros: bool, transposed: bool, user_m=None,
+                   row0: int = 0):
     """Speckled train weights of a panel whose element (r, c) is
-    A[r, col0 + c] (or A[col0 + c, r] when ``transposed``: the W update's
-    A^T panels), from the same position hash as the in-memory path,
-    computed on the panel's device.  ``user_m``: an optional panel-aligned
-    bool mask of entries held out besides."""
+    A[row0 + r, col0 + c] (or A[col0 + c, row0 + r] when ``transposed``:
+    the W update's A^T panels), from the same position hash as the
+    in-memory path, computed on the panel's device.  ``user_m``: an
+    optional panel-aligned bool mask of entries held out besides.
+    ``row0``: the first row of a mesh rank's block of the panel."""
     rows, cols = A_panel.shape
     if inv_prob > 0:
         if transposed:
             M = rng_mod.is_holdout(seed, cols, rows, inv_prob,
-                                   A_panel.device, row0=col0).T
+                                   A_panel.device, row0=col0, col0=row0).T
         else:
             M = rng_mod.is_holdout(seed, rows, cols, inv_prob,
-                                   A_panel.device, col0=col0)
+                                   A_panel.device, row0=row0, col0=col0)
         if mask_zeros:
             M = M & (A_panel != 0)
     else:
@@ -188,34 +191,56 @@ def _panel_train_w(seed: int, col0: int, A_panel, inv_prob: int,
 
 def _panel_solve_cv(cfg: NMFConfig, side: str, F, A_panel, X_warm, it: int,
                     seed: int, col0: int, user_m, G_add, *, inv_prob: int,
-                    mask_zeros: bool, transposed: bool):
+                    mask_zeros: bool, transposed: bool, row0: int = 0,
+                    axis=NO_AXIS):
     """Masked panel solve: per-column Grams over the train entries only
     (fit_streaming_spz.hpp:267-286), through
     ``nmf_cv.masked_mse_solve_batch``.  ``G_add``: the shared tier-2 k x k
-    term (L21)."""
+    term (L21).  ``row0`` / ``axis``: a mesh rank's block of the panel
+    starts at row ``row0``, and its per-column Grams are summed over
+    ``axis`` (the ranks holding the panel's other rows)."""
     from .nmf_cv import masked_mse_solve_batch
     fc = cfg.H if side == "H" else cfg.W
     train_w = _panel_train_w(seed, col0, A_panel, inv_prob, mask_zeros,
-                             transposed, user_m)
+                             transposed, user_m, row0)
     X = masked_mse_solve_batch(A_panel, F, train_w, cfg, fc,
-                               _warm(X_warm, it), G_add=G_add)
+                               _warm(X_warm, it), G_add=G_add, axis=axis)
     if fc.upper_bound > 0:
         X = feat.apply_upper_bound(X, fc.upper_bound)
     return X
 
 
+def _panel_valid(shape, valid_rc, device):
+    """The (rows, cols) float32 validity of a mesh rank's zero-padded
+    block of a panel whose true part is its top-left ``valid_rc`` corner:
+    the pads leave every loss and statistic (JAX ``_panel_valid``).  None
+    where nothing is padded."""
+    if valid_rc is None or tuple(valid_rc) == tuple(shape):
+        return None
+    vr, vc = valid_rc
+    return ((torch.arange(shape[0], device=device) < vr)[:, None]
+            & (torch.arange(shape[1], device=device) < vc)[None, :]).to(
+                torch.float32)
+
+
 def _panel_cv_losses(cfg: NMFConfig, W_T, d, H_panel, A_panel, seed: int,
                      col0: int, theta_row, theta_col, user_m, *,
-                     inv_prob: int, mask_zeros: bool):
+                     inv_prob: int, mask_zeros: bool, row0: int = 0,
+                     valid_rc=None):
     """(train_loss_sum, n_train, test_loss_sum, n_test) of one forward
     panel, as one (4,) tensor: the distribution-aware per-entry losses of
-    the in-memory CV accounting."""
+    the in-memory CV accounting.  ``row0`` / ``valid_rc``: a mesh rank's
+    block of the panel, its first row and its valid extent."""
     rec = (W_T * d[:, None]).T @ H_panel
     theta = losses._expand_theta(theta_row, theta_col, A_panel)
     sq = losses.compute_loss_elements(A_panel, rec, cfg, theta)
     train_w = _panel_train_w(seed, col0, A_panel, inv_prob, mask_zeros,
-                             False, user_m)
+                             False, user_m, row0)
     test_w = 1.0 - train_w
+    v = _panel_valid(A_panel.shape, valid_rc, A_panel.device)
+    if v is not None:
+        train_w = train_w * v
+        test_w = test_w * v
     if user_m is not None and inv_prob > 0:
         # CV + user mask: user-masked entries leave BOTH statistics; the
         # test statistic stays a pure speckled-holdout quantity
@@ -229,34 +254,38 @@ def _panel_cv_losses(cfg: NMFConfig, W_T, d, H_panel, A_panel, seed: int,
 def _panel_solve_irls(cfg: NMFConfig, side: str, F, A_panel, X_warm,
                       it: int, th_row, th_col, seed: int, col0: int,
                       user_m, G_add, *, active_loss: Loss, inv_prob: int,
-                      mask_zeros: bool, transposed: bool, counts=None):
+                      mask_zeros: bool, transposed: bool, counts=None,
+                      row0: int = 0, axis=NO_AXIS):
     """IRLS panel solve with fixed dispersion: the reference's chunked
     engine never re-estimates nb_size / theta in streaming mode
     (fit_chunked.hpp:165-172,300-318) and maps GP -> KL.  With ``inv_prob``
     > 0 or a user mask, the train weights join the IRLS weights.
     ``counts``: a dict whose ``inner_iters`` / ``host_syncs`` the solve
-    increases."""
+    increases.  ``row0`` / ``axis`` as for :func:`_panel_solve_cv`."""
     from .nmf_irls import irls_solve_batch
     fc = cfg.H if side == "H" else cfg.W
     extra_w = None
     if inv_prob > 0 or user_m is not None:
         extra_w = _panel_train_w(seed, col0, A_panel, inv_prob, mask_zeros,
-                                 transposed, user_m)
+                                 transposed, user_m, row0)
     X = irls_solve_batch(A_panel, F, cfg, active_loss, th_row, th_col, fc,
                          False, extra_w=extra_w, X_warm=_warm(X_warm, it),
-                         G_add=G_add, counts=counts)
+                         G_add=G_add, counts=counts, axis=axis)
     if fc.upper_bound > 0:
         X = feat.apply_upper_bound(X, fc.upper_bound)
     return X
 
 
 def _panel_irls_loss(cfg: NMFConfig, W_T, d, H_panel, A_panel, theta_row,
-                     theta_col):
+                     theta_col, valid_rc=None):
     """Per-entry NLL / deviance summed over one forward panel
-    (fit_chunked.hpp:335-390), a 0-d tensor."""
+    (fit_chunked.hpp:335-390), a 0-d tensor; over its valid extent
+    ``valid_rc`` only, for a mesh rank's zero-padded block."""
     rec = (W_T * d[:, None]).T @ H_panel
     theta = losses._expand_theta(theta_row, theta_col, A_panel)
-    return losses.compute_loss_elements(A_panel, rec, cfg, theta).sum()
+    sq = losses.compute_loss_elements(A_panel, rec, cfg, theta)
+    v = _panel_valid(A_panel.shape, valid_rc, A_panel.device)
+    return (sq if v is None else sq * v).sum()
 
 
 def _zi_prob(S, pi_b, r_b):
@@ -275,15 +304,20 @@ def _panel_zi_impute(F, d, X_warm, A_panel, pi_b, r_b):
 
 
 def _panel_irls_loss_zi(cfg: NMFConfig, W_T, d, H_panel, A_panel,
-                        theta_row, theta_col, pi_b, r_b):
+                        theta_row, theta_col, pi_b, r_b, valid_rc=None):
     """Loss + ZI E-step statistics of one forward panel from ONE
     reconstruction: (loss, z row sums, z column sums, zero row counts,
     zero column counts), accumulated across panels for one pi EM update
-    per sweep."""
+    per sweep.  ``valid_rc``: a mesh rank's block's valid extent; its pads
+    are synthetic zeros and leave the loss and the dropout statistics."""
     rec = (W_T * d[:, None]).T @ H_panel
     theta = losses._expand_theta(theta_row, theta_col, A_panel)
     sq = losses.compute_loss_elements(A_panel, rec, cfg, theta)
     is_zero = A_panel == 0
+    v = _panel_valid(A_panel.shape, valid_rc, A_panel.device)
+    if v is not None:
+        sq = sq * v
+        is_zero = is_zero & (v > 0)
     z = torch.where(is_zero, _zi_prob(torch.clamp_min(rec, 1e-10), pi_b, r_b),
                     torch.zeros((), dtype=rec.dtype, device=rec.device))
     return (sq.sum(), z.sum(dim=1), z.sum(dim=0), is_zero.sum(dim=1),
@@ -299,6 +333,31 @@ def _panel_cross_term(W_T, d, H_panel, A_panel):
 # ---------------------------------------------------------------------------
 # The streaming fit
 # ---------------------------------------------------------------------------
+
+class _TimedLoader:
+    """A loader whose panel reads add their host seconds to
+    ``stats["decode_s"]`` (summed over the Prefetcher's threads)."""
+
+    def __init__(self, loader, stats: dict):
+        self._loader = loader
+        self._stats = stats
+        stats.setdefault("decode_s", 0.0)
+
+    def __getattr__(self, name):
+        return getattr(self._loader, name)
+
+    def _timed(self, fetch, *args):
+        t0 = time.perf_counter()
+        out = fetch(*args)
+        self._stats["decode_s"] += time.perf_counter() - t0
+        return out
+
+    def chunk(self, c, transpose=False):
+        return self._timed(self._loader.chunk, c, transpose)
+
+    def chunk_coo(self, c, transpose=False):
+        return self._timed(self._loader.chunk_coo, c, transpose)
+
 
 def _dense_graph(L, dev):
     if L is None:
@@ -331,11 +390,24 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
     ``device``: where the fit runs, the CUDA card by default (without a card
     that raises; pass ``device="cpu"`` for the CPU).  ``stats``: an
     optional dict to which the fit adds ``upload_s`` and ``upload_bytes``
-    (host-to-card transfers), ``sweep_s`` (wall seconds per sweep) and, for
-    an IRLS fit, ``inner_iters`` and ``host_syncs`` of its panel solves.
-    ``mesh=`` is not ported."""
-    if mesh is not None:
-        raise unported("mesh= (sharded streaming)", "Queue 1 item 14b")
+    (host-to-card transfers), ``decode_s`` (host seconds the loader spent
+    reading panels, summed over its threads), ``sweep_s`` (wall seconds per
+    sweep) and, for an IRLS fit, ``inner_iters`` and ``host_syncs`` of its
+    panel solves.
+
+    ``mesh``: a ``parallel.mesh.Mesh`` every rank of which calls this
+    alike, each with its own loader of the same data: sharded streaming
+    (the JAX package's ``nmf_chunked(mesh=)``).  Each panel is zero-padded
+    and split (rows, cols) over the mesh, each transposed panel (cols,
+    rows); a rank reads whole panels and uploads only its block.  The factor
+    tables stay whole on every rank.  A panel's right-hand side (and, for
+    CV, masked and IRLS solves, its per-column Grams) is this rank's part
+    summed over the ranks holding the panel's other rows; each rank solves
+    its columns of the panel (kernels 6, 1 or 2) and the solved slices are
+    gathered over the other axis.  Pads carry zero weight in every loss
+    and in the ZI statistics.  Dense panels only (``sparse_panels=True``
+    raises), no cached-sweep fast path, and every host decision (the
+    panel cache's gate, the stop) is rank 0's, shared with every rank."""
     if isinstance(loader, (str, bytes)):
         loader = SpzLoader(loader)
     m, n = loader.shape
@@ -366,6 +438,9 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
         raise NotImplementedError(
             "streaming zero-inflation supports loss='nb' without "
             "CV/mask/mask_zeros; use the in-memory path otherwise")
+    if sparse_panels and mesh is not None:
+        raise ValueError("sparse_panels is incompatible with mesh= "
+                         "(sharded streams ship dense panels)")
     if sparse_panels and not loader.supports_sparse:
         raise ValueError(
             f"{type(loader).__name__} cannot deliver sparse panels")
@@ -380,13 +455,28 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
         if mask.shape != (m, n):
             raise ValueError(f"mask shape {mask.shape} != data {(m, n)}")
     # everything that needs no device is checked by now
-    dev = fit_device(loader, device)
+    ctx = None
+    if mesh is not None:
+        from ..parallel.mesh import ShardContext, rank_device
+        dev = rank_device(mesh, device)
+        ctx = ShardContext(mesh, m, n)
+    else:
+        dev = fit_device(loader, device)
     set_fp32_precision()
     dev_bytes = device_bytes(dev)
+    raw_loader = loader
+    if stats is not None:
+        loader = _TimedLoader(loader, stats)
 
     # ---- panel residency caches ----
     if panel_cache is None:
-        _cache_panels = dense_cache_fits(m, n, dev)
+        # the footprint is this rank's: its blocks of both panel sets
+        # (the JAX package's n_per); the gate reads free memory, so the
+        # decision is rank 0's
+        n_per = n if ctx is None else -(-n // mesh.size)
+        _cache_panels = dense_cache_fits(m, n_per, dev)
+        if ctx is not None:
+            _cache_panels = ctx.share(_cache_panels)
     elif panel_cache == "wire":
         _cache_panels = False           # wire cache gated below
     else:
@@ -396,8 +486,10 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
 
     # ---- nnz-proportional ingest (sparse device panels) ----
     if sparse_panels is None:
+        # a mesh keeps dense panels (a block is cut from the dense panel)
         _nnz = loader.nnz() if loader.supports_sparse else None
-        _sparse_mode = _nnz is not None and _nnz < 0.15 * m * n
+        _sparse_mode = (mesh is None and _nnz is not None
+                        and _nnz < 0.15 * m * n)
     else:
         _sparse_mode = bool(sparse_panels)
 
@@ -473,7 +565,10 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
             rows_d, counts_d, vals_d, nnz, nc = hit        # wire tuple
             return _coo_densify(rows_d, counts_d, vals_d, nnz=nnz,
                                 nrows=rows_dim, ncols=nc)
-        if isinstance(ch, _CompactChunk):
+        if ctx is not None:
+            out = upload(_block_of(ch.data, ch.num_cols, transposed), dev,
+                         stats)
+        elif isinstance(ch, _CompactChunk):
             rows_d, counts_d, vals_d = (upload(x, dev, stats) for x
                                         in (ch.rows, ch.counts, ch.vals))
             if _wire_cache:
@@ -498,6 +593,87 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
     def _tensor(x):
         return torch.from_numpy(np.array(x, np.float32, order="C")).to(dev)
 
+    # ---- a mesh rank's block of each panel ----
+    def _rows_geom(transposed: bool):
+        """(first row, block rows, valid rows) of this rank's block of a
+        panel: the forward panels' rows are A's rows, split over the
+        mesh's rows; the transposed panels' rows are A's columns, split
+        over its columns."""
+        if transposed:
+            return ctx.col0, ctx.n_blk, ctx.vn
+        return ctx.row0, ctx.m_blk, ctx.vm
+
+    def _cols_geom(nc: int, transposed: bool):
+        """(first column, block columns, valid columns) of this rank's
+        block of a panel of ``nc`` columns, zero-padded to divide the axis
+        it is split over ("cols" forward, "rows" transposed)."""
+        ri, ci = mesh.coords
+        parts, idx = ((mesh.shape["rows"], ri) if transposed
+                      else (mesh.shape["cols"], ci))
+        pb = -(-nc // parts)
+        c0 = idx * pb
+        return c0, pb, min(max(nc - c0, 0), pb)
+
+    def _block_of(data, nc: int, transposed: bool) -> np.ndarray:
+        """This rank's zero-padded block of a whole host panel."""
+        r0, rb, vr = _rows_geom(transposed)
+        c0, pb, vc = _cols_geom(nc, transposed)
+        out = np.zeros((rb, pb), np.float32)
+        out[:vr, :vc] = data[r0:r0 + vr, c0:c0 + vc]
+        return out
+
+    def _pad_vec(v, size: int, fill: float):
+        if v.shape[0] == size:
+            return v.contiguous()
+        return torch.cat([v, v.new_full((size - v.shape[0],), fill)])
+
+    def _rows_of(v, transposed: bool, fill: float = 0.0):
+        """A (k, rows) factor table (zero-padded) or a vector over the
+        panel's rows (padded with ``fill``), cut to this rank's block."""
+        if ctx is None:
+            return v
+        if v.dim() == 2:
+            return ctx.col_block(v) if transposed else ctx.row_block(v)
+        r0, rb, vr = _rows_geom(transposed)
+        return _pad_vec(v[r0:r0 + vr], rb, fill)
+
+    def _cols_of(v, cs: int, nc: int, transposed: bool, fill: float = 0.0):
+        """Columns ``cs .. cs + nc`` of a vector (or of a (k, n) table)
+        along the panel's columns, this rank's part, zero-padded."""
+        if ctx is None:
+            return v[..., cs:cs + nc]
+        c0, pb, vc = _cols_geom(nc, transposed)
+        part = v[..., cs + c0:cs + c0 + vc]
+        if v.dim() == 2:
+            out = v.new_zeros((v.shape[0], pb))
+            out[:, :vc] = part
+            return out
+        return _pad_vec(part, pb, fill)
+
+    def _row0_col0(cs: int, nc: int, transposed: bool):
+        """The global offsets of this rank's block of a panel: its first
+        row within the panel and its first column within A's panel."""
+        if ctx is None:
+            return 0, cs
+        return _rows_geom(transposed)[0], cs + _cols_geom(nc, transposed)[0]
+
+    def _valid(nc: int, transposed: bool = False):
+        if ctx is None:
+            return None
+        return _rows_geom(transposed)[2], _cols_geom(nc, transposed)[2]
+
+    # the sum over a panel's rows, and the gather of its solved columns
+    sum_f = ctx.rows if ctx is not None else NO_AXIS
+    sum_t = ctx.cols if ctx is not None else NO_AXIS
+
+    def _whole(X, nc: int, transposed: bool):
+        """A solved block of a panel's columns as the panel's whole
+        (k, nc) slice, on every rank."""
+        if ctx is None:
+            return X
+        return (ctx.rows if transposed else ctx.cols).gather(X, dim=1)[
+            :, :nc]
+
     gW = _dense_graph(graph_W, dev)
     gH = _dense_graph(graph_H, dev)
     active_loss = Loss.KL if cfg.loss == Loss.GP else cfg.loss
@@ -510,11 +686,27 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
 
     # ---- sweep-granular checkpoint resume ----
     _resume = None
-    if checkpoint_path is not None and os.path.exists(checkpoint_path):
+    if checkpoint_path is not None:
+        # under a mesh rank 0 alone reads the file; every rank follows it
+        # (or raises its error)
         from ..utils.checkpoint import load_stream_state
-        _resume = load_stream_state(checkpoint_path, cfg)
-        if _resume["W_T"].shape != (k, m) or _resume["H"].shape != (k, n):
-            raise ValueError("checkpoint factor shapes do not match the data")
+        try:
+            if (ctx is None or ctx.is_root) \
+                    and os.path.exists(checkpoint_path):
+                _resume = load_stream_state(checkpoint_path, cfg)
+                if _resume["W_T"].shape != (k, m) \
+                        or _resume["H"].shape != (k, n):
+                    raise ValueError(
+                        "checkpoint factor shapes do not match the data")
+            err = None
+        except Exception as e:                    # noqa: BLE001
+            if ctx is None:
+                raise
+            err = e
+        if ctx is not None:
+            err, _resume = ctx.share((err, _resume))
+            if err is not None:
+                raise err
 
     # ---- streaming NB zero-inflation: panel-local E-step imputation + one
     # pi EM update per sweep; pi init = min(zero_rate * 0.5, 0.3) as the
@@ -544,17 +736,15 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
     def _zi_bcast(cs, nc, transposed):
         """(pi_b, r_b) broadcast terms for one panel ((rows, 1) / (1, pc));
         forward panels hold columns of A, transpose panels columns of A^T
-        (= rows of A), so the row / column roles swap."""
-        if transposed:
-            pi_b = (pi_vec[cs:cs + nc][None, :] if zi_row
-                    else pi_vec[:, None])
-            r_b = (nb_vec[:, None] if per_col
-                   else nb_vec[cs:cs + nc][None, :])
-        else:
-            pi_b = (pi_vec[:, None] if zi_row
-                    else pi_vec[cs:cs + nc][None, :])
-            r_b = (nb_vec[cs:cs + nc][None, :] if per_col
-                   else nb_vec[:, None])
+        (= rows of A), so the row / column roles swap.  A mesh rank's
+        terms cover its block, the pads filled with 0.5 and 1.0 (they
+        leave every statistic; these keep the E-step away from 0 / 0)."""
+        along_rows = not zi_row if transposed else zi_row
+        pi_b = (_rows_of(pi_vec, transposed, 0.5)[:, None] if along_rows
+                else _cols_of(pi_vec, cs, nc, transposed, 0.5)[None, :])
+        r_rows = per_col if transposed else not per_col
+        r_b = (_rows_of(nb_vec, transposed, 1.0)[:, None] if r_rows
+               else _cols_of(nb_vec, cs, nc, transposed, 1.0)[None, :])
         return pi_b, r_b
 
     def _thetas(cs, nc, transposed):
@@ -564,7 +754,8 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
         if not is_nb:
             return None, None
         along_rows = per_col if transposed else not per_col
-        return (nb_vec, None) if along_rows else (None, nb_vec[cs:cs + nc])
+        return ((_rows_of(nb_vec, transposed, 1.0), None) if along_rows
+                else (None, _cols_of(nb_vec, cs, nc, transposed, 1.0)))
 
     if _resume is not None:
         W_T0, H0, d0 = _resume["W_T"], _resume["H"], _resume["d"]
@@ -572,7 +763,7 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
         # SVD init out of core: the init SVD itself streams over the
         # loader's panels (the Lanczos leading subspace for both modes)
         from .svd import streaming_svd
-        sres = streaming_svd(loader, cfg.rank, method="lanczos",
+        sres = streaming_svd(raw_loader, cfg.rank, method="lanczos",
                              seed=cfg.seed, device=dev)
         sq = np.sqrt(np.maximum(np.asarray(sres.d, np.float64), 0.0))
         W_T0 = (np.abs(np.asarray(sres.U)) * sq[None, :]).T.astype(np.float32)
@@ -603,6 +794,8 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
         if not has_mask:
             return None
         sl = mask[cs:cs + nc, :].T if transposed else mask[:, cs:cs + nc]
+        if ctx is not None:
+            sl = _block_of(sl, nc, transposed).astype(bool)
         return torch.from_numpy(np.ascontiguousarray(sl)).to(dev)
 
     trAtA = loader.trace_sq()
@@ -651,8 +844,10 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
             G_add_H = feat.tier2_gram_addition(H, cfg.H)
             G_add_W = feat.tier2_gram_addition(W_T, cfg.W)
         H_parts = {}
+        W_T_f = _rows_of(W_T, False)            # this rank's rows of W_T
         for ch in _panels(False):
             cs, nc = ch.col_start, ch.num_cols
+            row0, col0 = _row0_col0(cs, nc, False)
             if it == 0 and not isinstance(ch, _CachedChunk) \
                     and not _chunk_finite(ch):
                 # streamed panels (e.g. .spz) bypass the in-memory NaN
@@ -662,30 +857,32 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
                     "streaming cannot auto-mask NaN/Inf — clean the data "
                     "or fit in-memory with mask=")
             A_panel = _put_panel(ch, False)
-            X_warm = H[:, cs:cs + nc]
+            X_warm = _cols_of(H, cs, nc, False)
             if cfg.projective:
-                H_parts[cs] = (W_T * d[:, None]) @ A_panel
+                X = sum_f.sum((W_T_f * d[:, None]) @ A_panel)
             elif use_irls:
                 th_row, th_col = _thetas(cs, nc, False)
                 if is_zi and it > 0:
                     # solves see the soft-imputed panel (in-memory: the
                     # iter >= 1 solves read state.A_imp)
-                    A_panel = _panel_zi_impute(W_T, d, X_warm, A_panel,
+                    A_panel = _panel_zi_impute(W_T_f, d, X_warm, A_panel,
                                                *_zi_bcast(cs, nc, False))
-                H_parts[cs] = _panel_solve_irls(
-                    cfg, "H", W_T, A_panel, X_warm, it, th_row, th_col,
-                    cv_seed, cs, _mask_panel(cs, nc, False), G_add_H,
+                X = _panel_solve_irls(
+                    cfg, "H", W_T_f, A_panel, X_warm, it, th_row, th_col,
+                    cv_seed, col0, _mask_panel(cs, nc, False), G_add_H,
                     active_loss=active_loss, inv_prob=inv_prob,
                     mask_zeros=cfg.mask_zeros, transposed=False,
-                    counts=stats)
+                    counts=stats, row0=row0, axis=sum_f)
             elif use_masked:
-                H_parts[cs] = _panel_solve_cv(
-                    cfg, "H", W_T, A_panel, X_warm, it, cv_seed, cs,
+                X = _panel_solve_cv(
+                    cfg, "H", W_T_f, A_panel, X_warm, it, cv_seed, col0,
                     _mask_panel(cs, nc, False), G_add_H, inv_prob=inv_prob,
-                    mask_zeros=cfg.mask_zeros, transposed=False)
+                    mask_zeros=cfg.mask_zeros, transposed=False, row0=row0,
+                    axis=sum_f)
             else:
-                H_parts[cs] = _solve_from_B(cfg, "H", G, W_T @ A_panel,
-                                            X_warm, it)
+                X = _solve_from_B(cfg, "H", G, sum_f.sum(W_T_f @ A_panel),
+                                  X_warm, it)
+            H_parts[cs] = _whole(X, nc, False)
             del A_panel
         H = torch.cat([H_parts[cs] for cs in sorted(H_parts)], dim=1)
         del H_parts
@@ -700,31 +897,35 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
             G2 = feat.apply_l21(G2, W_T, cfg.W.L21)
             G2 = feat.apply_graph_reg(G2, gW, W_T, cfg.W.graph_lambda)
         W_parts, B_parts = {}, {}
+        H_f = _rows_of(H, True)                 # this rank's columns of H
         for ch in _panels(True):
             cs, nc = ch.col_start, ch.num_cols
+            row0, col0 = _row0_col0(cs, nc, True)
             At_panel = _put_panel(ch, True)      # (n, pc) columns of A^T
-            X_warm = W_T[:, cs:cs + nc]
+            X_warm = _cols_of(W_T, cs, nc, True)
             if use_irls:
                 th_row, th_col = _thetas(cs, nc, True)
                 if is_zi and it > 0:
-                    At_panel = _panel_zi_impute(H, d, X_warm, At_panel,
+                    At_panel = _panel_zi_impute(H_f, d, X_warm, At_panel,
                                                 *_zi_bcast(cs, nc, True))
-                W_parts[cs] = _panel_solve_irls(
-                    cfg, "W", H, At_panel, X_warm, it, th_row, th_col,
-                    cv_seed, cs, _mask_panel(cs, nc, True), G_add_W,
+                X = _panel_solve_irls(
+                    cfg, "W", H_f, At_panel, X_warm, it, th_row, th_col,
+                    cv_seed, col0, _mask_panel(cs, nc, True), G_add_W,
                     active_loss=active_loss, inv_prob=inv_prob,
                     mask_zeros=cfg.mask_zeros, transposed=True,
-                    counts=stats)
+                    counts=stats, row0=row0, axis=sum_t)
             elif use_masked:
-                W_parts[cs] = _panel_solve_cv(
-                    cfg, "W", H, At_panel, X_warm, it, cv_seed, cs,
+                X = _panel_solve_cv(
+                    cfg, "W", H_f, At_panel, X_warm, it, cv_seed, col0,
                     _mask_panel(cs, nc, True), G_add_W, inv_prob=inv_prob,
-                    mask_zeros=cfg.mask_zeros, transposed=True)
+                    mask_zeros=cfg.mask_zeros, transposed=True, row0=row0,
+                    axis=sum_t)
             else:
-                B = H @ At_panel
+                B = sum_t.sum(H_f @ At_panel)
                 if saved_loss:
                     B_parts[cs] = B
-                W_parts[cs] = _solve_from_B(cfg, "W", G2, B, X_warm, it)
+                X = _solve_from_B(cfg, "W", G2, B, X_warm, it)
+            W_parts[cs] = _whole(X, nc, True)
             del At_panel
         W_T = torch.cat([W_parts[cs] for cs in sorted(W_parts)], dim=1)
         del W_parts
@@ -733,6 +934,7 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
         W_T, d = linalg.extract_scaling(W_T, cfg.norm)
 
         # ---- loss ----
+        W_T_l = _rows_of(W_T, False)
         if use_irls and not is_cv and not has_mask:
             tot_parts = []       # per-panel device scalars; f64 host sum
             if is_zi:
@@ -740,24 +942,36 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
                 zs_col = torch.zeros((n,), dtype=torch.float64, device=dev)
                 zn_row = torch.zeros((m,), dtype=torch.float64, device=dev)
                 zn_col = torch.zeros((n,), dtype=torch.float64, device=dev)
+                r0, _, vr = (0, m, m) if ctx is None else _rows_geom(False)
             for ch in _panels(False, prefetch=False):
                 cs, nc = ch.col_start, ch.num_cols
                 th_row, th_col = _thetas(cs, nc, False)
                 A_panel = _put_panel(ch, False)
-                H_panel = H[:, cs:cs + nc]
+                H_panel = _cols_of(H, cs, nc, False)
                 if is_zi:
                     pl, sr, sc, cr, cc = _panel_irls_loss_zi(
-                        cfg, W_T, d, H_panel, A_panel, th_row, th_col,
-                        *_zi_bcast(cs, nc, False))
+                        cfg, W_T_l, d, H_panel, A_panel, th_row, th_col,
+                        *_zi_bcast(cs, nc, False), valid_rc=_valid(nc))
                     tot_parts.append(pl)
-                    zs_row += sr
-                    zn_row += cr
-                    zs_col[cs:cs + nc] += sc
-                    zn_col[cs:cs + nc] += cc
+                    # this rank's block's part; under a mesh the disjoint
+                    # blocks' parts are summed after the sweep
+                    c0, _, vc = ((0, nc, nc) if ctx is None
+                                 else _cols_geom(nc, False))
+                    zs_row[r0:r0 + vr] += sr[:vr]
+                    zn_row[r0:r0 + vr] += cr[:vr]
+                    zs_col[cs + c0:cs + c0 + vc] += sc[:vc]
+                    zn_col[cs + c0:cs + c0 + vc] += cc[:vc]
                 else:
                     tot_parts.append(_panel_irls_loss(
-                        cfg, W_T, d, H_panel, A_panel, th_row, th_col))
+                        cfg, W_T_l, d, H_panel, A_panel, th_row, th_col,
+                        valid_rc=_valid(nc)))
                 del A_panel
+            if ctx is not None:
+                tot_parts = [ctx.sum_all(torch.stack(tot_parts))]
+                if is_zi:
+                    zs_row, zn_row, zs_col, zn_col = (
+                        ctx.sum_all(v) for v in (zs_row, zn_row, zs_col,
+                                                 zn_col))
             loss = float(torch.stack(tot_parts).double().cpu().numpy().sum()) \
                 if tot_parts else 0.0
             if is_zi:
@@ -784,17 +998,22 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
             acc_parts = []
             for ch in _panels(False, prefetch=False):
                 cs, nc = ch.col_start, ch.num_cols
+                row0, col0 = _row0_col0(cs, nc, False)
                 th_row, th_col = _thetas(cs, nc, False)
                 A_panel = _put_panel(ch, False)
                 acc_parts.append(_panel_cv_losses(
-                    cfg, W_T, d, H[:, cs:cs + nc], A_panel, cv_seed, cs,
-                    th_row, th_col, _mask_panel(cs, nc, False),
-                    inv_prob=inv_prob, mask_zeros=cfg.mask_zeros))
+                    cfg, W_T_l, d, _cols_of(H, cs, nc, False), A_panel,
+                    cv_seed, col0, th_row, th_col,
+                    _mask_panel(cs, nc, False), inv_prob=inv_prob,
+                    mask_zeros=cfg.mask_zeros, row0=row0,
+                    valid_rc=_valid(nc)))
                 del A_panel
+            acc = torch.stack(acc_parts)
+            if ctx is not None:
+                acc = ctx.sum_all(acc)
             # one read of the device; a float64 host sum keeps the entry
             # counts exact and the loss sums below fp32 drift
-            acc = torch.stack(acc_parts).cpu().numpy().astype(
-                np.float64).sum(axis=0)
+            acc = acc.cpu().numpy().astype(np.float64).sum(axis=0)
             tr_sse, tr_n, te_sse, te_n = [float(v) for v in acc]
             loss = tr_sse / max(tr_n, 1.0)
             test_loss = te_sse / max(te_n, 1.0)
@@ -838,8 +1057,10 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
                     cs, nc = ch.col_start, ch.num_cols
                     A_panel = _put_panel(ch, False)
                     cross_d = cross_d + _panel_cross_term(
-                        W_T, d, H[:, cs:cs + nc], A_panel)
+                        W_T_l, d, _cols_of(H, cs, nc, False), A_panel)
                     del A_panel
+                if ctx is not None:
+                    cross_d = ctx.sum_all(cross_d)
                 cross = float(cross_d)
                 G_wt = linalg.gram(W_T)
                 recon = float(((d[:, None] * d[None, :]) * G_wt * G_w).sum())
@@ -858,6 +1079,9 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
 
         # ---- per-sweep observability: callbacks and preemption-safe
         # checkpoints at sweep boundaries ----
+        if ctx is not None:
+            # every rank holds the same loss; the stop is still rank 0's
+            stop = ctx.share(stop)
         done_sweeps = it + 1
         if stats is not None:
             stats.setdefault("sweep_s", []).append(
@@ -870,11 +1094,16 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
                 (it + 1) % int(checkpoint_every) == 0 or stop
                 or it + 1 == cfg.max_iter):
             from ..utils.checkpoint import save_stream_state
-            save_stream_state(
-                checkpoint_path, cfg, W_T=W_T, H=H, d=d, it=it + 1,
-                prev_loss=prev_loss, patience=patience,
-                best_test=best_test, best_iter=best_iter, hist=hist,
-                test_hist=test_hist, pi_vec=pi_vec, converged=converged)
+            if ctx is None or ctx.is_root:
+                # the state is whole on every rank; rank 0 writes it
+                save_stream_state(
+                    checkpoint_path, cfg, W_T=W_T, H=H, d=d, it=it + 1,
+                    prev_loss=prev_loss, patience=patience,
+                    best_test=best_test, best_iter=best_iter, hist=hist,
+                    test_hist=test_hist, pi_vec=pi_vec,
+                    converged=converged)
+            if ctx is not None:
+                ctx.barrier()
         if stop:
             break
 

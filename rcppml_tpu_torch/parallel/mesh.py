@@ -219,10 +219,17 @@ def default_mesh(devices=None, shape=None, *,
 # The shard context: a rank's block and the collectives of its updates
 # ---------------------------------------------------------------------------
 
+# bytes this process received through the collectives: "gathered" by the
+# all-gathers of the updates (every sum and gather), "to_root" by rank 0's
+# gathers of checkpointed state (``ShardContext.gather_to_root``)
+traffic = {"gathered": 0, "to_root": 0}
+
+
 def _parts(x: torch.Tensor, group) -> list:
     """Every rank's contiguous ``x`` over ``group``, in rank order."""
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
+    traffic["gathered"] += x.numel() * x.element_size() * len(parts)
     return parts
 
 
@@ -296,6 +303,7 @@ class ShardContext:
                 raise ValueError(f"rank {mesh.rank} is outside the mesh "
                                  f"{mesh.shape} and cannot fit on it")
             ri, ci = mesh.coords
+        self.mesh = mesh
         self.m_blk, self.n_blk = self.M // r, self.N // c
         self.row0, self.col0 = ri * self.m_blk, ci * self.n_blk
         self.vm = min(max(self.m - self.row0, 0), self.m_blk)
@@ -328,6 +336,116 @@ class ShardContext:
                        group=self.all.group)
         return y
 
+    # -- rank 0's host: checkpoint files (utils/checkpoint.py) -----------
+
+    @property
+    def is_root(self) -> bool:
+        """Whether this rank reads and writes the host files (rank 0)."""
+        return not self.distributed or self.mesh.rank == 0
+
+    def share(self, obj):
+        """Rank 0's picklable ``obj`` on every rank (a broadcast over the
+        mesh): a host decision (does a file exist, did it load) taken once
+        and followed alike everywhere."""
+        if self.all.group is None:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=0, group=self.all.group)
+        return box[0]
+
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh (after rank 0's write, so that
+        no rank goes on before the file is whole)."""
+        if self.all.group is not None:
+            dist.barrier(group=self.all.group)
+
+    def _split_group(self, split: str):
+        """The group whose blocks make up an array split over ``split``
+        ("rows", "cols" or "both"), and whether this rank belongs to the
+        one that holds rank 0 (the others hold copies)."""
+        ri, ci = self.mesh.coords
+        if split == "rows":
+            return self.rows.group, ci == 0
+        if split == "cols":
+            return self.cols.group, ri == 0
+        return self.all.group, True
+
+    def _block_index(self, q: int, split: str) -> tuple:
+        """The block (row block, column block) rank ``q`` holds."""
+        ri, ci = divmod(q, self.mesh.shape["cols"])
+        return {"rows": (ri, 0), "cols": (0, ci), "both": (ri, ci)}[split]
+
+    def gather_to_root(self, X: torch.Tensor, split: str):
+        """The whole padded array of which ``X`` is this rank's block, as a
+        host array on rank 0 (None on every other rank).  ``split``:
+        "rows" (the last dimension is split over the mesh's rows: W_T
+        (k, m_blk), a per-row vector), "cols" (over its columns: H, a
+        per-column vector) or "both" (the last two: A's (m_blk, n_blk)
+        block).  Only the ranks whose blocks differ send: a factor
+        replicated over the other axis moves once, not once a copy, and
+        nothing is all-gathered (a ZI imputed matrix is the size of A)."""
+        if not self.distributed:
+            return X.detach().cpu().numpy()
+        group, holds = self._split_group(split)
+        if not holds:
+            return None
+        if group is None:
+            return X.detach().cpu().numpy() if self.is_root else None
+        x = X.detach().to(self.mesh.comm_device).contiguous()
+        parts = ([torch.empty_like(x)
+                  for _ in range(dist.get_world_size(group))]
+                 if self.is_root else None)
+        dist.gather(x, gather_list=parts, dst=0, group=group)
+        if not self.is_root:
+            return None
+        traffic["to_root"] += x.numel() * x.element_size() * len(parts)
+        parts = [p.cpu().numpy() for p in parts]
+        if split != "both":
+            return np.concatenate(parts, axis=-1)
+        c = self.mesh.shape["cols"]
+        return np.concatenate([np.concatenate(parts[i:i + c], axis=-1)
+                               for i in range(0, len(parts), c)], axis=-2)
+
+    def scatter_from_root(self, X, split: str, device, *,
+                          col_major: bool = False) -> torch.Tensor:
+        """This rank's block of the whole padded host array ``X`` that rank
+        0 holds (ignored on the other ranks), float32 on ``device``;
+        ``split`` as for :func:`gather_to_root`.  ``col_major``: the block
+        is laid out column-major, as the loop held it (a product's operand
+        layout selects its kernel, and with it the rounding)."""
+        def cut(whole, q):
+            bi, bj = self._block_index(q, split)
+            out = whole
+            if split in ("rows", "both"):
+                w = out.shape[-1] if split == "rows" else out.shape[-2]
+                blk = w // self.mesh.shape["rows"]
+                out = (out[..., bi * blk:(bi + 1) * blk] if split == "rows"
+                       else out[..., bi * blk:(bi + 1) * blk, :])
+            if split in ("cols", "both"):
+                blk = out.shape[-1] // self.mesh.shape["cols"]
+                out = out[..., bj * blk:(bj + 1) * blk]
+            return out
+
+        if not self.distributed:
+            part = np.asarray(X, np.float32)
+        else:
+            shape = self.share(
+                tuple(cut(np.asarray(X), 0).shape) if self.is_root else None)
+            comm = self.mesh.comm_device
+            recv = torch.empty(shape, dtype=torch.float32, device=comm)
+            parts = None
+            if self.is_root:
+                whole = np.asarray(X, np.float32)
+                parts = [torch.from_numpy(np.ascontiguousarray(
+                    cut(whole, q))).to(comm)
+                    for q in range(self.mesh.size)]
+            dist.scatter(recv, scatter_list=parts, src=0,
+                         group=self.all.group)
+            part = recv.cpu().numpy()
+        # .to() keeps the strides of a dense tensor
+        return torch.from_numpy(np.array(
+            part, np.float32, order="F" if col_major else "C")).to(device)
+
     def block(self, A, device) -> torch.Tensor:
         """This rank's (m_blk, n_blk) block of the whole (m, n) matrix ``A``
         (host array or tensor), zero-padded, float32, on ``device``.  Only
@@ -347,13 +465,15 @@ class ShardContext:
         out[:vm, :vn] = part
         return out
 
-    def row_block(self, X: np.ndarray) -> np.ndarray:
-        """This rank's columns of a host (k, m) factor, zero-padded."""
-        return _pad_slice(np.asarray(X), self.row0, self.m_blk, self.m)
+    def row_block(self, X):
+        """This rank's columns of a (k, m) factor (host array or tensor),
+        zero-padded."""
+        return _pad_slice(X, self.row0, self.m_blk, self.m)
 
-    def col_block(self, X: np.ndarray) -> np.ndarray:
-        """This rank's columns of a host (k, n) factor, zero-padded."""
-        return _pad_slice(np.asarray(X), self.col0, self.n_blk, self.n)
+    def col_block(self, X):
+        """This rank's columns of a (k, n) factor (host array or tensor),
+        zero-padded."""
+        return _pad_slice(X, self.col0, self.n_blk, self.n)
 
     def cols_to_rows(self, X: torch.Tensor) -> torch.Tensor:
         """A (k, n_blk) block of a factor over the columns of a square A as
@@ -368,10 +488,14 @@ class ShardContext:
         return out
 
 
-def _pad_slice(X: np.ndarray, lo: int, width: int, true: int) -> np.ndarray:
+def _pad_slice(X, lo: int, width: int, true: int):
     """Columns ``lo .. lo + width`` of ``X`` (true width ``true``), the part
-    past ``true`` zero."""
-    out = np.zeros(X.shape[:-1] + (width,), dtype=np.float32)
+    past ``true`` zero: a float32 host array, or a tensor on X's device."""
+    if isinstance(X, torch.Tensor):
+        out = X.new_zeros(X.shape[:-1] + (width,))
+    else:
+        X = np.asarray(X)
+        out = np.zeros(X.shape[:-1] + (width,), dtype=np.float32)
     hi = min(lo + width, true)
     if hi > lo:
         out[..., :hi - lo] = X[..., lo:hi]
@@ -488,26 +612,15 @@ def shard_aux(ctx: ShardContext, aux: Optional[dict], device,
     return out
 
 
-def fit_sharded(A, cfg: NMFConfig, mesh: Optional[Mesh] = None, *,
-                w_init=None, h_init=None, aux: Optional[dict] = None,
-                sparse_zeros: bool = False, device=None):
-    """Sharded NMF fit: every rank of ``mesh`` calls this with the same
-    arguments and gets the whole result on the host.
-
-    ``A``: the whole (m, n) matrix (host array or tensor; each rank takes its
-    own block, zero-padded to divide the mesh) or a :class:`ShardedMatrix`
-    (each rank holds only its block; its shape must divide the mesh).  The
-    initial factors are made on the host for the whole (m, n), the JAX
-    package's SplitMix64 start, then padded and cut.  MSE fits run
-    ``models.nmf.fit_mse``, IRLS fits ``models.nmf_irls.fit_irls`` with the
-    accounting restricted to the true (m, n).  ``aux``: graph Laplacians and
-    targets (the JAX package's sharded fit passes none).  ``device=``, when
-    given, must be this rank's device on the mesh."""
+def sharded_setup(A, cfg: NMFConfig, mesh: Mesh, device=None):
+    """What every sharded fit starts from: the checks of
+    :func:`fit_sharded`, then this rank's device, its ``ShardContext``, its
+    zero-padded block of A on the device, and (for an SVD start) the whole
+    A on the device, else None.  ``A``: the whole matrix (host array or
+    tensor) or a :class:`ShardedMatrix`."""
     from ..device import set_fp32_precision
     from ..models import nmf as nmf_mod
-    from ..models.nmf_irls import fit_irls
 
-    mesh = mesh or default_mesh()
     if cfg.fused_vmem:
         raise ValueError("fused_vmem is a single-device whole-fit path, "
                          "incompatible with a sharded mesh fit")
@@ -532,10 +645,33 @@ def fit_sharded(A, cfg: NMFConfig, mesh: Optional[Mesh] = None, *,
     set_fp32_precision()
     seed_A = (nmf_mod.device_matrix(A, dev)
               if cfg.init_mode in (1, 2) and not sharded else None)
-    W_T0, H0, d0 = nmf_mod.init_factors(cfg, m, n, A=seed_A, w_init=w_init,
-                                        h_init=h_init)
     ctx = ShardContext(mesh, m, n)
     A_blk = A.block.to(dev, torch.float32) if sharded else ctx.block(A, dev)
+    return dev, ctx, A_blk, seed_A
+
+
+def fit_sharded(A, cfg: NMFConfig, mesh: Optional[Mesh] = None, *,
+                w_init=None, h_init=None, aux: Optional[dict] = None,
+                sparse_zeros: bool = False, device=None):
+    """Sharded NMF fit: every rank of ``mesh`` calls this with the same
+    arguments and gets the whole result on the host.
+
+    ``A``: the whole (m, n) matrix (host array or tensor; each rank takes its
+    own block, zero-padded to divide the mesh) or a :class:`ShardedMatrix`
+    (each rank holds only its block; its shape must divide the mesh).  The
+    initial factors are made on the host for the whole (m, n), the JAX
+    package's SplitMix64 start, then padded and cut.  MSE fits run
+    ``models.nmf.fit_mse``, IRLS fits ``models.nmf_irls.fit_irls`` with the
+    accounting restricted to the true (m, n).  ``aux``: graph Laplacians and
+    targets (the JAX package's sharded fit passes none).  ``device=``, when
+    given, must be this rank's device on the mesh."""
+    from ..models import nmf as nmf_mod
+    from ..models.nmf_irls import fit_irls
+
+    mesh = mesh or default_mesh()
+    dev, ctx, A_blk, seed_A = sharded_setup(A, cfg, mesh, device)
+    W_T0, H0, d0 = nmf_mod.init_factors(cfg, ctx.m, ctx.n, A=seed_A,
+                                        w_init=w_init, h_init=h_init)
     W_blk, H_blk = ctx.row_block(W_T0), ctx.col_block(H0)
     aux_blk = shard_aux(ctx, aux, dev, symmetric=cfg.symmetric)
     if cfg.requires_irls():
@@ -545,7 +681,7 @@ def fit_sharded(A, cfg: NMFConfig, mesh: Optional[Mesh] = None, *,
         state = nmf_mod.init_fit_state(cfg, W_blk, H_blk, d0, device=dev)
         state = nmf_mod.fit_mse(cfg, A_blk, state, aux_blk, ctx=ctx)
         res = nmf_mod.finalize_result(cfg, state, ctx=ctx)
-    return unpad_result(res, cfg, m, n)
+    return unpad_result(res, cfg, ctx.m, ctx.n)
 
 
 def unpad_result(res, cfg: NMFConfig, m: int, n: int):

@@ -1,9 +1,18 @@
 """Checkpoint / resume for factor models.
 
-The port of ``rcppml_tpu/utils/checkpoint.py:24-578``, without the device
-mesh (ROADMAP.md, Queue 1 item 14b).  The files are the JAX package's: the same ``.npz`` keys, shapes and types, the
-config as the same JSON, ``mesh_shape`` written as ``(0, 0)``.  A file
-written by either package loads in the other.
+The port of ``rcppml_tpu/utils/checkpoint.py:24-578``.  The files are the
+JAX package's: the same ``.npz`` keys, shapes and types, the config as the
+same JSON, ``mesh_shape`` the (rows, cols) of the mesh that wrote the file,
+``(0, 0)`` without one.  A file written by either package loads in the
+other.
+
+Under a mesh (``fit_checkpointed(mesh=)``) every rank runs the sharded loop
+on its block; after each segment the blocks are gathered to rank 0, which
+alone writes the whole zero-padded state, and every rank waits for the
+write.  On resume rank 0 alone reads the file (a rank on another host need
+not see it) and every rank receives its block; whether there is a file, and
+whether it loads, is rank 0's decision, shared with every rank.  A file is
+resumed only on the mesh shape that wrote it.
 
 The port may add one key the JAX package ignores, ``layout``: the 2-D
 arrays its loop held column-major (the CPU route of the Cholesky solve
@@ -175,13 +184,19 @@ def save_fit_state(state, cfg: NMFConfig, path: str) -> None:
         **_layout(state, ("W_T", "H")))
 
 
-def _check_mesh_shape(z) -> None:
+def _check_mesh_shape(z, mesh_shape=None) -> None:
+    """Refuse a file written under another mesh shape than ``mesh_shape``
+    ((rows, cols), None without a mesh): padding and the order of the
+    sums differ between shapes, so the resume would not be bitwise."""
     stored = tuple(np.asarray(z["mesh_shape"]).tolist()) \
         if "mesh_shape" in z.files else (0, 0)
-    if stored != (0, 0):
+    current = tuple(mesh_shape or (0, 0))
+    if stored != current:
+        def name(s):
+            return "no mesh" if s == (0, 0) else f"mesh {s[0]}x{s[1]}"
         raise ValueError(
-            f"checkpoint was written under mesh {stored[0]}x{stored[1]} but "
-            "resume runs under no mesh; resume on the same mesh shape "
+            f"checkpoint was written under {name(stored)} but resume "
+            f"runs under {name(current)}; resume on the same mesh shape "
             "(padding and reduction order differ otherwise)")
 
 
@@ -291,7 +306,8 @@ def load_irls_state(path: str, cfg: NMFConfig, A_dev: torch.Tensor):
 
 def fit_checkpointed(A, cfg: NMFConfig, path: str, *, every: int = 10,
                      w_init=None, h_init=None, aux=None,
-                     sparse_zeros: bool = False, device=None) -> NMFResult:
+                     sparse_zeros: bool = False, device=None,
+                     mesh=None) -> NMFResult:
     """Preemption-safe fit: run the loop in segments of ``every``
     iterations, atomically checkpointing the whole fit state after each
     segment, and resume from ``path`` if it exists.  Covers the dense MSE
@@ -301,7 +317,10 @@ def fit_checkpointed(A, cfg: NMFConfig, path: str, *, every: int = 10,
     ``A``: a host array or tensor; ``device`` as for :func:`nmf`.  The
     iteration sequence is the unsegmented fit's, bit for bit; the only
     added cost is one copy of the state to the host and one npz write per
-    segment.
+    segment.  ``mesh``: a ``parallel.mesh.Mesh`` every rank of which calls
+    this alike; the segments are those of the sharded fit
+    (``parallel.mesh.fit_sharded``), ``A`` may also be a ``ShardedMatrix``,
+    and the file holds the zero-padded whole state and the mesh's shape.
     """
     from ..device import set_fp32_precision
     from ..models import nmf as nmf_mod
@@ -314,6 +333,10 @@ def fit_checkpointed(A, cfg: NMFConfig, path: str, *, every: int = 10,
                          "program — incompatible with segmented "
                          "checkpointing (drop the knob or the "
                          "checkpoint_path)")
+    if mesh is not None:
+        return _fit_checkpointed_mesh(
+            A, cfg, path, mesh, every=every, w_init=w_init, h_init=h_init,
+            aux=aux, sparse_zeros=sparse_zeros, device=device)
     m, n = A.shape
     if cfg.rank > min(m, n):
         raise ValueError(f"rank {cfg.rank} exceeds min(dim) = {min(m, n)}")
@@ -361,6 +384,136 @@ def fit_checkpointed(A, cfg: NMFConfig, path: str, *, every: int = 10,
         state = segment(state, min(state.it + every, cfg.max_iter))
         save(state, cfg, path)
     return finalize(cfg, state)
+
+
+# ---------------------------------------------------------------------------
+# Checkpointed mesh fits (rcppml_tpu/utils/checkpoint.py:209-337, 395-491)
+# ---------------------------------------------------------------------------
+
+# the IRLS state's per-row / per-column vectors and how each is split
+_IRLS_SPLIT = {"disp_row": "rows", "disp_col": "cols", "pi_row": "rows",
+               "pi_col": "cols"}
+
+
+def _root_read(path: str, cfg: NMFConfig, mesh_shape, k: int, M: int,
+               N: int):
+    """Rank 0's read of a mesh checkpoint: the file's scalars, history,
+    layout and whole padded arrays, validated as :func:`load_fit_state`
+    validates a file, and the factors' padded shapes checked."""
+    names = ("W_T", "H", "d")
+    if cfg.requires_irls():
+        names += tuple(_IRLS_SPLIT) + (("A_imp",) if cfg.has_zi() else ())
+    with np.load(path, allow_pickle=False) as z:
+        _check_mesh_shape(z, mesh_shape)
+        sc, hist = _validate_and_resize(z, cfg)
+        missing = [name for name in names if name not in z.files]
+        if missing:
+            raise ValueError(f"checkpoint lacks {missing}")
+        arrays = {name: np.asarray(z[name], np.float32) for name in names}
+        layout = json.loads(str(z["layout"])) if "layout" in z.files else []
+    if arrays["W_T"].shape != (k, M) or arrays["H"].shape != (k, N):
+        raise ValueError("checkpoint factor shapes do not match the data")
+    return np.asarray(sc), hist, arrays, layout
+
+
+def _fit_checkpointed_mesh(A, cfg: NMFConfig, path: str, mesh, *,
+                           every: int, w_init, h_init, aux,
+                           sparse_zeros: bool, device) -> NMFResult:
+    """:func:`fit_checkpointed` on a mesh: the segments of the sharded MSE
+    loop (``models.nmf.fit_mse(seg_end=, ctx=)``) or IRLS loop
+    (``models.nmf_irls.run_irls(seg_end=, ctx=)``, the accounting on the
+    block's valid extents), each followed by a gather of the state to rank
+    0 and its write.  The file holds the whole zero-padded state: W_T
+    (k, M), H (k, N), for IRLS the per-row (M,) and per-column (N,)
+    vectors and for ZI the imputed matrix (M, N), with ``mesh_shape``."""
+    from ..models import nmf as nmf_mod
+    from ..models import nmf_irls as irls_mod
+    from ..parallel import mesh as mesh_mod
+
+    if any(val is not None for val in (aux or {}).values()):
+        raise ValueError("checkpoint_path with mesh= does not support "
+                         "graph/target auxiliaries yet")
+    dev, ctx, A_blk, seed_A = mesh_mod.sharded_setup(A, cfg, mesh, device)
+    k, M, N = cfg.rank, ctx.M, ctx.N
+    mesh_shape = (mesh.shape["rows"], mesh.shape["cols"])
+    irls = cfg.requires_irls()
+    zi = irls and cfg.has_zi()
+
+    # rank 0 decides whether there is a file and reads it; every rank
+    # follows its decision (or raises its error)
+    head = None
+    if ctx.is_root and os.path.exists(path):
+        try:
+            sc, hist, arrays, layout = _root_read(path, cfg, mesh_shape,
+                                                  k, M, N)
+            head = (None, sc, hist, arrays["d"], layout)
+        except Exception as e:                    # noqa: BLE001
+            head = (e,)
+    head = ctx.share(head)
+    if head is not None and head[0] is not None:
+        raise head[0]
+
+    if head is None:
+        W_T0, H0, d0 = nmf_mod.init_factors(cfg, ctx.m, ctx.n, A=seed_A,
+                                            w_init=w_init, h_init=h_init)
+        W_blk, H_blk = ctx.row_block(W_T0), ctx.col_block(H0)
+        state = (irls_mod._init_irls_state(A_blk, cfg, W_blk, H_blk, d0,
+                                           ctx) if irls
+                 else nmf_mod.init_fit_state(cfg, W_blk, H_blk, d0,
+                                             device=dev))
+    else:
+        _, sc, hist, d, layout = head
+        whole = arrays if ctx.is_root else {}
+
+        def part(name, split):
+            return ctx.scatter_from_root(whole.get(name), split, dev,
+                                         col_major=name in layout)
+
+        common = dict(W_T=part("W_T", "rows"), H=part("H", "cols"),
+                      d=torch.from_numpy(np.array(d, np.float32)).to(dev),
+                      **_loop_scalars(sc, hist, dev))
+        if irls:
+            vecs = {name: part(name, split)
+                    for name, split in _IRLS_SPLIT.items()}
+            state = irls_mod.IRLSState(
+                A_imp=part("A_imp", "both") if zi else A_blk, **vecs,
+                **common)
+        else:
+            state = nmf_mod.FitState(**common)
+
+    if irls:
+        def segment(state, seg_end):
+            return irls_mod.run_irls(cfg, A_blk, {}, state, sparse_zeros,
+                                     seg_end=seg_end, ctx=ctx)
+        splits = dict(_IRLS_SPLIT, **({"A_imp": "both"} if zi else {}))
+        finalize = irls_mod.finalize_irls_result
+    else:
+        operands = nmf_mod.loop_operands(cfg, A_blk, ctx)
+
+        def segment(state, seg_end):
+            return nmf_mod.fit_mse(cfg, A_blk, state, {}, seg_end=seg_end,
+                                   operands=operands, ctx=ctx)
+        splits = {}
+        finalize = nmf_mod.finalize_result
+
+    def save(state):
+        gathered = {name: ctx.gather_to_root(getattr(state, name), split)
+                    for name, split in (("W_T", "rows"), ("H", "cols"),
+                                        *splits.items())}
+        if ctx.is_root:
+            _atomic_savez(
+                path, d=_host(state.d), loss_hist=_host(state.loss_hist),
+                scalars=_scalars(state),
+                mesh_shape=np.asarray(mesh_shape, np.int64),
+                config=np.asarray(_cfg_to_json(cfg)), **gathered,
+                **_layout(state, ("W_T", "H") + (("A_imp",) if zi else ())))
+        ctx.barrier()
+
+    while state.it < cfg.max_iter and not bool(state.converged):
+        state = segment(state, min(state.it + every, cfg.max_iter))
+        save(state)
+    return mesh_mod.unpad_result(finalize(cfg, state, ctx=ctx), cfg,
+                                 ctx.m, ctx.n)
 
 
 # ---------------------------------------------------------------------------

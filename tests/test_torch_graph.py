@@ -28,8 +28,9 @@ SVD/NMF net from 6 sweeps to 5): those nets are fitted as the JAX test fits
 them, for structure, and compared over a fixed count (``tol=0``).
 
 The port's multi-layer fits run the outer ALS on the CPU device
-(``device="cpu"``); ``mesh=`` raises ``NotImplementedError`` naming
-ROADMAP.md queue 1 item 14 where the JAX package shards.
+(``device="cpu"``).  ``mesh=`` runs here on a (1, 1) mesh of one process;
+the 8-rank mesh, against the JAX package's sharded nets, is
+``tests/test_torch_mesh_consumers.py``'s.
 """
 
 import dataclasses
@@ -874,7 +875,7 @@ def test_per_layer_losses_differ(ranked):
     _same_graph_fit(port, want, net)
 
 
-# the JAX package's mesh tests: the port has no mesh yet (item 14)
+# the JAX package's mesh tests, on a (1, 1) mesh of one process
 MESH_NETS = {
     "fit_on_mesh_matches_single": lambda A1, A2: tg.factor_net(
         [tg.Input(A1, "rna")], tg.NMFLayer(tg.NMFLayer(tg.Shared(
@@ -897,11 +898,36 @@ MESH_NETS = {
         maxit=3)}
 
 
+# the nets a mesh refuses, as the JAX package does, and the words it says
+MESH_REFUSED = {"mesh_rejects_host_loop_layers": "mesh",
+                "single_layer": "single-layer"}
+
+
 @pytest.mark.parametrize("case", list(MESH_NETS))
 def test_graph_mesh_raises_unported(modalities, case):
+    """``fit(net, mesh=)`` raised ``NotImplementedError`` until the graph
+    under a mesh was ported.  Now a net of the fused outer ALS fits on a
+    (1, 1) mesh bit for bit as it does without one (every collective is a
+    no-op there), and a single-layer net or one that needs the host loop
+    raises ``ValueError`` as the JAX package does."""
+    from rcppml_tpu_torch.parallel.mesh import default_mesh
+    mesh = default_mesh(devices=["cpu"])
     net = MESH_NETS[case](*modalities)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        tg.fit(net, mesh=object(), device="cpu")
+    if case in MESH_REFUSED:
+        with pytest.raises(ValueError, match=MESH_REFUSED[case]):
+            tg.fit(net, mesh=mesh, device="cpu")
+        return
+    on_mesh = tg.fit(net, mesh=mesh, device="cpu")
+    plain = tg.fit(MESH_NETS[case](*modalities), device="cpu")
+    assert on_mesh.total_iterations == plain.total_iterations
+    assert on_mesh.total_loss == plain.total_loss
+    for name, lr in plain.layers.items():
+        for attr in ("W", "d", "H"):
+            np.testing.assert_array_equal(getattr(on_mesh[name], attr),
+                                          getattr(lr, attr), err_msg=attr)
+        assert on_mesh[name].loss == lr.loss
+        if lr.W_blocks:
+            assert sorted(on_mesh[name].W_blocks) == sorted(lr.W_blocks)
 
 
 def test_graph_dev_cache_invalidates_on_new_data(monkeypatch):

@@ -40,9 +40,31 @@ too.  Those two cases are held to its single-device fit, and so is the
 symmetric case (its padded W and H differ in width there).
 Every other rank's result must equal rank 0's bit for bit: each rank
 returns the whole result.  A (1, 1) mesh is the plain fit bit for bit.
+
+The same ranks then run the mesh's three consumers (``worker.CONSUMERS``)
+on the JAX package's mesh tests' shapes, which do not divide a (2, 4)
+mesh (``tests/test_mesh_streaming.py``, ``tests/test_graph.py``):
+
+  * checkpointed mesh fits (MSE with both solvers, KL, NB + ZI by row)
+    resume bit for bit as the uninterrupted sharded fit, write the JAX
+    package's file (its keys, padded shapes and ``mesh_shape``), resume a
+    file the JAX package wrote on the same mesh within the bars above, and
+    refuse another mesh shape, a file without one and graph auxiliaries;
+  * sharded streams (MSE, CV, NB + ZI, a ``.spz`` path, a resumed stream
+    checkpoint) are held to the port's single-device stream and to the
+    JAX package's mesh stream with that test's bars: W and H within
+    1e-4, the loss within 1e-3 of itself, the CV test loss within 1e-4,
+    the ZI dropouts within 1e-4;
+  * graph nets under a mesh (two modalities through ``Shared``, a
+    ``Condition`` in both orientations of Z) are held to the single-device
+    net with ``tests/test_graph.py``'s bars (W within 1e-4 and 1e-5) and to
+    the JAX package's mesh net within the bars ``tests/test_torch_graph.py``
+    holds the two packages' nets to (2e-3 of the largest entry).
 """
 
+import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -114,10 +136,33 @@ def _run_ranks(script, n, out_dir, args_of, timeout):
             for r, (p, log) in enumerate(zip(procs, logs))))
 
 
+def _consumer_files(out):
+    """The files the consumer cases read: checkpoints the JAX package wrote
+    half way on a (2, 4) mesh (a copy of each kept, since the ranks resume
+    them in place), a port checkpoint written without a mesh, and the
+    ``.spz`` file of the stream case."""
+    import scipy.sparse as sp
+    for case, src in worker.JAX_RESUME.items():
+        data, kw, every, half = worker.CKPT[src]
+        kw = dict(kw)
+        k = kw.pop("k")
+        path = out / f"{case}.npz"
+        rt.nmf(worker.consumer_data(data)["A"], k, mesh=_jax_mesh((2, 4)),
+               checkpoint_path=str(path), checkpoint_every=every,
+               **dict(kw, maxit=half))
+        shutil.copy(path, out / f"{case}.orig.npz")
+    rtt.nmf(worker.consumer_data("rand61")["A"], 4, seed=42, maxit=5,
+            tol=0.0, sort_model=False, checkpoint_path=str(
+                out / "no_mesh.npz"), device="cpu")
+    rtt.st_write(sp.csc_matrix(worker.consumer_data("sparse67")["A"]),
+                 str(out / "sparse67.spz"), chunk_cols=worker.STREAM_CHUNK)
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """The 8 gloo ranks' results: a directory of ``<case>.r<rank>.npz``."""
     out = tmp_path_factory.mktemp("mesh_ranks")
+    _consumer_files(out)
     store = out / "store"
     _run_ranks("torch_mesh_worker.py", RANKS, out,
                lambda r: [str(r), str(RANKS), str(store), str(out)],
@@ -261,7 +306,8 @@ def test_sharded_fit_is_the_single_device_fit_in_mesh_order(ranks, case):
     _assert_close(case, got, ref)
 
 
-@pytest.mark.parametrize("case", list(worker.CASES) + ["device_input"])
+@pytest.mark.parametrize("case", list(worker.CASES) + ["device_input"]
+                         + list(worker.CONSUMERS))
 def test_every_rank_returns_the_whole_result(ranks, case):
     first = _result(ranks, case)
     for rank in range(1, RANKS):
@@ -608,14 +654,31 @@ def test_shard_state_from_numpy_starts_the_sharded_loop():
 
 
 def test_the_consumers_left_for_later_still_raise(tmp_path):
-    """Checkpointed fits and streaming under a mesh are the next slice's
-    (ROADMAP.md queue 1 item 14b): they raise, naming it."""
+    """Checkpointed fits and streaming under a mesh raised
+    ``NotImplementedError`` until the mesh's consumers were ported.  On a
+    (1, 1) mesh, where every collective is a no-op, the checkpointed fit
+    is now the plain fit bit for bit and the stream the single-device
+    stream (the 8-rank cases above hold both in full)."""
     A = worker.case_data("sim32")["A"]
     one = rtt.default_mesh(devices=["cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14b"):
-        rtt.nmf(A, 2, mesh=one, checkpoint_path=str(tmp_path / "f.npz"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14b"):
-        rtt.nmf(A, 2, mesh=one, streaming=True)
+    kw = dict(seed=5, maxit=6, tol=0.0, sort_model=False)
+    path = str(tmp_path / "f.npz")
+    rtt.nmf(A, 2, mesh=one, checkpoint_path=path, checkpoint_every=2,
+            **dict(kw, maxit=3))
+    resumed = rtt.nmf(A, 2, mesh=one, checkpoint_path=path,
+                      checkpoint_every=2, **kw)
+    plain = rtt.nmf(A, 2, device="cpu", **kw)
+    for name in ("W", "d", "H", "loss_history"):
+        np.testing.assert_array_equal(getattr(resumed, name),
+                                      getattr(plain, name), err_msg=name)
+    with np.load(path) as z:
+        assert tuple(z["mesh_shape"]) == (1, 1)
+    stream = rtt.nmf(A, 2, mesh=one, streaming=True, chunk_cols=20, **kw)
+    single = rtt.nmf(A, 2, device="cpu", streaming=True, chunk_cols=20,
+                     **kw)
+    for name in ("W", "d", "H", "loss_history"):
+        np.testing.assert_array_equal(getattr(stream, name),
+                                      getattr(single, name), err_msg=name)
 
 
 def test_padding_and_placement_on_one_rank():
@@ -640,3 +703,313 @@ def test_padding_and_placement_on_one_rank():
     np.testing.assert_array_equal(A_b.numpy(), A)
     np.testing.assert_array_equal(W_b.numpy(), W_T)
     assert H_b.shape == (2, 5) and d_b.shape == (2,)
+
+
+# ---------------------------------------------------------------------------
+# The mesh's consumers: checkpointed fits, sharded streams, graph nets
+# ---------------------------------------------------------------------------
+
+STREAM_ATOL, STREAM_LOSS_RTOL, STREAM_TEST_ATOL, STREAM_PI_ATOL = (
+    1e-4, 1e-3, 1e-4, 1e-4)
+GRAPH_ATOL = {"gr_shared": 1e-4, "gr_cond": 1e-5, "gr_cond_t": 1e-5}
+GRAPH_JAX_REL = 2e-3
+
+
+def _ckpt_inputs(case):
+    data, kw, every, half = worker.CKPT[case]
+    kw = dict(kw)
+    return worker.consumer_data(data)["A"], kw.pop("k"), kw
+
+
+def _assert_mesh_bars(got: dict, ref, A, irls: bool):
+    """A rank's saved fit against a reference fit with the mesh bars of
+    this module: the loss (the IRLS loss to rtol 1e-5, the MSE loss to
+    1e-6 tr(A'A)), W to rtol 2e-3 / atol 2e-4, the dispersion and dropouts
+    to rtol 5e-3."""
+    assert int(got["iterations"]) == int(ref.iterations)
+    if irls:
+        np.testing.assert_allclose(float(got["train_loss"]),
+                                   float(ref.train_loss), rtol=IRLS_RTOL)
+    else:
+        tr = float((A.astype(np.float64) ** 2).sum())
+        assert abs(float(got["train_loss"]) - float(ref.train_loss)) \
+            < LOSS_TR * tr
+    np.testing.assert_allclose(got["W"], np.asarray(ref.W), rtol=W_RTOL,
+                               atol=W_ATOL)
+    for name in ("theta", "dispersion", "pi_row", "pi_col"):
+        r = getattr(ref, name, None)
+        assert (name in got) == (r is not None), name
+        if r is not None:
+            np.testing.assert_allclose(got[name], np.asarray(r),
+                                       rtol=THETA_RTOL, err_msg=name)
+
+
+@pytest.mark.parametrize("case", list(worker.CKPT) + ["ck_sharded_input"])
+def test_checkpointed_mesh_fit_resumes_bitwise(ranks, case):
+    """Stopped half way and resumed from its file, the mesh fit is the
+    uninterrupted sharded fit bit for bit; a ``ShardedMatrix`` input (no
+    rank holds the whole matrix) too."""
+    got = _result(ranks, case)
+    for name in worker.FIELDS:
+        assert (name in got) == (f"ref_{name}" in got), name
+        if name in got:
+            np.testing.assert_array_equal(got[name], got[f"ref_{name}"],
+                                          err_msg=name)
+    assert float(got["train_loss"]) == float(got["ref_train_loss"])
+
+
+@pytest.mark.parametrize("case", list(worker.CKPT))
+def test_checkpointed_mesh_fit_matches_jax_sharded_fit(ranks, case):
+    A, k, kw = _ckpt_inputs(case)
+    ref = ref_mesh.fit_sharded(A, rt.build_config(k, **kw), _jax_mesh((2, 4)))
+    _assert_mesh_bars(_result(ranks, case), ref, A, "loss" in kw)
+
+
+@pytest.mark.parametrize("case", ["ck_mse", "ck_nb_zi"])
+def test_mesh_checkpoint_file_is_the_jax_file(ranks, case):
+    """The port's file after the interrupted run and the JAX package's
+    after the same run on the same mesh: the same keys (the port may add
+    ``layout``), the padded shapes, ``mesh_shape`` and config, and the
+    state within the mesh bars."""
+    jax_case = {v: key for key, v in worker.JAX_RESUME.items()}[case]
+    with np.load(ranks / f"{case}.half.npz") as port, \
+            np.load(ranks / f"{jax_case}.orig.npz") as ref:
+        assert set(port.files) - {"layout"} == set(ref.files)
+        for key in ref.files:
+            assert port[key].shape == ref[key].shape, key
+        A, k, _ = _ckpt_inputs(case)
+        m, n = A.shape
+        assert port["W_T"].shape == (k, m + (-m) % 2)
+        assert port["H"].shape == (k, n + (-n) % 4)
+        assert tuple(port["mesh_shape"]) == tuple(ref["mesh_shape"]) \
+            == (2, 4)
+        assert json.loads(str(port["config"])) == json.loads(
+            str(ref["config"]))
+        np.testing.assert_array_equal(port["scalars"][0], ref["scalars"][0])
+        np.testing.assert_allclose(port["W_T"], ref["W_T"], rtol=W_RTOL,
+                                   atol=W_ATOL)
+        if "A_imp" in ref.files:
+            np.testing.assert_allclose(port["A_imp"], ref["A_imp"],
+                                       rtol=W_RTOL, atol=W_ATOL)
+
+
+@pytest.mark.parametrize("case", list(worker.JAX_RESUME))
+def test_jax_mesh_checkpoint_resumes_in_the_port(ranks, case):
+    """A file the JAX package wrote half way on a (2, 4) mesh, resumed by
+    the port on (2, 4): the end is within the mesh bars of the JAX
+    package's uninterrupted sharded fit."""
+    A, k, kw = _ckpt_inputs(worker.JAX_RESUME[case])
+    ref = ref_mesh.fit_sharded(A, rt.build_config(k, **kw), _jax_mesh((2, 4)))
+    _assert_mesh_bars(_result(ranks, case), ref, A, "loss" in kw)
+
+
+@pytest.mark.parametrize("case", ["no_mesh_file", "other_shape",
+                                  "mesh_file_without_mesh"])
+def test_mesh_checkpoint_shape_refusals(ranks, case, tmp_path):
+    """A file resumes only on the mesh shape that wrote it, both ways, with
+    the JAX package's words."""
+    if case == "no_mesh_file":
+        got = _result(ranks, "ck_refuse_no_mesh_file")
+        assert str(got["kind"]) == "ValueError"
+        assert "written under no mesh but resume runs under mesh 2x4" in \
+            str(got["error"])
+    elif case == "other_shape":
+        got = _result(ranks, "ck_refuse_other_shape")
+        assert str(got["kind"]) == "ValueError"
+        assert "written under mesh 2x4 but resume runs under mesh 4x2" in \
+            str(got["error"])
+    else:
+        A, k, kw = _ckpt_inputs("ck_mse")
+        for pkg, extra in ((rtt, {"device": "cpu"}), (rt, {})):
+            path = tmp_path / f"{pkg.__name__}.npz"
+            shutil.copy(ranks / "ck_mse.ckpt.npz", path)
+            with pytest.raises(ValueError, match="written under mesh 2x4 "
+                               "but resume runs under no mesh"):
+                pkg.nmf(A, k, checkpoint_path=str(path), **kw, **extra)
+
+
+@pytest.mark.parametrize("case", ["aux", "cv", "mask", "fused_vmem"])
+def test_mesh_checkpoint_refusals(ranks, case, tmp_path):
+    """What a checkpointed mesh fit refuses, as the JAX package refuses it:
+    graph auxiliaries (on the 8 ranks), CV, a mask and ``fused_vmem`` (on
+    a (1, 1) mesh and one JAX device, before anything is sharded)."""
+    A = worker.consumer_data("rand61")["A"]
+    words = {"aux": "does not support graph/target auxiliaries yet",
+             "cv": "no CV/mask", "mask": "no CV/mask",
+             "fused_vmem": "fused_vmem"}[case]
+    if case == "aux":
+        got = _result(ranks, "ck_refuse_aux")
+        assert str(got["kind"]) == "ValueError"
+        assert words in str(got["error"])
+        kw = dict(graph_H=worker.chain_laplacian(85),
+                  graph_lambda=(0.0, 0.1))
+    else:
+        kw = {"cv": dict(test_fraction=0.2), "mask": dict(mask="zeros"),
+              "fused_vmem": dict(fused_vmem=True)}[case]
+    common = dict(seed=1, maxit=4, tol=0.0)
+    one = rtt.default_mesh(devices=["cpu"])
+    with pytest.raises(ValueError, match=words):
+        rtt.nmf(A, 3, mesh=one, checkpoint_path=str(tmp_path / "p.npz"),
+                **common, **kw)
+    with pytest.raises(ValueError, match=words):
+        rt.nmf(A, 3, mesh=ref_mesh.default_mesh(jax.devices()[:1], (1, 1)),
+               checkpoint_path=str(tmp_path / "j.npz"), **common, **kw)
+
+
+def _stream_inputs(case):
+    data, entry, kw = worker.STREAMS[case]
+    kw = dict(kw)
+    return worker.consumer_data(data)["A"], kw.pop("k"), kw
+
+
+def _assert_stream_bars(case, got: dict, ref):
+    """The JAX package's mesh-stream bars (``tests/test_mesh_streaming.py``):
+    W and H within 1e-4, the loss within 1e-3 of itself; with CV both
+    losses within 1e-4; with ZI the dropouts within 1e-4 and the loss
+    within 1e-2."""
+    np.testing.assert_allclose(got["W"], np.asarray(ref.W),
+                               atol=STREAM_ATOL)
+    np.testing.assert_allclose(got["H"], np.asarray(ref.H),
+                               atol=STREAM_ATOL)
+    assert int(got["iterations"]) == int(ref.iterations)
+    if case == "st_cv":
+        assert abs(float(got["test_loss"]) - ref.test_loss) < STREAM_TEST_ATOL
+        assert abs(float(got["train_loss"]) - ref.train_loss) \
+            < STREAM_TEST_ATOL
+    elif case == "st_nb_zi":
+        np.testing.assert_allclose(got["pi_row"], np.asarray(ref.pi_row),
+                                   atol=STREAM_PI_ATOL)
+        assert abs(float(got["train_loss"]) - ref.train_loss) < 1e-2
+    else:
+        assert abs(float(got["train_loss"]) - ref.train_loss) \
+            < STREAM_LOSS_RTOL * abs(ref.train_loss)
+
+
+STREAM_FITS = ["st_mse", "st_cv", "st_nb_zi"]
+
+
+@pytest.mark.parametrize("case", STREAM_FITS)
+def test_mesh_stream_matches_single_device_stream(ranks, case):
+    from rcppml_tpu_torch.io.loaders import InMemoryLoader
+    from rcppml_tpu_torch.models.nmf_chunked import nmf_chunked
+    A, k, kw = _stream_inputs(case)
+    ref = nmf_chunked(InMemoryLoader(A, chunk_cols=worker.STREAM_CHUNK),
+                      rtt.build_config(k, **kw), device="cpu")
+    _assert_stream_bars(case, _result(ranks, case), ref)
+
+
+@pytest.mark.parametrize("case", STREAM_FITS)
+def test_mesh_stream_matches_jax_mesh_stream(ranks, case):
+    from rcppml_tpu.io.loaders import InMemoryLoader
+    from rcppml_tpu.models.nmf_chunked import nmf_chunked
+    A, k, kw = _stream_inputs(case)
+    ref = nmf_chunked(InMemoryLoader(A, chunk_cols=worker.STREAM_CHUNK),
+                      rt.build_config(k, **kw), mesh=_jax_mesh((2, 4)))
+    _assert_stream_bars(case, _result(ranks, case), ref)
+
+
+@pytest.mark.parametrize("against", ["port_in_memory", "jax_spz"])
+def test_mesh_stream_of_spz(ranks, against):
+    """``rtt.nmf("x.spz", k, mesh=)`` against the port's in-memory sharded
+    fit of the same matrix (the JAX test's comparison) and against the JAX
+    package's mesh stream of the same file."""
+    got = _result(ranks, "st_spz")
+    A, k, kw = _stream_inputs("st_spz")
+    if against == "port_in_memory":
+        np.testing.assert_allclose(got["W"], got["mem_W"], atol=STREAM_ATOL)
+        ref_loss = float(got["mem_train_loss"])
+    else:
+        ref = rt.nmf(str(ranks / "sparse67.spz"), k, mesh=_jax_mesh((2, 4)),
+                     **kw)
+        _assert_stream_bars("st_spz", got, ref)
+        ref_loss = ref.train_loss
+    assert abs(float(got["train_loss"]) - ref_loss) \
+        < STREAM_LOSS_RTOL * abs(ref_loss)
+
+
+def test_mesh_stream_checkpoint_resumes_bitwise(ranks):
+    got = _result(ranks, "st_resume")
+    np.testing.assert_array_equal(got["W"], got["full_W"])
+    np.testing.assert_array_equal(got["H"], got["full_H"])
+    assert float(got["train_loss"]) == float(got["full_train_loss"])
+    assert int(got["iterations"]) == int(got["full_iterations"])
+
+
+def test_sparse_panels_refused_under_mesh():
+    from rcppml_tpu.io.loaders import InMemoryLoader as RefLoader
+    from rcppml_tpu.models.nmf_chunked import nmf_chunked as ref_chunked
+    from rcppml_tpu_torch.io.loaders import InMemoryLoader
+    from rcppml_tpu_torch.models.nmf_chunked import nmf_chunked
+    A = worker.consumer_data("sparse67")["A"]
+    words = "sparse_panels is incompatible with mesh="
+    with pytest.raises(ValueError, match=words):
+        nmf_chunked(InMemoryLoader(A, chunk_cols=40), rtt.build_config(3),
+                    mesh=rtt.default_mesh(devices=["cpu"]),
+                    sparse_panels=True)
+    with pytest.raises(ValueError, match=words):
+        ref_chunked(RefLoader(A, chunk_cols=40), rt.build_config(3),
+                    mesh=_jax_mesh((2, 4)), sparse_panels=True)
+
+
+def _graph_layers(got: dict) -> list:
+    return sorted({key.split(".")[0] for key in got if "." in key})
+
+
+@pytest.mark.parametrize("case", list(GRAPH_ATOL))
+def test_mesh_graph_matches_single_device_net(ranks, case):
+    from rcppml_tpu_torch.models import graph as tg
+    got = _result(ranks, case)
+    ref = tg.fit(worker.graph_net(case, tg), device="cpu")
+    assert int(got["iterations"]) == ref.total_iterations
+    assert _graph_layers(got) == sorted(ref.layers)
+    for name, lr in ref.layers.items():
+        assert got[f"{name}.W"].shape == lr.W.shape
+        np.testing.assert_allclose(got[f"{name}.W"], lr.W,
+                                   atol=GRAPH_ATOL[case], err_msg=name)
+
+
+@pytest.mark.parametrize("case", list(GRAPH_ATOL))
+def test_mesh_graph_matches_jax_mesh_net(ranks, case):
+    from rcppml_tpu.models import graph as jg
+    got = _result(ranks, case)
+    ref = jg.fit(worker.graph_net(case, jg), mesh=_jax_mesh((2, 4)))
+    assert int(got["iterations"]) == ref.total_iterations
+    for name, lr in ref.layers.items():
+        for attr in ("W", "d", "H"):
+            want = np.asarray(getattr(lr, attr))
+            np.testing.assert_allclose(
+                got[f"{name}.{attr}"], want,
+                atol=GRAPH_JAX_REL * np.abs(want).max(), err_msg=name)
+
+
+def test_mesh_graph_w_blocks(ranks):
+    got = _result(ranks, "gr_shared")
+    assert tuple(got["J.blocks.rna"]) == (40, 4)
+    assert tuple(got["J.blocks.adt"]) == (25, 4)
+    assert not any(key.startswith("T.blocks") for key in got)
+
+
+def test_mesh_graph_loss_over_true_size(ranks):
+    """Pads add nothing to a layer's sum of squares and nothing to its
+    element count (``tests/test_graph.py``'s bar)."""
+    from rcppml_tpu_torch.models import graph as tg
+    got = _result(ranks, "gr_loss")
+    ref = tg.fit(worker.graph_net("gr_loss", tg), device="cpu")
+    np.testing.assert_allclose(float(got["L1.loss"]), ref["L1"].loss,
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(got["total_loss"]), ref.total_loss,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["gr_refuse_single_layer",
+                                  "gr_refuse_host_loop"])
+def test_mesh_graph_refusals(ranks, case):
+    """A single-layer net and one that needs the host loop raise
+    ``ValueError`` naming the mesh, on every rank, as the JAX package's."""
+    from rcppml_tpu.models import graph as jg
+    got = _result(ranks, case)
+    assert str(got["kind"]) == "ValueError"
+    assert "mesh" in str(got["error"])
+    with pytest.raises(ValueError, match="mesh") as ref:
+        jg.fit(worker.graph_net(case, jg), mesh=_jax_mesh((2, 4)))
+    assert str(ref.value) == str(got["error"])

@@ -260,10 +260,24 @@ def test_zi_em_iters_warns_as_the_jax_engine(data):
 
 
 def test_mesh_is_not_ported(data):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        nmf_chunked.nmf_chunked(loaders.InMemoryLoader(data["dense"]),
-                                rtt.build_config(K, maxit=2), mesh=object(),
-                                device="cpu")
+    """``mesh=`` raised ``NotImplementedError`` until sharded streaming was
+    ported.  On a (1, 1) mesh, where every collective is a no-op, the
+    stream is now the single-device stream bit for bit, and sparse panels
+    are refused as the JAX package refuses them
+    (``tests/test_torch_parallel.py`` holds the 8-rank stream in full)."""
+    cfg = rtt.build_config(K, maxit=2, tol=0.0)
+    one = rtt.default_mesh(devices=["cpu"])
+    on_mesh = nmf_chunked.nmf_chunked(
+        loaders.InMemoryLoader(data["dense"], chunk_cols=32), cfg, mesh=one)
+    plain = nmf_chunked.nmf_chunked(
+        loaders.InMemoryLoader(data["dense"], chunk_cols=32), cfg,
+        device="cpu")
+    for name in ("W", "d", "H", "loss_history"):
+        np.testing.assert_array_equal(getattr(on_mesh, name),
+                                      getattr(plain, name), err_msg=name)
+    with pytest.raises(ValueError, match="sparse_panels is incompatible"):
+        nmf_chunked.nmf_chunked(loaders.InMemoryLoader(data["dense"]), cfg,
+                                mesh=one, sparse_panels=True)
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,7 @@ test builds the same matrices.  Imports ``rcppml_tpu_torch`` and never JAX.
 """
 
 import os
+import shutil
 import sys
 import traceback
 
@@ -147,6 +148,247 @@ CASES = {
                   dict(k=2, seed=2, maxit=5, tol=0.0, has_mask=True,
                        solver="cd", sort_model=False)),
 }
+# ---------------------------------------------------------------------------
+# The mesh's consumers: checkpointed fits, sharded streams, graph nets
+# ---------------------------------------------------------------------------
+
+def consumer_data(name: str) -> dict:
+    """The inputs of the consumer cases, the JAX package's mesh tests'
+    (``tests/test_mesh_streaming.py``, ``tests/test_graph.py``): shapes
+    that do not divide a (2, 4) mesh."""
+    if name == "rand61":
+        return {"A": np.random.RandomState(3).rand(61, 85).astype(
+            np.float32)}
+    if name == "counts61":
+        return {"A": np.random.RandomState(5).poisson(
+            1.5, size=(61, 85)).astype(np.float32)}
+    if name == "rand67":
+        return {"A": np.random.RandomState(0).rand(67, 93).astype(
+            np.float32)}
+    if name == "counts67":
+        return {"A": np.random.RandomState(1).poisson(
+            1.5, size=(67, 93)).astype(np.float32)}
+    if name == "sparse67":
+        rs = np.random.RandomState(2)
+        return {"A": (rs.rand(67, 93) * (rs.rand(67, 93) < 0.3)).astype(
+            np.float32)}
+    if name == "modalities":
+        return {"A1": simulate_nmf(m=40, n=60, k=3, noise=0.02, seed=1)["A"],
+                "A2": simulate_nmf(m=25, n=60, k=3, noise=0.02, seed=2)["A"]}
+    if name == "cond37":
+        rs = np.random.RandomState(0)
+        A = np.abs(rs.rand(37, 61)).astype(np.float32)
+        return {"A": A, "Z": rs.rand(61, 3).astype(np.float32)}
+    if name == "loss37":
+        return {"A": np.abs(np.random.RandomState(1).rand(37, 61)).astype(
+            np.float32)}
+    raise KeyError(name)
+
+
+# checkpointed mesh fits: case -> (data, keywords, checkpoint_every, the
+# iterations of the interrupted run)
+CKPT = {
+    "ck_mse": ("rand61", dict(k=4, seed=42, maxit=12, tol=0.0,
+                              sort_model=False), 5, 5),
+    "ck_cd": ("rand61", dict(k=4, seed=42, maxit=12, tol=0.0, solver="cd",
+                             sort_model=False), 5, 5),
+    "ck_kl": ("counts61", dict(k=3, seed=1, maxit=6, tol=0.0, loss="kl",
+                               sort_model=False), 2, 3),
+    "ck_nb_zi": ("counts61", dict(k=3, seed=1, maxit=6, tol=0.0, loss="nb",
+                                  zi="row", dispersion="per_row",
+                                  sort_model=False), 3, 3),
+}
+# files the JAX package wrote on a (2, 4) mesh (the test's fixture writes
+# them before the ranks start), resumed here: case -> the CKPT case
+JAX_RESUME = {"jax_resume_mse": "ck_mse", "jax_resume_nb_zi": "ck_nb_zi"}
+# sharded streams: case -> (data, entry point, keywords); "chunked" is
+# nmf_chunked(InMemoryLoader(A, chunk_cols=40), cfg, mesh=), "api"
+# rtt.nmf(A, streaming=True, chunk_cols=40, mesh=), "spz" rtt.nmf of the
+# .spz file the fixture wrote, "resume" a stream checkpoint resumed
+STREAMS = {
+    "st_mse": ("rand67", "chunked", dict(k=5, seed=42, maxit=8, tol=0.0,
+                                         sort_model=False)),
+    "st_cv": ("rand67", "api", dict(k=4, seed=42, maxit=6, tol=0.0,
+                                    test_fraction=0.2, cv_seed=7,
+                                    sort_model=False)),
+    "st_nb_zi": ("counts67", "chunked", dict(k=3, seed=1, maxit=4, tol=0.0,
+                                             loss="nb", zi="row",
+                                             dispersion="per_row",
+                                             sort_model=False)),
+    "st_spz": ("sparse67", "spz", dict(k=5, seed=42, maxit=8, tol=0.0,
+                                       sort_model=False)),
+    "st_resume": ("rand67", "resume", dict(k=4, seed=42, maxit=10, tol=0.0,
+                                           sort_model=False)),
+}
+STREAM_CHUNK = 40
+# graph nets: case -> data
+GRAPHS = {"gr_shared": "modalities", "gr_cond": "cond37",
+          "gr_cond_t": "cond37", "gr_loss": "loss37"}
+# what each consumer case refuses, run on every rank
+REFUSALS = ("ck_refuse_no_mesh_file", "ck_refuse_other_shape",
+            "ck_refuse_aux", "gr_refuse_single_layer", "gr_refuse_host_loop")
+
+
+def graph_net(case: str, G):
+    """The net of a graph case, built with the graph module ``G`` (the
+    port's or the JAX package's)."""
+    data = consumer_data(GRAPHS.get(case, "loss37"))
+    if case == "gr_shared":
+        i1, i2 = G.Input(data["A1"], "rna"), G.Input(data["A2"], "adt")
+        top = G.NMFLayer(G.NMFLayer(G.Shared(i1, i2), 4, name="J"), 2,
+                         name="T")
+        return G.factor_net([i1, i2], top, maxit=6, tol=0.0, seed=3)
+    inp = G.Input(data["A"], "x")
+    if case in ("gr_cond", "gr_cond_t"):
+        Z = data["Z"] if case == "gr_cond" else data["Z"].T.copy()
+        top = G.NMFLayer(G.Condition(G.NMFLayer(inp, 4, name="L1"), Z), 2,
+                         name="L2")
+        return G.factor_net(inp, top, maxit=5, tol=0.0, seed=11)
+    if case == "gr_refuse_single_layer":
+        return G.factor_net(inp, G.NMFLayer(inp, 2, name="L"), maxit=3)
+    if case == "gr_refuse_host_loop":
+        top = G.NMFLayer(G.NMFLayer(inp, 3, name="a", loss="nb"), 2,
+                         name="b")
+        return G.factor_net(inp, top, maxit=3)
+    top = G.NMFLayer(G.NMFLayer(inp, 4, name="L1"), 2, name="L2")
+    return G.factor_net(inp, top, maxit=5, tol=0.0, seed=7)
+
+
+def run_checkpoint(case: str, rank: int, out_dir: str) -> None:
+    """The uninterrupted sharded fit, then the checkpointed fit stopped at
+    half its iterations and resumed; rank 0 keeps a copy of each file."""
+    data, kw, every, half = CKPT[case]
+    A = consumer_data(data)["A"]
+    mesh = mesh_of((2, 4))
+    kw = dict(kw)
+    k = kw.pop("k")
+    ref = fit_sharded(A, rtt.build_config(k, **kw), mesh)
+    path = os.path.join(out_dir, f"{case}.ckpt.npz")
+    rtt.nmf(A, k, mesh=mesh, checkpoint_path=path, checkpoint_every=every,
+            **dict(kw, maxit=half))
+    if rank == 0:
+        shutil.copy(path, os.path.join(out_dir, f"{case}.half.npz"))
+    torch.distributed.barrier()
+    res = rtt.nmf(A, k, mesh=mesh, checkpoint_path=path,
+                  checkpoint_every=every, **kw)
+    save(out_dir, case, rank, res,
+         **{f"ref_{name}": getattr(ref, name) for name in FIELDS
+            if getattr(ref, name, None) is not None},
+         ref_train_loss=ref.train_loss)
+
+
+def run_checkpoint_sharded(case: str, rank: int, out_dir: str) -> None:
+    """A ``ShardedMatrix`` (each rank passes an eighth of the columns)
+    checkpoints too: stopped half way and resumed, the uninterrupted
+    sharded fit of it."""
+    A = case_data("sim64")["A"]
+    mesh = mesh_of((2, 4))
+    cols = A.shape[1] // WORLD
+    A_dev = multihost.shard_host_data(A[:, rank * cols:(rank + 1) * cols],
+                                      mesh, axis="cols")
+    kw = dict(seed=11, maxit=10, tol=0.0, sort_model=False)
+    ref = fit_sharded(A_dev, rtt.build_config(3, **kw), mesh)
+    path = os.path.join(out_dir, f"{case}.ckpt.npz")
+    rtt.nmf(A_dev, 3, checkpoint_path=path, checkpoint_every=5,
+            **dict(kw, maxit=5))
+    res = rtt.nmf(A_dev, 3, checkpoint_path=path, checkpoint_every=5, **kw)
+    save(out_dir, case, rank, res,
+         **{f"ref_{name}": getattr(ref, name) for name in FIELDS
+            if getattr(ref, name, None) is not None},
+         ref_train_loss=ref.train_loss)
+
+
+def run_jax_resume(case: str, rank: int, out_dir: str) -> None:
+    data, kw, every, _ = CKPT[JAX_RESUME[case]]
+    A = consumer_data(data)["A"]
+    kw = dict(kw)
+    k = kw.pop("k")
+    res = rtt.nmf(A, k, mesh=mesh_of((2, 4)),
+                  checkpoint_path=os.path.join(out_dir, f"{case}.npz"),
+                  checkpoint_every=every, **kw)
+    save(out_dir, case, rank, res)
+
+
+def run_stream(case: str, rank: int, out_dir: str) -> None:
+    from rcppml_tpu_torch.io.loaders import InMemoryLoader
+    from rcppml_tpu_torch.models.nmf_chunked import nmf_chunked
+    data, entry, kw = STREAMS[case]
+    A = consumer_data(data)["A"]
+    mesh = mesh_of((2, 4))
+    kw = dict(kw)
+    k = kw.pop("k")
+    extra = {}
+    if entry == "chunked":
+        res = nmf_chunked(InMemoryLoader(A, chunk_cols=STREAM_CHUNK),
+                          rtt.build_config(k, **kw), mesh=mesh)
+    elif entry == "api":
+        res = rtt.nmf(A, k, streaming=True, chunk_cols=STREAM_CHUNK,
+                      mesh=mesh, **kw)
+    elif entry == "spz":
+        res = rtt.nmf(os.path.join(out_dir, "sparse67.spz"), k, mesh=mesh,
+                      **kw)
+        mem = fit_sharded(A, rtt.build_config(k, **kw), mesh)
+        extra = {"mem_W": mem.W, "mem_train_loss": mem.train_loss}
+    else:
+        stream = dict(streaming=True, chunk_cols=STREAM_CHUNK, mesh=mesh)
+        full = rtt.nmf(A, k, **stream, **kw)
+        path = os.path.join(out_dir, f"{case}.ckpt.npz")
+        rtt.nmf(A, k, checkpoint_path=path, checkpoint_every=2, **stream,
+                **dict(kw, maxit=4))
+        res = rtt.nmf(A, k, checkpoint_path=path, **stream, **kw)
+        extra = {"full_W": full.W, "full_H": full.H,
+                 "full_train_loss": full.train_loss,
+                 "full_iterations": full.iterations}
+    save(out_dir, case, rank, res, **extra)
+
+
+def run_graph(case: str, rank: int, out_dir: str) -> None:
+    from rcppml_tpu_torch.models import graph
+    res = graph.fit(graph_net(case, graph), mesh=mesh_of((2, 4)))
+    arrays = {"total_loss": res.total_loss,
+              "iterations": res.total_iterations}
+    for name, lr in res.layers.items():
+        for attr in ("W", "d", "H", "loss"):
+            arrays[f"{name}.{attr}"] = np.asarray(getattr(lr, attr))
+        for block, W in (lr.W_blocks or {}).items():
+            arrays[f"{name}.blocks.{block}"] = np.asarray(W.shape)
+    save(out_dir, case, rank, **arrays)
+
+
+def run_refusal(case: str, rank: int, out_dir: str) -> None:
+    """Each refusal on every rank: the error's type and words."""
+    from rcppml_tpu_torch.models import graph
+    A = consumer_data("rand61")["A"]
+    kw = dict(seed=42, maxit=12, tol=0.0, sort_model=False)
+    try:
+        if case == "ck_refuse_no_mesh_file":
+            # the fixture wrote the file without a mesh
+            rtt.nmf(A, 4, mesh=mesh_of((2, 4)), checkpoint_every=5,
+                    checkpoint_path=os.path.join(out_dir, "no_mesh.npz"),
+                    **kw)
+        elif case == "ck_refuse_other_shape":
+            path = os.path.join(out_dir, "ck_mse.ckpt.npz")
+            rtt.nmf(A, 4, mesh=mesh_of((4, 2)), checkpoint_path=path,
+                    checkpoint_every=5, **kw)
+        elif case == "ck_refuse_aux":
+            rtt.nmf(A, 4, mesh=mesh_of((2, 4)), graph_lambda=(0.0, 0.1),
+                    graph_H=chain_laplacian(85),
+                    checkpoint_path=os.path.join(out_dir, "aux.npz"), **kw)
+        else:
+            graph.fit(graph_net(case, graph), mesh=mesh_of((2, 4)))
+        save(out_dir, case, rank, error="", kind="")
+    except Exception as e:                        # noqa: BLE001
+        save(out_dir, case, rank, error=str(e), kind=type(e).__name__)
+
+
+CONSUMERS = {**{case: run_checkpoint for case in CKPT},
+             "ck_sharded_input": run_checkpoint_sharded,
+             **{case: run_jax_resume for case in JAX_RESUME},
+             **{case: run_stream for case in STREAMS},
+             **{case: run_graph for case in GRAPHS},
+             **{case: run_refusal for case in REFUSALS}}
+
+
 # cases whose run is not one fit
 SPECIAL = ("info", "device_input", "not_divisible", "semi_l1_guard",
            "fused_vmem_rejected", "health", "device_disagrees")
@@ -291,7 +533,15 @@ def main() -> None:
             traceback.print_exc()
             raise
         save(out_dir, case, rank, res)
+    for case, run in CONSUMERS.items():
+        try:
+            run(case, rank, out_dir)
+        except Exception:
+            traceback.print_exc()
+            raise
     print(f"rank {rank} done", flush=True)
+    # every rank leaves its last collective before any tears its group down
+    torch.distributed.barrier()
     torch.distributed.destroy_process_group()
 
 
