@@ -2077,9 +2077,10 @@ def same_csc(a, b):
             and np.array_equal(a.data, b.data))
 
 
-def stream_fit(path, k, *, stats=None, **kw):
+def stream_fit(path, k, **kw):
     """The streaming engine on a .spz file, with the engine's own keywords
-    (panel_cache, sparse_panels) besides the config's."""
+    (panel_cache, sparse_panels) besides the config's; its counters are in
+    ``res.misc["stream"]``."""
     import rcppml_tpu_torch as rtt
     from rcppml_tpu_torch.io.loaders import SpzLoader
     from rcppml_tpu_torch.models.nmf_chunked import nmf_chunked
@@ -2088,7 +2089,7 @@ def stream_fit(path, k, *, stats=None, **kw):
                                            "checkpoint_every", "mesh")
               if key in kw}
     return nmf_chunked(SpzLoader(path), rtt.build_config(k, **kw),
-                       stats=stats, **engine)
+                       **engine)
 
 
 def streaming_phases(rtt, card, counted, reset_counts, kernels, keep):
@@ -2218,13 +2219,12 @@ def streaming_phases(rtt, card, counted, reset_counts, kernels, keep):
         check(same(res, cached), "sparse_panels=True: bit for bit the dense "
               "panels' fit")
         dense_bytes = 4 * STREAM_I["m"] * STREAM_I["n"]
-        stats = {}
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         res, ms_off = timed_once(lambda: stream_fit(
-            path, STREAM_K, sparse_panels=True, panel_cache=False,
-            stats=stats, **kw))
+            path, STREAM_K, sparse_panels=True, panel_cache=False, **kw))
+        stats = res.misc["stream"]
         peak = torch.cuda.max_memory_allocated() - before
         check(same(res, cached), "panel_cache=False: bit for bit the cached "
               "fit")
@@ -2261,10 +2261,10 @@ def streaming_phases(rtt, card, counted, reset_counts, kernels, keep):
         kw_ii = dict(maxit=STREAM_II_MAXIT, tol=0, seed=1)
         runs = {}
         for cache in ("wire", False):
-            stats = {}
             reset_counts()
             res, ms = timed_once(lambda: stream_fit(
-                path, STREAM_K, panel_cache=cache, stats=stats, **kw_ii))
+                path, STREAM_K, panel_cache=cache, **kw_ii))
+            stats = res.misc["stream"]
             got = only(chol, f"(ii) panel_cache={cache!r}")
             check(got == STREAM_II_MAXIT * panels_ii,
                   f"(ii): {got} launches, once a panel a sweep")
@@ -2295,11 +2295,11 @@ def streaming_phases(rtt, card, counted, reset_counts, kernels, keep):
               f"{[round(s, 2) for s in st_o['sweep_s']]} s  [{card}]",
               flush=True)
 
-        stats = {}
         reset_counts()
         res, ms = timed_once(lambda: stream_fit(
-            path, STREAM_KL_K, loss="kl", stats=stats, maxit=STREAM_KL_MAXIT,
-            tol=0, seed=1))
+            path, STREAM_KL_K, loss="kl", maxit=STREAM_KL_MAXIT, tol=0,
+            seed=1))
+        stats = res.misc["stream"]
         got = only(cd_batched, "streaming KL")
         check(got == stats["inner_iters"],
               f"streaming KL: kernel 2 once an inner iteration "
@@ -2853,12 +2853,11 @@ def mesh_consumers(rtt, mesh, rank, data_dir, out_dir, data, wrappers,
     # (b) sharded streams of (i), every rank reading the file itself
     for label, (k, kw) in MESH_STREAMS.items():
         def stream():
-            stats = {}
-            res = stream_fit(spz, k, stats=stats, mesh=mesh, **kw)
+            res = stream_fit(spz, k, mesh=mesh, **kw)
+            stats = res.misc["stream"]
             return arrays(res), {"decode_s": stats["decode_s"],
                                  "sweep_s": stats["sweep_s"],
-                                 "upload_bytes": stats.get("upload_bytes",
-                                                           0),
+                                 "upload_bytes": stats["upload_bytes"],
                                  "digest": result_digest(res)}
         run(f"stream {label}", stream)
 

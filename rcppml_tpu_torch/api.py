@@ -69,6 +69,7 @@ from .config import Dispersion, FactorConfig, Loss, NMFConfig, Norm, Solver, ZI
 from .models.nmf import device_matrix, fit_device, nmf_fit
 from .result import NMFResult
 from .utils import logging as logmod
+from .utils.trace import spanned
 
 
 def _pair(x, name: str):
@@ -546,6 +547,7 @@ def _nmf_sharded_input(data, k, mesh, *, mask, graph_W, graph_H, target_H,
     return res
 
 
+@spanned("rtt.nmf")
 def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
         target_W=None, w_init=None, h_init=None, streaming=False,
         chunk_cols=None, on_iteration=None, mesh=None,
@@ -573,7 +575,11 @@ def nmf(data, k, *, mask=None, graph_W=None, graph_H=None, target_H=None,
     ``on_iteration(iter, train_loss, nan)`` is called after every iteration
     of a dense MSE fit (with an IRLS loss, cross-validation or a mask it is
     accepted and never called, as in the JAX package).  Other keywords are
-    those of :func:`build_config`.
+    those of :func:`build_config`.  Under a profiler each call is one
+    ``rtt.nmf`` span, with the fit's own spans inside it; a dense MSE fit
+    and a stream count their synchronizing calls in
+    ``res.misc["host_syncs"]``, a stream its panels in
+    ``res.misc["stream"]`` (``utils/trace.py``).
     """
     if isinstance(data, (list, tuple, dict)) and not _is_sparse(data):
         return _nmf_multimodal(

@@ -17,9 +17,12 @@ from __future__ import annotations
 
 import concurrent.futures
 import math
+import time
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
+
+from ..utils.trace import span
 
 
 class Chunk:
@@ -332,7 +335,12 @@ class Prefetcher:
     expansion entirely (chunk_arrays + counts).  ``transform`` runs IN THE
     WORKER on each decoded chunk (e.g. the streaming engine's wire
     compaction) so per-panel host prep leaves the consumer's critical
-    path."""
+    path.  ``depth=0`` reads each chunk on the consumer's thread.
+
+    Counted on the consumer's thread, over the chunks taken: ``decoded``,
+    ``decode_s`` (the host seconds of each fetch, transform included,
+    summed over the workers) and ``wait_s`` (the seconds the consumer was
+    blocked on them, each wait a ``rtt.stream.wait`` span)."""
 
     def __init__(self, loader: DataLoader, transpose: bool,
                  sparse: bool = False, depth: Optional[int] = None,
@@ -349,21 +357,36 @@ class Prefetcher:
         if depth is None:
             depth = max(1, min(3, (os.cpu_count() or 2) - 1))
         self.depth = depth
-        self._pool = concurrent.futures.ThreadPoolExecutor(
-            max_workers=depth)
+        self._pool = (concurrent.futures.ThreadPoolExecutor(
+            max_workers=depth) if depth > 0 else None)
+        self.decoded = 0
+        self.decode_s = 0.0
+        self.wait_s = 0.0
+
+    def _timed(self, c: int):
+        t0 = time.perf_counter()
+        out = self._fetch(c, self.transpose)
+        return out, time.perf_counter() - t0
 
     def __iter__(self):
         if self.n == 0:
             return
-        futs = {c: self._pool.submit(self._fetch, c, self.transpose)
+        futs = {c: self._pool.submit(self._timed, c)
                 for c in range(min(self.depth, self.n))}
         for c in range(self.n):
-            chunk = futs.pop(c).result()
+            t0 = time.perf_counter()
+            with span("rtt.stream.wait"):
+                chunk, decode_s = (futs.pop(c).result()
+                                   if self._pool is not None
+                                   else self._timed(c))
+            self.wait_s += time.perf_counter() - t0
+            self.decode_s += decode_s
+            self.decoded += 1
             nxt = c + self.depth
-            if nxt < self.n:
-                futs[nxt] = self._pool.submit(self._fetch, nxt,
-                                              self.transpose)
+            if self._pool is not None and nxt < self.n:
+                futs[nxt] = self._pool.submit(self._timed, nxt)
             yield chunk
 
     def close(self):
-        self._pool.shutdown(wait=False)
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)

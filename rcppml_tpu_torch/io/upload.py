@@ -8,13 +8,11 @@ the device across sweeps when both copies of the matrix fit.
 
 from __future__ import annotations
 
-import time
-from typing import Optional
-
 import numpy as np
 import torch
 
 from ..utils.memory import SAFETY_FACTOR
+from ..utils.trace import spanned
 
 # bytes of a static budget where the device's memory is not known (a fit
 # on the CPU): the JAX package's bound for the panel and wire caches
@@ -37,23 +35,16 @@ def dense_cache_fits(m: int, n: int, dev: torch.device) -> bool:
     return 2.0 * m * n * 4 <= STATIC_CACHE_BYTES
 
 
-def upload(arr: np.ndarray, dev: torch.device,
-           stats: Optional[dict] = None) -> torch.Tensor:
+@spanned("rtt.stream.upload")
+def upload(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
     """One host array on ``dev``.  To the card it goes from a pinned copy
     (``pin_memory()``) with ``non_blocking=True``; torch's caching host
     allocator reuses a pinned block only once its copy has passed.  A uint16
     array travels as its int16 view (torch's uint16 has few kernels; the
-    densify widens it back).  On the card ``stats["upload_s"]`` /
-    ``["upload_bytes"]`` add the host time and the bytes of the transfer."""
+    densify widens it back).  Each call is a ``rtt.stream.upload`` span."""
     arr = np.ascontiguousarray(arr)
     if arr.dtype == np.uint16:
         arr = arr.view(np.int16)
     if dev.type != "cuda":
         return torch.from_numpy(arr).to(dev)
-    t0 = time.perf_counter()
-    out = torch.from_numpy(arr).pin_memory().to(dev, non_blocking=True)
-    if stats is not None:
-        stats["upload_s"] = stats.get("upload_s", 0.0) + \
-            time.perf_counter() - t0
-        stats["upload_bytes"] = stats.get("upload_bytes", 0) + arr.nbytes
-    return out
+    return torch.from_numpy(arr).pin_memory().to(dev, non_blocking=True)

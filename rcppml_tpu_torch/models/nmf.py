@@ -17,6 +17,12 @@ per-iteration read on the host is the convergence test, and a fit with
 ``tol == 0`` skips it: ``rel < 0`` is never true, so such a fit cannot
 converge early and needs no sync until the end.  With ``fused_vmem`` the
 whole fit is one call into ``ops/fused_als.py``.
+
+Under a profiler the default fit opens ``rtt.fit.prepare`` (the matrix and
+starting state on the device), ``rtt.loop`` with each iteration's
+``rtt.fit.h_update``, ``rtt.fit.w_update`` and ``rtt.fit.loss``, and
+``rtt.fit.finalize`` (``utils/trace.py``), adding no wait; its
+``res.misc["host_syncs"]`` counts every synchronizing call it makes.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from ..ops import fused_als as fused_mod
 from ..ops import linalg, solvers
 from ..parallel.mesh import NO_AXIS
 from ..result import NMFResult
+from ..utils.trace import Syncs, span
 
 
 @dataclass
@@ -154,22 +161,26 @@ def make_updates(cfg: NMFConfig, aux: dict, ctx=None):
 
 
 def init_fit_state(cfg: NMFConfig, W_T0, H0, d0, *,
-                   device) -> FitState:
-    """The state before the first iteration, on ``device``."""
+                   device, syncs: Optional[Syncs] = None) -> FitState:
+    """The state before the first iteration, on ``device``; ``syncs``
+    counts its uploads (each factor and each starting scalar)."""
     f32 = torch.float32
+    device = torch.device(device)
+    syncs = syncs if syncs is not None else Syncs()
 
     def dev(x):
         # contiguous, as every later factor is: the layout of a matmul's
         # operands selects its kernel, and with it the rounding; a copy,
         # because torch refuses read-only arrays
-        return torch.from_numpy(np.array(x, np.float32, order="C")).to(device)
+        return syncs.to(torch.from_numpy(np.array(x, np.float32, order="C")),
+                        device)
 
     return FitState(
         W_T=dev(W_T0), H=dev(H0), d=dev(d0), it=0,
-        prev_loss=torch.tensor(torch.finfo(f32).max, dtype=f32, device=device),
+        prev_loss=dev(torch.finfo(f32).max),
         patience_ctr=torch.zeros((), dtype=torch.int32, device=device),
         converged=torch.zeros((), dtype=torch.bool, device=device),
-        final_tol=torch.tensor(float("nan"), dtype=f32, device=device),
+        final_tol=dev(float("nan")),
         loss_hist=torch.full((cfg.max_iter,), float("nan"), dtype=f32,
                              device=device),
     )
@@ -188,14 +199,18 @@ def loop_operands(cfg: NMFConfig, A: torch.Tensor, ctx=None):
 
 def fit_mse(cfg: NMFConfig, A: torch.Tensor, state: FitState,
             aux: Optional[dict] = None, seg_end: Optional[int] = None,
-            operands=None, ctx=None) -> FitState:
+            operands=None, ctx=None,
+            syncs: Optional[Syncs] = None) -> FitState:
     """Run the dense MSE ALS loop from ``state`` to convergence or
     ``cfg.max_iter`` (the port of ``_fit_mse`` / ``_mse_loop``).  With
     ``seg_end`` the loop stops after that many iterations in all, and a later
     call carries on from the returned state (``_fit_mse_seg``);
     ``operands`` is :func:`loop_operands` of A, for a caller that runs many
     segments.  ``ctx``: the ``parallel.mesh.ShardContext`` of a sharded fit,
-    whose A and state are this rank's blocks (:func:`make_updates`)."""
+    whose A and state are this rank's blocks (:func:`make_updates`).
+    ``syncs`` counts the convergence test's reads (one an iteration with
+    ``tol > 0``)."""
+    syncs = syncs if syncs is not None else Syncs()
     h_update, w_update, compute_loss = make_updates(cfg, aux or {}, ctx)
     trAtA, A = (operands if operands is not None
                 else loop_operands(cfg, A, ctx))
@@ -206,22 +221,28 @@ def fit_mse(cfg: NMFConfig, A: torch.Tensor, state: FitState,
     loss_hist = state.loss_hist.clone()
     # with tol == 0, rel < tol never holds: no host read per iteration
     check_each_iteration = cfg.tol > 0
-    while it < bound and not (check_each_iteration and bool(converged)):
-        H, d = h_update(A, W_T, H, d, it)
-        W_T, H, d, B_w, G_w = w_update(A, W_T, H, d, it)
-        loss = compute_loss(trAtA, A, W_T, H, d, B_w, G_w)
+    with span("rtt.loop"):
+        while it < bound and not (check_each_iteration
+                                  and bool(syncs.host(converged))):
+            with span("rtt.fit.h_update"):
+                H, d = h_update(A, W_T, H, d, it)
+            with span("rtt.fit.w_update"):
+                W_T, H, d, B_w, G_w = w_update(A, W_T, H, d, it)
+            with span("rtt.fit.loss"):
+                loss = compute_loss(trAtA, A, W_T, H, d, B_w, G_w)
 
-        # relative-tolerance + patience convergence (fit_cpu.hpp:1770-1809)
-        rel = (prev_loss - loss).abs() / (prev_loss.abs() + 1e-15)
-        loss_conv = (rel < cfg.tol) & (it > 0)
-        patience_ctr = torch.where(loss_conv, patience_ctr + 1,
-                                   torch.zeros_like(patience_ctr))
-        converged = patience_ctr >= cfg.patience
-        if it > 0:
-            final_tol = rel
-        loss_hist[it] = loss                  # in place: no sync
-        prev_loss = loss
-        it += 1
+                # relative-tolerance + patience convergence
+                # (fit_cpu.hpp:1770-1809)
+                rel = (prev_loss - loss).abs() / (prev_loss.abs() + 1e-15)
+                loss_conv = (rel < cfg.tol) & (it > 0)
+                patience_ctr = torch.where(loss_conv, patience_ctr + 1,
+                                           torch.zeros_like(patience_ctr))
+                converged = patience_ctr >= cfg.patience
+                if it > 0:
+                    final_tol = rel
+                loss_hist[it] = loss                  # in place: no sync
+            prev_loss = loss
+            it += 1
     return FitState(W_T, H, d, it, prev_loss, patience_ctr, converged,
                     final_tol, loss_hist)
 
@@ -335,7 +356,10 @@ def fit_profiled(A: torch.Tensor, cfg: NMFConfig, W_T0, H0, d0,
     each segment on the host clock.  The section -> ms map keeps its
     contract: the sections are timed once more at the final state (best of
     3) and scaled by the iteration count, estimates of where the loop's time
-    goes, marked as such in the map.
+    goes, marked as such in the map.  For each iteration's sections as the
+    unprofiled fit runs them, with no wait added, trace that fit with
+    ``torch.profiler``: its ``rtt.fit.h_update``, ``rtt.fit.w_update`` and
+    ``rtt.fit.loss`` spans (``utils/trace.py``).
     """
     state = init_fit_state(cfg, W_T0, H0, d0, device=A.device)
     operands = loop_operands(cfg, A)
@@ -383,8 +407,10 @@ def fit_profiled(A: torch.Tensor, cfg: NMFConfig, W_T0, H0, d0,
         "iterations": it,
         "mode": "fused-segmented",
         "section_basis": "per-call best-of-3 at final state x iterations "
-                         "(the loop's sections overlap on the device; use "
-                         "torch.profiler for exact attribution)",
+                         "(the loop's sections overlap on the device; the "
+                         "unprofiled fit under torch.profiler gives each "
+                         "iteration's rtt.fit.h_update / w_update / loss "
+                         "spans)",
     }
     return finalize_result(cfg, state, extra={"profile": prof})
 
@@ -460,14 +486,28 @@ def fit_device(A, device=None) -> torch.device:
     return torch.device("cuda")
 
 
-def device_matrix(A, dev: torch.device) -> torch.Tensor:
+def device_matrix(A, dev: torch.device,
+                  syncs: Optional[Syncs] = None) -> torch.Tensor:
     """``A`` as a float32 tensor on ``dev``; a host array becomes row-major
     (a column-major one, as a densified CSC matrix is, would reach the
-    products as a transposed view, with another kernel and other rounding)."""
-    if isinstance(A, torch.Tensor):
-        return A.to(device=dev, dtype=torch.float32)
-    # a copy: the fit never writes A, but torch refuses read-only arrays
-    return torch.from_numpy(np.array(A, dtype=np.float32, order="C")).to(dev)
+    products as a transposed view, with another kernel and other rounding).
+    ``syncs`` counts the copy to a card."""
+    syncs = syncs if syncs is not None else Syncs()
+    if not isinstance(A, torch.Tensor):
+        # a copy: the fit never writes A, but torch refuses read-only arrays
+        A = torch.from_numpy(np.array(A, dtype=np.float32, order="C"))
+    return syncs.to(A, dev)
+
+
+def _aux_on(aux: Optional[dict], dev: torch.device,
+            syncs: Optional[Syncs] = None) -> dict:
+    """The auxiliary arrays (``nmf_fit``'s ``aux``) as float32 tensors on
+    ``dev``."""
+    syncs = syncs if syncs is not None else Syncs()
+    return {key: syncs.to(val if isinstance(val, torch.Tensor)
+                          else torch.as_tensor(np.asarray(val, np.float32)),
+                          dev)
+            for key, val in (aux or {}).items() if val is not None}
 
 
 def nmf_fit(A, cfg: NMFConfig, *, w_init=None, h_init=None,
@@ -497,14 +537,14 @@ def nmf_fit(A, cfg: NMFConfig, *, w_init=None, h_init=None,
     # everything that needs no device is checked by now
     dev = fit_device(A, device)
     set_fp32_precision()
+    if not (cfg.requires_irls() or cfg.fused_vmem or on_iteration is not None
+            or cfg.enable_profiling):
+        return _fit_plain(A, cfg, dev, w_init, h_init, aux)
     A_dev = device_matrix(A, dev)
 
     W_T0, H0, d0 = init_factors(cfg, m, n, A=A_dev, w_init=w_init,
                                 h_init=h_init)
-    aux_dev = {key: torch.as_tensor(np.asarray(val, np.float32)
-                                    if not isinstance(val, torch.Tensor)
-                                    else val).to(A_dev.device, torch.float32)
-               for key, val in (aux or {}).items() if val is not None}
+    aux_dev = _aux_on(aux, A_dev.device)
     if cfg.requires_irls():
         from .nmf_irls import fit_irls
         return fit_irls(A_dev, cfg, W_T0, H0, d0, aux_dev,
@@ -518,22 +558,42 @@ def nmf_fit(A, cfg: NMFConfig, *, w_init=None, h_init=None,
     if on_iteration is not None:
         return fit_stepwise(A_dev, cfg, W_T0, H0, d0, aux_dev,
                             on_iteration=on_iteration)
-    if cfg.enable_profiling:
-        return fit_profiled(A_dev, cfg, W_T0, H0, d0, aux_dev)
-    state = init_fit_state(cfg, W_T0, H0, d0, device=A_dev.device)
-    return finalize_result(cfg, fit_mse(cfg, A_dev, state, aux_dev))
+    return fit_profiled(A_dev, cfg, W_T0, H0, d0, aux_dev)
+
+
+def _fit_plain(A, cfg: NMFConfig, dev: torch.device, w_init, h_init,
+               aux) -> NMFResult:
+    """The dense MSE fit as users run it: :func:`fit_mse` with no wait
+    inside, between its preparation and its result (the ``rtt.fit.*``
+    spans).  ``res.misc["host_syncs"]`` counts the fit's synchronizing
+    calls (:class:`utils.trace.Syncs`)."""
+    syncs = Syncs()
+    with span("rtt.fit.prepare"):
+        A_dev = device_matrix(A, dev, syncs)
+        W_T0, H0, d0 = init_factors(cfg, *A_dev.shape, A=A_dev,
+                                    w_init=w_init, h_init=h_init)
+        aux_dev = _aux_on(aux, A_dev.device, syncs)
+        state = init_fit_state(cfg, W_T0, H0, d0, device=A_dev.device,
+                               syncs=syncs)
+        operands = loop_operands(cfg, A_dev)
+    state = fit_mse(cfg, A_dev, state, aux_dev, operands=operands,
+                    syncs=syncs)
+    with span("rtt.fit.finalize"):
+        res = finalize_result(cfg, state, syncs=syncs)
+    res.misc["host_syncs"] = syncs.n
+    return res
 
 
 def finalize_result(cfg: NMFConfig, state: FitState,
-                    extra: Optional[dict] = None, ctx=None) -> NMFResult:
+                    extra: Optional[dict] = None, ctx=None,
+                    syncs: Optional[Syncs] = None) -> NMFResult:
     """Copy a FitState to a host NMFResult (fit_cpu.hpp:1827-1854).
     ``extra``: further result fields by name (the IRLS fit's ``theta``,
     ``dispersion``, ``pi_row``, ``pi_col``).  ``ctx``: a sharded fit's
     ``ShardContext``; W's row blocks are gathered over "rows" and H's column
     blocks over "cols", so that every rank returns the whole (padded)
-    factors."""
-    def host(t):
-        return t.detach().cpu().numpy()
+    factors.  ``syncs`` counts the reads."""
+    host = (syncs if syncs is not None else Syncs()).host
 
     W_T, H = state.W_T, state.H
     if ctx is not None:
@@ -544,9 +604,9 @@ def finalize_result(cfg: NMFConfig, state: FitState,
         d=host(state.d),
         H=host(H),
         iterations=it,
-        converged=bool(state.converged),
-        final_tol=float(state.final_tol),
-        train_loss=float(state.prev_loss) if it > 0 else float("nan"),
+        converged=bool(host(state.converged)),
+        final_tol=float(host(state.final_tol)),
+        train_loss=float(host(state.prev_loss)) if it > 0 else float("nan"),
         loss_history=host(state.loss_hist)[:it]
         if cfg.track_loss_history else None,
     )

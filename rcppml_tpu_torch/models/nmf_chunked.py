@@ -60,6 +60,7 @@ from ..ops import features as feat
 from ..ops import linalg, losses, solvers
 from ..parallel.mesh import NO_AXIS
 from ..result import NMFResult
+from ..utils.trace import Syncs, span, spans
 from .nmf import fit_device, init_factors
 
 # ---------------------------------------------------------------------------
@@ -334,37 +335,12 @@ def _panel_cross_term(W_T, d, H_panel, A_panel):
 # The streaming fit
 # ---------------------------------------------------------------------------
 
-class _TimedLoader:
-    """A loader whose panel reads add their host seconds to
-    ``stats["decode_s"]`` (summed over the Prefetcher's threads)."""
-
-    def __init__(self, loader, stats: dict):
-        self._loader = loader
-        self._stats = stats
-        stats.setdefault("decode_s", 0.0)
-
-    def __getattr__(self, name):
-        return getattr(self._loader, name)
-
-    def _timed(self, fetch, *args):
-        t0 = time.perf_counter()
-        out = fetch(*args)
-        self._stats["decode_s"] += time.perf_counter() - t0
-        return out
-
-    def chunk(self, c, transpose=False):
-        return self._timed(self._loader.chunk, c, transpose)
-
-    def chunk_coo(self, c, transpose=False):
-        return self._timed(self._loader.chunk_coo, c, transpose)
-
-
-def _dense_graph(L, dev):
+def _dense_graph(L, dev, syncs: Syncs):
     if L is None:
         return None
-    return torch.from_numpy(np.array(
+    return syncs.to(torch.from_numpy(np.array(
         L.todense() if hasattr(L, "todense") else L, np.float32,
-        order="C")).to(dev)
+        order="C")), dev)
 
 
 def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
@@ -372,7 +348,7 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
                 graph_H=None, mesh=None, on_iteration=None,
                 checkpoint_path=None, checkpoint_every: int = 1,
                 panel_cache=None, sparse_panels: Optional[bool] = None,
-                device=None, stats: Optional[dict] = None) -> NMFResult:
+                device=None) -> NMFResult:
     """Streaming ALS over a DataLoader or ``.spz`` path
     (nmf/fit_chunked.hpp:71).
 
@@ -388,12 +364,23 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
     or False (neither).  ``sparse_panels``: None (auto: COO panels where the
     loader has them and the density is below 0.15), True or False.
     ``device``: where the fit runs, the CUDA card by default (without a card
-    that raises; pass ``device="cpu"`` for the CPU).  ``stats``: an
-    optional dict to which the fit adds ``upload_s`` and ``upload_bytes``
-    (host-to-card transfers), ``decode_s`` (host seconds the loader spent
-    reading panels, summed over its threads), ``sweep_s`` (wall seconds per
-    sweep) and, for an IRLS fit, ``inner_iters`` and ``host_syncs`` of its
-    panel solves.
+    that raises; pass ``device="cpu"`` for the CPU).
+
+    Counters, on every fit: ``res.misc["stream"]`` holds ``decode_s`` (host
+    seconds of the panel reads and their preparation, summed over the
+    Prefetcher's workers), ``wait_s`` (the seconds this thread waited on
+    them), ``panels_decoded``, ``upload_s`` and ``upload_bytes`` (the
+    panels' copies to the device: host seconds and bytes),
+    ``panel_cache_hits``, ``sweep_s`` (wall seconds per sweep) and, for an
+    IRLS fit, ``inner_iters`` of its panel solves.
+    ``res.misc["host_syncs"]`` counts the fit's synchronizing calls
+    (``utils.trace.Syncs``; not the checkpoint's reads, a seeding SVD's or
+    a mesh's collectives).  Under a profiler the fit opens
+    ``rtt.stream.trace_sq`` (the loader's pass for tr(A'A)), ``rtt.loop``
+    around its sweeps, ``rtt.stream.sweep`` for each, ``rtt.stream.panel``
+    for each panel's put and solve, ``rtt.stream.wait`` where it waits on a
+    decode, ``rtt.stream.upload``, ``rtt.stream.loss`` and
+    ``rtt.fit.finalize`` (``utils/trace.py``).
 
     ``mesh``: a ``parallel.mesh.Mesh`` every rank of which calls this
     alike, each with its own loader of the same data: sharded streaming
@@ -464,9 +451,11 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
         dev = fit_device(loader, device)
     set_fp32_precision()
     dev_bytes = device_bytes(dev)
-    raw_loader = loader
-    if stats is not None:
-        loader = _TimedLoader(loader, stats)
+    syncs = Syncs()
+    stream = {"decode_s": 0.0, "wait_s": 0.0, "panels_decoded": 0,
+              "upload_s": 0.0, "upload_bytes": 0, "panel_cache_hits": 0,
+              "sweep_s": []}
+    irls_counts = {"inner_iters": 0, "host_syncs": 0}
 
     # ---- panel residency caches ----
     if panel_cache is None:
@@ -530,20 +519,18 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
             def prep(ch):
                 ch.data = np.ascontiguousarray(ch.data, dtype=np.float32)
                 return ch
-        if prefetch:
-            it = Prefetcher(loader, transpose=transposed,
-                            sparse=_sparse_mode, transform=prep)
-        else:
-            fetch = loader.chunk_coo if _sparse_mode else loader.chunk
-            it = (prep(fetch(c, transposed))
-                  for c in range(loader.num_chunks(transposed)))
+        # without prefetch the panels are read on this thread
+        it = Prefetcher(loader, transpose=transposed, sparse=_sparse_mode,
+                        transform=prep, depth=None if prefetch else 0)
         try:
             for ch in it:
                 meta[ch.col_start] = ch.num_cols
                 yield ch
         finally:
-            if prefetch:
-                it.close()
+            it.close()
+            stream["decode_s"] += it.decode_s
+            stream["wait_s"] += it.wait_s
+            stream["panels_decoded"] += it.decoded
 
     def _chunk_finite(ch) -> bool:
         vals = ch.vals if isinstance(ch, _CompactChunk) else ch.data
@@ -560,16 +547,16 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
         rows_dim = n if transposed else m
         hit = _panel_cache.get(key)
         if hit is not None:
+            stream["panel_cache_hits"] += 1
             if _cache_panels:
                 return hit
             rows_d, counts_d, vals_d, nnz, nc = hit        # wire tuple
             return _coo_densify(rows_d, counts_d, vals_d, nnz=nnz,
                                 nrows=rows_dim, ncols=nc)
         if ctx is not None:
-            out = upload(_block_of(ch.data, ch.num_cols, transposed), dev,
-                         stats)
+            out = _upload(_block_of(ch.data, ch.num_cols, transposed))
         elif isinstance(ch, _CompactChunk):
-            rows_d, counts_d, vals_d = (upload(x, dev, stats) for x
+            rows_d, counts_d, vals_d = (_upload(x) for x
                                         in (ch.rows, ch.counts, ch.vals))
             if _wire_cache:
                 _wire_bytes += (ch.rows.nbytes + ch.counts.nbytes
@@ -585,13 +572,21 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
             out = _coo_densify(rows_d, counts_d, vals_d, nnz=ch.nnz,
                                nrows=rows_dim, ncols=ch.num_cols)
         else:
-            out = upload(ch.data, dev, stats)
+            out = _upload(ch.data)
         if _cache_panels:
             _panel_cache[key] = out
         return out
 
+    def _upload(x: np.ndarray) -> torch.Tensor:
+        t0 = time.perf_counter()
+        out = upload(x, dev)
+        stream["upload_s"] += time.perf_counter() - t0
+        stream["upload_bytes"] += x.nbytes
+        return out
+
     def _tensor(x):
-        return torch.from_numpy(np.array(x, np.float32, order="C")).to(dev)
+        return syncs.to(torch.from_numpy(np.array(x, np.float32, order="C")),
+                        dev)
 
     # ---- a mesh rank's block of each panel ----
     def _rows_geom(transposed: bool):
@@ -674,8 +669,8 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
         return (ctx.rows if transposed else ctx.cols).gather(X, dim=1)[
             :, :nc]
 
-    gW = _dense_graph(graph_W, dev)
-    gH = _dense_graph(graph_H, dev)
+    gW = _dense_graph(graph_W, dev, syncs)
+    gH = _dense_graph(graph_H, dev, syncs)
     active_loss = Loss.KL if cfg.loss == Loss.GP else cfg.loss
     per_col = cfg.dispersion == Dispersion.PER_COL
     is_nb = cfg.loss == Loss.NB
@@ -763,7 +758,7 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
         # SVD init out of core: the init SVD itself streams over the
         # loader's panels (the Lanczos leading subspace for both modes)
         from .svd import streaming_svd
-        sres = streaming_svd(raw_loader, cfg.rank, method="lanczos",
+        sres = streaming_svd(loader, cfg.rank, method="lanczos",
                              seed=cfg.seed, device=dev)
         sq = np.sqrt(np.maximum(np.asarray(sres.d, np.float64), 0.0))
         W_T0 = (np.abs(np.asarray(sres.U)) * sq[None, :]).T.astype(np.float32)
@@ -796,9 +791,11 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
         sl = mask[cs:cs + nc, :].T if transposed else mask[:, cs:cs + nc]
         if ctx is not None:
             sl = _block_of(sl, nc, transposed).astype(bool)
-        return torch.from_numpy(np.ascontiguousarray(sl)).to(dev)
+        return syncs.to(torch.from_numpy(np.ascontiguousarray(sl)), dev,
+                        torch.bool)
 
-    trAtA = loader.trace_sq()
+    with span("rtt.stream.trace_sq"):
+        trAtA = loader.trace_sq()
 
     if _resume is not None:
         prev_loss = _resume["prev_loss"]
@@ -824,313 +821,327 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
                 and _cache_full(False) and _cache_full(True))
 
     done_sweeps = it_start
-    for it in range(it_start, cfg.max_iter):
-        if converged:
-            break
-        t_sweep = time.perf_counter()
-        stop = False
-        saved_loss = _saved_loss_ready()
+    with span("rtt.loop"):
+        for it in spans("rtt.stream.sweep",
+                        range(it_start, cfg.max_iter)):
+            if converged:
+                break
+            t_sweep = time.perf_counter()
+            stop = False
+            saved_loss = _saved_loss_ready()
 
-        # ---- H update over forward panels ----
-        G_add_H = G_add_W = None
-        if not use_masked and not use_irls:
-            G = linalg.gram(W_T)
-            G, _ = feat.apply_l1_l2(G, None, 0.0, cfg.H.L2)
-            G = feat.apply_l21(G, H, cfg.H.L21)
-            G = feat.apply_graph_reg(G, gH, H, cfg.H.graph_lambda)
-        else:
-            # L21 rides the per-column Grams as the shared tier-2 k x k
-            # term, as on the in-memory masked / IRLS paths
-            G_add_H = feat.tier2_gram_addition(H, cfg.H)
-            G_add_W = feat.tier2_gram_addition(W_T, cfg.W)
-        H_parts = {}
-        W_T_f = _rows_of(W_T, False)            # this rank's rows of W_T
-        for ch in _panels(False):
-            cs, nc = ch.col_start, ch.num_cols
-            row0, col0 = _row0_col0(cs, nc, False)
-            if it == 0 and not isinstance(ch, _CachedChunk) \
-                    and not _chunk_finite(ch):
-                # streamed panels (e.g. .spz) bypass the in-memory NaN
-                # auto-mask, so a corrupt / NaN file must fail here
-                raise ValueError(
-                    f"non-finite values in columns {cs}..{cs + nc}; "
-                    "streaming cannot auto-mask NaN/Inf — clean the data "
-                    "or fit in-memory with mask=")
-            A_panel = _put_panel(ch, False)
-            X_warm = _cols_of(H, cs, nc, False)
-            if cfg.projective:
-                X = sum_f.sum((W_T_f * d[:, None]) @ A_panel)
-            elif use_irls:
-                th_row, th_col = _thetas(cs, nc, False)
-                if is_zi and it > 0:
-                    # solves see the soft-imputed panel (in-memory: the
-                    # iter >= 1 solves read state.A_imp)
-                    A_panel = _panel_zi_impute(W_T_f, d, X_warm, A_panel,
-                                               *_zi_bcast(cs, nc, False))
-                X = _panel_solve_irls(
-                    cfg, "H", W_T_f, A_panel, X_warm, it, th_row, th_col,
-                    cv_seed, col0, _mask_panel(cs, nc, False), G_add_H,
-                    active_loss=active_loss, inv_prob=inv_prob,
-                    mask_zeros=cfg.mask_zeros, transposed=False,
-                    counts=stats, row0=row0, axis=sum_f)
-            elif use_masked:
-                X = _panel_solve_cv(
-                    cfg, "H", W_T_f, A_panel, X_warm, it, cv_seed, col0,
-                    _mask_panel(cs, nc, False), G_add_H, inv_prob=inv_prob,
-                    mask_zeros=cfg.mask_zeros, transposed=False, row0=row0,
-                    axis=sum_f)
+            # ---- H update over forward panels ----
+            G_add_H = G_add_W = None
+            if not use_masked and not use_irls:
+                G = linalg.gram(W_T)
+                G, _ = feat.apply_l1_l2(G, None, 0.0, cfg.H.L2)
+                G = feat.apply_l21(G, H, cfg.H.L21)
+                G = feat.apply_graph_reg(G, gH, H, cfg.H.graph_lambda)
             else:
-                X = _solve_from_B(cfg, "H", G, sum_f.sum(W_T_f @ A_panel),
-                                  X_warm, it)
-            H_parts[cs] = _whole(X, nc, False)
-            del A_panel
-        H = torch.cat([H_parts[cs] for cs in sorted(H_parts)], dim=1)
-        del H_parts
-        if cfg.H.angular > 0:
-            H = feat.apply_angular_posthoc(H, cfg.H.angular)
-        H, d = linalg.extract_scaling(H, cfg.norm)
-
-        # ---- W update over transpose panels ----
-        G_w = linalg.gram(H)                             # saved for loss
-        if not use_masked and not use_irls:
-            G2, _ = feat.apply_l1_l2(G_w, None, 0.0, cfg.W.L2)
-            G2 = feat.apply_l21(G2, W_T, cfg.W.L21)
-            G2 = feat.apply_graph_reg(G2, gW, W_T, cfg.W.graph_lambda)
-        W_parts, B_parts = {}, {}
-        H_f = _rows_of(H, True)                 # this rank's columns of H
-        for ch in _panels(True):
-            cs, nc = ch.col_start, ch.num_cols
-            row0, col0 = _row0_col0(cs, nc, True)
-            At_panel = _put_panel(ch, True)      # (n, pc) columns of A^T
-            X_warm = _cols_of(W_T, cs, nc, True)
-            if use_irls:
-                th_row, th_col = _thetas(cs, nc, True)
-                if is_zi and it > 0:
-                    At_panel = _panel_zi_impute(H_f, d, X_warm, At_panel,
-                                                *_zi_bcast(cs, nc, True))
-                X = _panel_solve_irls(
-                    cfg, "W", H_f, At_panel, X_warm, it, th_row, th_col,
-                    cv_seed, col0, _mask_panel(cs, nc, True), G_add_W,
-                    active_loss=active_loss, inv_prob=inv_prob,
-                    mask_zeros=cfg.mask_zeros, transposed=True,
-                    counts=stats, row0=row0, axis=sum_t)
-            elif use_masked:
-                X = _panel_solve_cv(
-                    cfg, "W", H_f, At_panel, X_warm, it, cv_seed, col0,
-                    _mask_panel(cs, nc, True), G_add_W, inv_prob=inv_prob,
-                    mask_zeros=cfg.mask_zeros, transposed=True, row0=row0,
-                    axis=sum_t)
-            else:
-                B = sum_t.sum(H_f @ At_panel)
-                if saved_loss:
-                    B_parts[cs] = B
-                X = _solve_from_B(cfg, "W", G2, B, X_warm, it)
-            W_parts[cs] = _whole(X, nc, True)
-            del At_panel
-        W_T = torch.cat([W_parts[cs] for cs in sorted(W_parts)], dim=1)
-        del W_parts
-        if cfg.W.angular > 0:
-            W_T = feat.apply_angular_posthoc(W_T, cfg.W.angular)
-        W_T, d = linalg.extract_scaling(W_T, cfg.norm)
-
-        # ---- loss ----
-        W_T_l = _rows_of(W_T, False)
-        if use_irls and not is_cv and not has_mask:
-            tot_parts = []       # per-panel device scalars; f64 host sum
-            if is_zi:
-                zs_row = torch.zeros((m,), dtype=torch.float64, device=dev)
-                zs_col = torch.zeros((n,), dtype=torch.float64, device=dev)
-                zn_row = torch.zeros((m,), dtype=torch.float64, device=dev)
-                zn_col = torch.zeros((n,), dtype=torch.float64, device=dev)
-                r0, _, vr = (0, m, m) if ctx is None else _rows_geom(False)
-            for ch in _panels(False, prefetch=False):
-                cs, nc = ch.col_start, ch.num_cols
-                th_row, th_col = _thetas(cs, nc, False)
-                A_panel = _put_panel(ch, False)
-                H_panel = _cols_of(H, cs, nc, False)
-                if is_zi:
-                    pl, sr, sc, cr, cc = _panel_irls_loss_zi(
-                        cfg, W_T_l, d, H_panel, A_panel, th_row, th_col,
-                        *_zi_bcast(cs, nc, False), valid_rc=_valid(nc))
-                    tot_parts.append(pl)
-                    # this rank's block's part; under a mesh the disjoint
-                    # blocks' parts are summed after the sweep
-                    c0, _, vc = ((0, nc, nc) if ctx is None
-                                 else _cols_geom(nc, False))
-                    zs_row[r0:r0 + vr] += sr[:vr]
-                    zn_row[r0:r0 + vr] += cr[:vr]
-                    zs_col[cs + c0:cs + c0 + vc] += sc[:vc]
-                    zn_col[cs + c0:cs + c0 + vc] += cc[:vc]
-                else:
-                    tot_parts.append(_panel_irls_loss(
-                        cfg, W_T_l, d, H_panel, A_panel, th_row, th_col,
-                        valid_rc=_valid(nc)))
-                del A_panel
-            if ctx is not None:
-                tot_parts = [ctx.sum_all(torch.stack(tot_parts))]
-                if is_zi:
-                    zs_row, zn_row, zs_col, zn_col = (
-                        ctx.sum_all(v) for v in (zs_row, zn_row, zs_col,
-                                                 zn_col))
-            loss = float(torch.stack(tot_parts).double().cpu().numpy().sum()) \
-                if tot_parts else 0.0
-            if is_zi:
-                # pi M-step (zi_em_step's update rule, once per sweep)
-                if zi_row:
-                    new_pi = torch.clamp(zs_row / n, 0.001, 0.999)
-                    keep = zn_row > 0
-                else:
-                    new_pi = torch.clamp(zs_col / m, 0.001, 0.999)
-                    keep = zn_col > 0
-                pi_vec = torch.where(keep, new_pi.to(torch.float32), pi_vec)
-            hist.append(loss)
-            rel = abs(prev_loss - loss) / (abs(prev_loss) + 1e-15)
-            if it > 0 and rel < cfg.tol:
-                patience += 1
-                if patience >= cfg.patience:
-                    converged = True
-                    stop = True
-            else:
-                patience = 0
-            prev_loss = loss
-
-        elif use_masked or use_irls:
-            acc_parts = []
-            for ch in _panels(False, prefetch=False):
+                # L21 rides the per-column Grams as the shared tier-2 k x k
+                # term, as on the in-memory masked / IRLS paths
+                G_add_H = feat.tier2_gram_addition(H, cfg.H)
+                G_add_W = feat.tier2_gram_addition(W_T, cfg.W)
+            H_parts = {}
+            W_T_f = _rows_of(W_T, False)            # this rank's rows of W_T
+            for ch in spans("rtt.stream.panel", _panels(False)):
                 cs, nc = ch.col_start, ch.num_cols
                 row0, col0 = _row0_col0(cs, nc, False)
-                th_row, th_col = _thetas(cs, nc, False)
+                if it == 0 and not isinstance(ch, _CachedChunk) \
+                        and not _chunk_finite(ch):
+                    # streamed panels (e.g. .spz) bypass the in-memory NaN
+                    # auto-mask, so a corrupt / NaN file must fail here
+                    raise ValueError(
+                        f"non-finite values in columns {cs}..{cs + nc}; "
+                        "streaming cannot auto-mask NaN/Inf — clean the "
+                        "data or fit in-memory with mask=")
                 A_panel = _put_panel(ch, False)
-                acc_parts.append(_panel_cv_losses(
-                    cfg, W_T_l, d, _cols_of(H, cs, nc, False), A_panel,
-                    cv_seed, col0, th_row, th_col,
-                    _mask_panel(cs, nc, False), inv_prob=inv_prob,
-                    mask_zeros=cfg.mask_zeros, row0=row0,
-                    valid_rc=_valid(nc)))
+                X_warm = _cols_of(H, cs, nc, False)
+                if cfg.projective:
+                    X = sum_f.sum((W_T_f * d[:, None]) @ A_panel)
+                elif use_irls:
+                    th_row, th_col = _thetas(cs, nc, False)
+                    if is_zi and it > 0:
+                        # solves see the soft-imputed panel (in-memory: the
+                        # iter >= 1 solves read state.A_imp)
+                        A_panel = _panel_zi_impute(W_T_f, d, X_warm, A_panel,
+                                                   *_zi_bcast(cs, nc, False))
+                    X = _panel_solve_irls(
+                        cfg, "H", W_T_f, A_panel, X_warm, it, th_row, th_col,
+                        cv_seed, col0, _mask_panel(cs, nc, False), G_add_H,
+                        active_loss=active_loss, inv_prob=inv_prob,
+                        mask_zeros=cfg.mask_zeros, transposed=False,
+                        counts=irls_counts, row0=row0, axis=sum_f)
+                elif use_masked:
+                    X = _panel_solve_cv(
+                        cfg, "H", W_T_f, A_panel, X_warm, it, cv_seed, col0,
+                        _mask_panel(cs, nc, False), G_add_H, inv_prob=inv_prob,
+                        mask_zeros=cfg.mask_zeros, transposed=False, row0=row0,
+                        axis=sum_f)
+                else:
+                    X = _solve_from_B(cfg, "H", G, sum_f.sum(W_T_f @ A_panel),
+                                      X_warm, it)
+                H_parts[cs] = _whole(X, nc, False)
                 del A_panel
-            acc = torch.stack(acc_parts)
-            if ctx is not None:
-                acc = ctx.sum_all(acc)
-            # one read of the device; a float64 host sum keeps the entry
-            # counts exact and the loss sums below fp32 drift
-            acc = acc.cpu().numpy().astype(np.float64).sum(axis=0)
-            tr_sse, tr_n, te_sse, te_n = [float(v) for v in acc]
-            loss = tr_sse / max(tr_n, 1.0)
-            test_loss = te_sse / max(te_n, 1.0)
-            hist.append(loss)
-            test_hist.append(test_loss)
-            conv_loss = test_loss if is_cv else loss
-            if is_cv:
-                if test_loss < best_test:
-                    best_test = test_loss
-                    best_iter = it
-                    patience = 0
-                else:
-                    patience += 1
-            rel = abs(prev_loss - conv_loss) / (abs(prev_loss) + 1e-15)
-            prev_loss = conv_loss
-            if not is_cv:
-                # consecutive sub-tol iterations only
-                if it > 0 and rel < cfg.tol:
-                    patience += 1
-                else:
-                    patience = 0
-            if (is_cv and (patience >= cfg.cv_patience
-                           or (it > 0 and rel < cfg.tol))) or \
-               (not is_cv and patience >= cfg.patience):
-                converged = True
-                stop = True
+            H = torch.cat([H_parts[cs] for cs in sorted(H_parts)], dim=1)
+            del H_parts
+            if cfg.H.angular > 0:
+                H = feat.apply_angular_posthoc(H, cfg.H.angular)
+            H, d = linalg.extract_scaling(H, cfg.norm)
 
-        else:
-            if saved_loss:
-                B_w = torch.cat([B_parts[cs] for cs in sorted(B_parts)],
-                                dim=1)
-                loss = float(linalg.mse_loss_from_saved(
-                    torch.tensor(trAtA, dtype=torch.float32, device=dev),
-                    W_T, d, B_w, G_w))
-                del B_w
-            else:
-                # the cross term accumulates on the device in panel order;
-                # one read per sweep
-                cross_d = torch.zeros((), dtype=torch.float32, device=dev)
-                for ch in _panels(False, prefetch=False):
-                    cs, nc = ch.col_start, ch.num_cols
-                    A_panel = _put_panel(ch, False)
-                    cross_d = cross_d + _panel_cross_term(
-                        W_T_l, d, _cols_of(H, cs, nc, False), A_panel)
-                    del A_panel
+            # ---- W update over transpose panels ----
+            G_w = linalg.gram(H)                             # saved for loss
+            if not use_masked and not use_irls:
+                G2, _ = feat.apply_l1_l2(G_w, None, 0.0, cfg.W.L2)
+                G2 = feat.apply_l21(G2, W_T, cfg.W.L21)
+                G2 = feat.apply_graph_reg(G2, gW, W_T, cfg.W.graph_lambda)
+            W_parts, B_parts = {}, {}
+            H_f = _rows_of(H, True)                 # this rank's columns of H
+            for ch in spans("rtt.stream.panel", _panels(True)):
+                cs, nc = ch.col_start, ch.num_cols
+                row0, col0 = _row0_col0(cs, nc, True)
+                At_panel = _put_panel(ch, True)      # (n, pc) columns of A^T
+                X_warm = _cols_of(W_T, cs, nc, True)
+                if use_irls:
+                    th_row, th_col = _thetas(cs, nc, True)
+                    if is_zi and it > 0:
+                        At_panel = _panel_zi_impute(H_f, d, X_warm, At_panel,
+                                                    *_zi_bcast(cs, nc, True))
+                    X = _panel_solve_irls(
+                        cfg, "W", H_f, At_panel, X_warm, it, th_row, th_col,
+                        cv_seed, col0, _mask_panel(cs, nc, True), G_add_W,
+                        active_loss=active_loss, inv_prob=inv_prob,
+                        mask_zeros=cfg.mask_zeros, transposed=True,
+                        counts=irls_counts, row0=row0, axis=sum_t)
+                elif use_masked:
+                    X = _panel_solve_cv(
+                        cfg, "W", H_f, At_panel, X_warm, it, cv_seed, col0,
+                        _mask_panel(cs, nc, True), G_add_W, inv_prob=inv_prob,
+                        mask_zeros=cfg.mask_zeros, transposed=True, row0=row0,
+                        axis=sum_t)
+                else:
+                    B = sum_t.sum(H_f @ At_panel)
+                    if saved_loss:
+                        B_parts[cs] = B
+                    X = _solve_from_B(cfg, "W", G2, B, X_warm, it)
+                W_parts[cs] = _whole(X, nc, True)
+                del At_panel
+            W_T = torch.cat([W_parts[cs] for cs in sorted(W_parts)], dim=1)
+            del W_parts
+            if cfg.W.angular > 0:
+                W_T = feat.apply_angular_posthoc(W_T, cfg.W.angular)
+            W_T, d = linalg.extract_scaling(W_T, cfg.norm)
+
+            with span("rtt.stream.loss"):
+                # ---- loss ----
+                W_T_l = _rows_of(W_T, False)
+                if use_irls and not is_cv and not has_mask:
+                    # per-panel device scalars; f64 host sum
+                    tot_parts = []
+                    if is_zi:
+                        f64 = torch.float64
+                        zs_row = torch.zeros((m,), dtype=f64, device=dev)
+                        zs_col = torch.zeros((n,), dtype=f64, device=dev)
+                        zn_row = torch.zeros((m,), dtype=f64, device=dev)
+                        zn_col = torch.zeros((n,), dtype=f64, device=dev)
+                        r0, _, vr = ((0, m, m) if ctx is None
+                                     else _rows_geom(False))
+                    for ch in _panels(False, prefetch=False):
+                        cs, nc = ch.col_start, ch.num_cols
+                        th_row, th_col = _thetas(cs, nc, False)
+                        A_panel = _put_panel(ch, False)
+                        H_panel = _cols_of(H, cs, nc, False)
+                        if is_zi:
+                            pl, sr, sc, cr, cc = _panel_irls_loss_zi(
+                                cfg, W_T_l, d, H_panel, A_panel, th_row,
+                                th_col, *_zi_bcast(cs, nc, False),
+                                valid_rc=_valid(nc))
+                            tot_parts.append(pl)
+                            # this rank's block's part; under a mesh the
+                            # disjoint blocks' parts are summed after the
+                            # sweep
+                            c0, _, vc = ((0, nc, nc) if ctx is None
+                                         else _cols_geom(nc, False))
+                            zs_row[r0:r0 + vr] += sr[:vr]
+                            zn_row[r0:r0 + vr] += cr[:vr]
+                            zs_col[cs + c0:cs + c0 + vc] += sc[:vc]
+                            zn_col[cs + c0:cs + c0 + vc] += cc[:vc]
+                        else:
+                            tot_parts.append(_panel_irls_loss(
+                                cfg, W_T_l, d, H_panel, A_panel, th_row,
+                                th_col, valid_rc=_valid(nc)))
+                        del A_panel
+                    if ctx is not None:
+                        tot_parts = [ctx.sum_all(torch.stack(tot_parts))]
+                        if is_zi:
+                            zs_row, zn_row, zs_col, zn_col = (
+                                ctx.sum_all(v) for v in (zs_row, zn_row,
+                                                         zs_col, zn_col))
+                    loss = float(syncs.host(
+                        torch.stack(tot_parts).double()).sum()) \
+                        if tot_parts else 0.0
+                    if is_zi:
+                        # pi M-step (zi_em_step's update rule, once per sweep)
+                        if zi_row:
+                            new_pi = torch.clamp(zs_row / n, 0.001, 0.999)
+                            keep = zn_row > 0
+                        else:
+                            new_pi = torch.clamp(zs_col / m, 0.001, 0.999)
+                            keep = zn_col > 0
+                        pi_vec = torch.where(keep, new_pi.to(torch.float32),
+                                             pi_vec)
+                    hist.append(loss)
+                    rel = abs(prev_loss - loss) / (abs(prev_loss) + 1e-15)
+                    if it > 0 and rel < cfg.tol:
+                        patience += 1
+                        if patience >= cfg.patience:
+                            converged = True
+                            stop = True
+                    else:
+                        patience = 0
+                    prev_loss = loss
+
+                elif use_masked or use_irls:
+                    acc_parts = []
+                    for ch in _panels(False, prefetch=False):
+                        cs, nc = ch.col_start, ch.num_cols
+                        row0, col0 = _row0_col0(cs, nc, False)
+                        th_row, th_col = _thetas(cs, nc, False)
+                        A_panel = _put_panel(ch, False)
+                        acc_parts.append(_panel_cv_losses(
+                            cfg, W_T_l, d, _cols_of(H, cs, nc, False),
+                            A_panel, cv_seed, col0, th_row, th_col,
+                            _mask_panel(cs, nc, False), inv_prob=inv_prob,
+                            mask_zeros=cfg.mask_zeros, row0=row0,
+                            valid_rc=_valid(nc)))
+                        del A_panel
+                    acc = torch.stack(acc_parts)
+                    if ctx is not None:
+                        acc = ctx.sum_all(acc)
+                    # one read of the device; a float64 host sum keeps the
+                    # entry counts exact and the loss sums below fp32 drift
+                    acc = syncs.host(acc).astype(np.float64).sum(axis=0)
+                    tr_sse, tr_n, te_sse, te_n = [float(v) for v in acc]
+                    loss = tr_sse / max(tr_n, 1.0)
+                    test_loss = te_sse / max(te_n, 1.0)
+                    hist.append(loss)
+                    test_hist.append(test_loss)
+                    conv_loss = test_loss if is_cv else loss
+                    if is_cv:
+                        if test_loss < best_test:
+                            best_test = test_loss
+                            best_iter = it
+                            patience = 0
+                        else:
+                            patience += 1
+                    rel = abs(prev_loss - conv_loss) / (abs(prev_loss)
+                                                        + 1e-15)
+                    prev_loss = conv_loss
+                    if not is_cv:
+                        # consecutive sub-tol iterations only
+                        if it > 0 and rel < cfg.tol:
+                            patience += 1
+                        else:
+                            patience = 0
+                    if (is_cv and (patience >= cfg.cv_patience
+                                   or (it > 0 and rel < cfg.tol))) or \
+                       (not is_cv and patience >= cfg.patience):
+                        converged = True
+                        stop = True
+
+                else:
+                    if saved_loss:
+                        B_w = torch.cat(
+                            [B_parts[cs] for cs in sorted(B_parts)], dim=1)
+                        loss = float(syncs.host(linalg.mse_loss_from_saved(
+                            _tensor(trAtA), W_T, d, B_w, G_w)))
+                        del B_w
+                    else:
+                        # the cross term accumulates on the device in panel
+                        # order; one read per sweep
+                        cross_d = torch.zeros((), dtype=torch.float32,
+                                              device=dev)
+                        for ch in _panels(False, prefetch=False):
+                            cs, nc = ch.col_start, ch.num_cols
+                            A_panel = _put_panel(ch, False)
+                            cross_d = cross_d + _panel_cross_term(
+                                W_T_l, d, _cols_of(H, cs, nc, False), A_panel)
+                            del A_panel
+                        if ctx is not None:
+                            cross_d = ctx.sum_all(cross_d)
+                        cross = float(syncs.host(cross_d))
+                        G_wt = linalg.gram(W_T)
+                        recon = float(syncs.host(
+                            ((d[:, None] * d[None, :]) * G_wt * G_w).sum()))
+                        loss = trAtA - 2.0 * cross + recon
+                    hist.append(loss)
+                    rel = abs(prev_loss - loss) / (abs(prev_loss) + 1e-15)
+                    if it > 0 and rel < cfg.tol:
+                        patience += 1
+                        if patience >= cfg.patience:
+                            converged = True
+                            stop = True
+                    else:
+                        patience = 0
+                    prev_loss = loss
+                B_parts.clear()
+
+            # ---- per-sweep observability: callbacks and preemption-safe
+            # checkpoints at sweep boundaries ----
+            if ctx is not None:
+                # every rank holds the same loss; the stop is still rank 0's
+                stop = ctx.share(stop)
+            done_sweeps = it + 1
+            stream["sweep_s"].append(time.perf_counter() - t_sweep)
+            if on_iteration is not None:
+                on_iteration(it + 1, float(hist[-1]),
+                             float(test_hist[-1]) if test_hist
+                             else float("nan"))
+            if checkpoint_path is not None and (
+                    (it + 1) % int(checkpoint_every) == 0 or stop
+                    or it + 1 == cfg.max_iter):
+                from ..utils.checkpoint import save_stream_state
+                if ctx is None or ctx.is_root:
+                    # the state is whole on every rank; rank 0 writes it
+                    save_stream_state(
+                        checkpoint_path, cfg, W_T=W_T, H=H, d=d, it=it + 1,
+                        prev_loss=prev_loss, patience=patience,
+                        best_test=best_test, best_iter=best_iter, hist=hist,
+                        test_hist=test_hist, pi_vec=pi_vec,
+                        converged=converged)
                 if ctx is not None:
-                    cross_d = ctx.sum_all(cross_d)
-                cross = float(cross_d)
-                G_wt = linalg.gram(W_T)
-                recon = float(((d[:, None] * d[None, :]) * G_wt * G_w).sum())
-                loss = trAtA - 2.0 * cross + recon
-            hist.append(loss)
-            rel = abs(prev_loss - loss) / (abs(prev_loss) + 1e-15)
-            if it > 0 and rel < cfg.tol:
-                patience += 1
-                if patience >= cfg.patience:
-                    converged = True
-                    stop = True
+                    ctx.barrier()
+            if stop:
+                break
+
+    with span("rtt.fit.finalize"):
+        host = syncs.host
+        res = NMFResult(
+            W=host(W_T).T, d=host(d), H=host(H),
+            iterations=done_sweeps,
+            converged=converged,
+            train_loss=float(hist[-1]) if hist else float("nan"),
+            test_loss=float(test_hist[-1]) if test_hist else float("nan"),
+            best_iter=best_iter,
+            loss_history=np.asarray(hist, dtype=np.float64),
+            test_loss_history=(np.asarray(test_hist, dtype=np.float64)
+                               if test_hist else None),
+        )
+        if is_cv:
+            res.misc["best_test_loss"] = float(best_test)
+        if is_nb:
+            # fixed at init in streaming mode, like the reference chunked
+            # engine
+            res.theta = host(nb_vec)
+        if is_zi:
+            if zi_row:
+                res.pi_row = host(pi_vec)
             else:
-                patience = 0
-            prev_loss = loss
-        B_parts.clear()
-
-        # ---- per-sweep observability: callbacks and preemption-safe
-        # checkpoints at sweep boundaries ----
-        if ctx is not None:
-            # every rank holds the same loss; the stop is still rank 0's
-            stop = ctx.share(stop)
-        done_sweeps = it + 1
-        if stats is not None:
-            stats.setdefault("sweep_s", []).append(
-                time.perf_counter() - t_sweep)
-        if on_iteration is not None:
-            on_iteration(it + 1, float(hist[-1]),
-                         float(test_hist[-1]) if test_hist
-                         else float("nan"))
-        if checkpoint_path is not None and (
-                (it + 1) % int(checkpoint_every) == 0 or stop
-                or it + 1 == cfg.max_iter):
-            from ..utils.checkpoint import save_stream_state
-            if ctx is None or ctx.is_root:
-                # the state is whole on every rank; rank 0 writes it
-                save_stream_state(
-                    checkpoint_path, cfg, W_T=W_T, H=H, d=d, it=it + 1,
-                    prev_loss=prev_loss, patience=patience,
-                    best_test=best_test, best_iter=best_iter, hist=hist,
-                    test_hist=test_hist, pi_vec=pi_vec,
-                    converged=converged)
-            if ctx is not None:
-                ctx.barrier()
-        if stop:
-            break
-
-    def host(t):
-        return t.detach().cpu().numpy()
-
-    res = NMFResult(
-        W=host(W_T).T, d=host(d), H=host(H),
-        iterations=done_sweeps,
-        converged=converged,
-        train_loss=float(hist[-1]) if hist else float("nan"),
-        test_loss=float(test_hist[-1]) if test_hist else float("nan"),
-        best_iter=best_iter,
-        loss_history=np.asarray(hist, dtype=np.float64),
-        test_loss_history=(np.asarray(test_hist, dtype=np.float64)
-                           if test_hist else None),
-    )
-    if is_cv:
-        res.misc["best_test_loss"] = float(best_test)
-    if is_nb:
-        # fixed at init in streaming mode, like the reference chunked engine
-        res.theta = host(nb_vec)
-    if is_zi:
-        if zi_row:
-            res.pi_row = host(pi_vec)
-        else:
-            res.pi_col = host(pi_vec)
-    if cfg.sort_model:
-        res.sort()
+                res.pi_col = host(pi_vec)
+        if cfg.sort_model:
+            res.sort()
+    if use_irls:
+        stream["inner_iters"] = irls_counts["inner_iters"]
+    res.misc["stream"] = stream
+    res.misc["host_syncs"] = syncs.n + irls_counts["host_syncs"]
     return res

@@ -17,8 +17,9 @@ holds (BASELINE.md:29).  This tool
     cache, as the engine's auto rules pick them there), and prints for each
     sweep its wall time, the host time the Prefetcher's workers spent
     decoding and compacting (summed over the workers), the host time of the
-    uploads, the device time (``torch.profiler``, kernels and copies on the
-    card) and the device busy share (device time over wall time).
+    uploads (the engine's ``rtt.stream.upload`` spans), the device time
+    (``torch.profiler``, kernels and copies on the card) and the device
+    busy share (device time over wall time).
 
 Usage, on a machine with the card, from the repository's root:
 
@@ -153,28 +154,30 @@ def run_fit(path: str, k: int, sweeps: int) -> dict:
     panels = (loader.num_chunks(False), loader.num_chunks(True))
     print(f"[fit] {m} x {n} nnz={nnz} panels {panels[0]} forward + "
           f"{panels[1]} transpose, k={k}, {sweeps} sweeps", flush=True)
-    stats: dict = {}
     sweeps_out = []
-    state = {"prof": None, "t0": 0.0, "decode": 0.0, "upload": 0.0}
+    state = {"prof": None, "t0": 0.0, "decode": 0.0}
 
     def start():
-        state["prof"] = profile(activities=[ProfilerActivity.CUDA])
+        state["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
         state["prof"].__enter__()
         state["t0"] = time.perf_counter()
         state["decode"] = TimedLoader.decode_s
-        state["upload"] = stats.get("upload_s", 0.0)
 
     def on_sweep(sweep, loss, _test):
         torch.cuda.synchronize()
         wall = time.perf_counter() - state["t0"]
         prof = state["prof"]
         prof.__exit__(None, None, None)
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
+        averages = prof.key_averages()
+        rows = [e for e in averages if e.device_type == DeviceType.CUDA]
         device_s = sum(e.self_device_time_total for e in rows) / 1e6
+        upload_s = sum(e.cpu_time_total for e in averages
+                       if e.device_type == DeviceType.CPU
+                       and e.key == "rtt.stream.upload") / 1e6
         rec = {"sweep": sweep, "wall_s": wall,
                "host_decode_s": TimedLoader.decode_s - state["decode"],
-               "upload_host_s": stats.get("upload_s", 0.0) - state["upload"],
+               "upload_host_s": upload_s,
                "device_s": device_s, "device_busy": device_s / wall,
                "device_kernels": sum(e.count for e in rows), "loss": loss}
         sweeps_out.append(rec)
@@ -191,19 +194,20 @@ def run_fit(path: str, k: int, sweeps: int) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     start()
-    res = nmf_chunked(loader, cfg, on_iteration=on_sweep, stats=stats)
+    res = nmf_chunked(loader, cfg, on_iteration=on_sweep)
     torch.cuda.synchronize()
+    stream = res.misc["stream"]
     total = time.perf_counter() - t0
     state["prof"].__exit__(None, None, None)
     print(f"[fit] {total:.2f} s for {res.iterations} sweeps (with the "
           f"profiler's start-ups; the sweeps themselves "
           f"{sum(r['wall_s'] for r in sweeps_out):.2f} s); "
-          f"{stats.get('upload_bytes', 0) / 2**30:.2f} GiB uploaded; peak "
+          f"{stream['upload_bytes'] / 2**30:.2f} GiB uploaded; peak "
           f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB", flush=True)
     return {"shape": [m, n], "nnz": nnz, "k": k, "panels": list(panels),
             "total_seconds": total, "sweeps": sweeps_out,
-            "upload_gib": stats.get("upload_bytes", 0) / 2**30,
+            "upload_gib": stream["upload_bytes"] / 2**30,
             "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
             "train_loss": float(res.train_loss)}
 

@@ -16,9 +16,9 @@ it times, over a run of copies of each:
 
 Each route first copies every array once (allocations), then the run is
 timed.  It prints the host seconds per copy (what the engine's
-``stats["upload_s"]`` adds), the seconds until the card has the data (after
-a synchronize), the rate in GB/s for both, and the card's name and power
-limit.  Needs a CUDA card; imports no JAX.
+``res.misc["stream"]["upload_s"]`` adds), the seconds until the card has
+the data (after a synchronize), the rate in GB/s for both, and the card's
+name and power limit.  Needs a CUDA card; imports no JAX.
 """
 
 import os
