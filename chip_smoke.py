@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
 
-It builds the CUDA kernels from ``rcppml_tpu_torch/csrc`` (seven sources, one
+It builds the CUDA kernels from ``rcppml_tpu_torch/csrc`` (eight sources, one
 ``nvcc`` each, started together), holds each against its plain PyTorch twin,
 drives the port's main paths through ``rcppml_tpu_torch.nmf`` on a matrix on
 the card, and times kernels, twins and fits with CUDA events:
@@ -153,6 +153,8 @@ SMALL = (1200, 400)
 SMALL_RTOL, SMALL_FACTOR_TOL = 1e-4, 1e-2
 MAXIT = 20
 REPS = 5
+# calls a timing of kernel 9 (the COO densify) averages over
+DENSIFY_BATCH = 20
 WGRAM_RTOL = 1e-4
 # the card's published peaks (H100 SXM data sheet): device memory rate,
 # float32 rate outside the tensor cores, dense bfloat16 and TF32 rates
@@ -1299,6 +1301,71 @@ def check_cholesky_clip():
     return worst_abs, worst_rel, all_equal
 
 
+def densify_panel(nrows, ncols, density, seed):
+    """A panel's wire triples as the streaming engine ships them (canonical
+    CSC: uint16 rows as their int16 view, uint8 values, int32 counts), on
+    the card."""
+    rs = np.random.RandomState(seed)
+    counts = rs.binomial(nrows, density, size=ncols).astype(np.int32)
+    rows = np.concatenate([np.sort(rs.choice(nrows, c, replace=False))
+                           for c in counts])
+    vals = rs.randint(1, 256, len(rows)).astype(np.uint8)
+    return tuple(torch.from_numpy(x).cuda() for x in (
+        rows.astype(np.uint16).view(np.int16), counts, vals))
+
+
+def check_coo_densify(card):
+    """The COO densify kernel against its plain twin (both on the card, bit
+    for bit) at the hcabm40k stream's panels, both timed beside the byte
+    bound (one write of the panel, one read of the triples), with each one's
+    peak device memory over the inputs: the kernel as a replayed CUDA graph
+    of DENSIFY_BATCH launches (its device time, without the host's launch
+    gaps), the twin as DENSIFY_BATCH eager calls back to back; median of
+    REPS.  Returns {shape label: (ms, plain_ms, bound_ms, "bytes")}."""
+    from rcppml_tpu_torch.ops import coo_densify as cd
+
+    def replayed_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(DENSIFY_BATCH):
+                fn()
+        ms = cuda_ms(graph.replay) / DENSIFY_BATCH
+        del graph
+        return ms
+    out = {}
+    for label, (nrows, seed) in (("forward 5,000 x 512", (5000, 1)),
+                                 ("transposed 40,000 x 512", (40000, 2))):
+        wire = densify_panel(nrows, 512, STREAM_I["density"], seed)
+        before = cd.coo_densify.launches
+        got = cd.coo_densify(*wire, nrows)
+        plain = cd.coo_densify_plain(*wire, nrows)
+        torch.cuda.synchronize()
+        check(cd.coo_densify.launches == before + 1 and torch.equal(
+            got.view(torch.int32), plain.view(torch.int32)),
+            f"coo_densify {label}: one launch, bit for bit the twin")
+        del got, plain
+        ms = replayed_ms(lambda: cd.coo_densify(*wire, nrows))
+        plain_ms = cuda_ms(lambda: [cd.coo_densify_plain(*wire, nrows)
+                                    for _ in range(DENSIFY_BATCH)]) \
+            / DENSIFY_BATCH
+        mib = peak_mib(lambda: cd.coo_densify(*wire, nrows))
+        plain_mib = peak_mib(lambda: cd.coo_densify_plain(*wire, nrows))
+        in_mib = torch.cuda.memory_allocated() / 2**20
+        nbytes = 4 * nrows * 512 + sum(t.numel() * t.element_size()
+                                       for t in wire)
+        bound, by = bound_ms(nbytes, 0)
+        out[label] = (ms, plain_ms, bound, by)
+        print(f"coo_densify {label}, nnz {wire[0].numel()}: {ms:.4f} ms, "
+              f"twin {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}, "
+              f"{nbytes / 1e6:.1f} MB); peak {mib - in_mib:.1f} MiB over "
+              f"the inputs, twin {plain_mib - in_mib:.1f} MiB  [{card}]",
+              flush=True)
+        del wire
+    return out
+
+
 def check_holdout():
     """The holdout mask computed on the card against the host's."""
     from rcppml_tpu_torch import rng
@@ -2104,8 +2171,10 @@ def streaming_phases(rtt, card, counted, reset_counts, kernels, keep):
 
     from rcppml_tpu_torch.io.loaders import SpzLoader
     from rcppml_tpu_torch.models import nmf_irls
+    from rcppml_tpu_torch.ops.coo_densify import coo_densify
     times, paths = {}, {}
     launches = {name: {} for name in kernels}
+    launches["coo_densify"] = {}
     chol, cd_shared, cd_batched = (kernels["cholesky_clip"],
                                    kernels["cd_nnls_shared"],
                                    kernels["cd_nnls_batched"])
@@ -2115,6 +2184,19 @@ def streaming_phases(rtt, card, counted, reset_counts, kernels, keep):
         check(got > 0 and sum(f.launches for f in counted) == got,
               f"{what}: {got} launches and no other kernel")
         return got
+
+    def densified(fit, what, want=None):
+        """``fit()`` with the COO densify kernel's launches counted: one a
+        panel the stream densified (``want`` of them where given)."""
+        before = coo_densify.launches
+        out = fit()
+        got = coo_densify.launches - before
+        n = out[0].misc["stream"]["densified"]
+        check(got == n > 0 and (want is None or got == want),
+              f"{what}: {got} launches of coo_densify, one a panel "
+              f"densified ({n})")
+        launches["coo_densify"][what] = got
+        return out
 
     with tempfile.TemporaryDirectory() as tmp:
         t_phase = time.perf_counter()
@@ -2180,8 +2262,11 @@ def streaming_phases(rtt, card, counted, reset_counts, kernels, keep):
             check(only(fn, f"in-memory {solver}") == 2 * STREAM_MAXIT,
                   "the in-memory fit launches twice an iteration")
             reset_counts()
-            res, ms = timed_once(lambda: rtt.nmf(path, STREAM_K,
-                                                 solver=solver, **kw))
+            # 16.5% dense, the dense cache on: compact panels, each
+            # densified once on the card
+            res, ms = densified(lambda: timed_once(lambda: rtt.nmf(
+                path, STREAM_K, solver=solver, **kw)),
+                f"streaming MSE (i) {solver}", want=panels)
             got = only(fn, f"streaming {solver}")
             check(got == STREAM_MAXIT * panels,
                   f"streaming {solver}: {got} launches of {name}, once a "
@@ -2214,6 +2299,12 @@ def streaming_phases(rtt, card, counted, reset_counts, kernels, keep):
         def same(a, b):
             return all(np.array_equal(getattr(a, f), getattr(b, f))
                        for f in fields)
+        # the default fit took compact panels densified by kernel 9; the
+        # host-densified panels give the same fit bit for bit
+        res = stream_fit(path, STREAM_K, sparse_panels=False, **kw)
+        check(same(res, cached) and res.misc["stream"]["densified"] == 0,
+              "sparse_panels=False (dense panels from the host): bit for bit "
+              "the default fit's compact panels densified on the card")
         res, ms = timed_once(lambda: stream_fit(path, STREAM_K,
                                                 sparse_panels=True, **kw))
         check(same(res, cached), "sparse_panels=True: bit for bit the dense "
@@ -2222,8 +2313,9 @@ def streaming_phases(rtt, card, counted, reset_counts, kernels, keep):
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        res, ms_off = timed_once(lambda: stream_fit(
-            path, STREAM_K, sparse_panels=True, panel_cache=False, **kw))
+        res, ms_off = densified(lambda: timed_once(lambda: stream_fit(
+            path, STREAM_K, sparse_panels=True, panel_cache=False, **kw)),
+            "streaming MSE (i) uncached sparse panels")
         stats = res.misc["stream"]
         peak = torch.cuda.max_memory_allocated() - before
         check(same(res, cached), "panel_cache=False: bit for bit the cached "
@@ -2262,8 +2354,9 @@ def streaming_phases(rtt, card, counted, reset_counts, kernels, keep):
         runs = {}
         for cache in ("wire", False):
             reset_counts()
-            res, ms = timed_once(lambda: stream_fit(
-                path, STREAM_K, panel_cache=cache, **kw_ii))
+            res, ms = densified(lambda: timed_once(lambda: stream_fit(
+                path, STREAM_K, panel_cache=cache, **kw_ii)),
+                f"streaming MSE (ii) panel_cache={cache!r}")
             stats = res.misc["stream"]
             got = only(chol, f"(ii) panel_cache={cache!r}")
             check(got == STREAM_II_MAXIT * panels_ii,
@@ -3201,8 +3294,9 @@ def main():
     import rcppml_tpu_torch as rtt
     from rcppml_tpu_torch.models import nmf_cv, nmf_irls
     from rcppml_tpu_torch.ops import (_build, cd_nnls, cd_nnls_batched,
-                                      cholesky_clip, fused_als, linalg,
-                                      rhs_tall, solvers, weighted_gram, wgram)
+                                      cholesky_clip, coo_densify, fused_als,
+                                      linalg, rhs_tall, solvers,
+                                      weighted_gram, wgram)
     from rcppml_tpu_torch.utils.simulate import simulate_nmf
     cd_shared, cd_batched = cd_nnls.cd_nnls_shared, \
         cd_nnls_batched.cd_nnls_batched
@@ -3239,8 +3333,9 @@ def main():
     check(sorted(built) == sorted([cd_nnls.KERNEL, cd_nnls_batched.KERNEL,
                                    wgram.KERNEL, fused_als.KERNEL,
                                    rhs_tall.KERNEL, weighted_gram.KERNEL,
-                                   cholesky_clip.KERNEL]),
-          f"the seven sources were built: {sorted(built)}")
+                                   cholesky_clip.KERNEL,
+                                   coo_densify.KERNEL]),
+          f"the eight sources were built: {sorted(built)}")
     for name, (path, seconds) in built.items():
         print(f"built {path.name} in {seconds:.2f} s", flush=True)
         # one line per distinct report: the product tiles are instantiated
@@ -3249,7 +3344,7 @@ def main():
                             path.with_suffix(".so.log").read_text().splitlines()
                             if "registers" in line}):
             print("  ptxas:", line, flush=True)
-    print(f"all seven, side by side: {time.perf_counter() - t0:.2f} s",
+    print(f"all eight, side by side: {time.perf_counter() - t0:.2f} s",
           flush=True)
     if "--profile" in sys.argv[1:]:
         phase(f"profiles on {card}")
@@ -3640,6 +3735,10 @@ def main():
           f"(bitwise) and torch.linalg (within {CHOL_LINALG_RTOL} of the "
           f"largest entry)")
     err_chol, rel_chol, _ = check_cholesky_clip()
+
+    phase("13b COO densify kernel against its plain twin (bitwise) at the "
+          "hcabm40k stream's panels")
+    densify_times = check_coo_densify(card)
 
     phase("14 the holdout mask on the card against the host's")
     check_holdout()
@@ -4364,7 +4463,7 @@ def main():
     for name, n in auto_launches.items():
         path_launches[name]["auto_nmf_distribution"] = n
     for name, by_path in stream_launches.items():
-        path_launches[name].update(by_path)
+        path_launches.setdefault(name, {}).update(by_path)
     for name, by_path in graph_launches.items():
         path_launches[name].update(by_path)
     for label, n in mesh_one.items():
@@ -4435,6 +4534,14 @@ def main():
         entry("cholesky_clip", "cholesky_clip.cu", 188, launches_chol,
               err_chol, rel_chol, "chol (20, 2638) H side",
               file="pallas_experiments.py"),
+        # replaces no TPU kernel (the JAX package leaves the scatter to
+        # XLA); the stream's transposed panel
+        dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"),
+                 densify_times["transposed 40,000 x 512"]),
+             name="coo_densify", route="cuda",
+             source="rcppml_tpu_torch/csrc/coo_densify.cu", replaces=None,
+             max_abs_err=0.0, max_rel_err=0.0, library_ms=None,
+             launches_by_path=path_launches["coo_densify"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

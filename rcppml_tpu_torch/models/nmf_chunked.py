@@ -24,13 +24,17 @@ panels; ``nmf_irls.irls_solve_batch`` (kernel 2, kernel 4 under
 ``RCPPML_FUSED_WGRAM``) for the IRLS panels.
 
 Sparse panels travel as compact COO (uint16 rows when the panel's rows fit,
-uint8 / uint16 values when they are integral) and are densified on the
-device by a scatter of the ``nnz`` real entries into a zeroed panel.  The
-column ids are expanded on the device from the per-column counts
-(``repeat_interleave`` with its ``output_size``, so nothing is read back).
-No padding is shipped, so no index falls outside the panel; canonical CSC
-holds each (row, column) once, so the scatter is exact and a sparse-panel
-fit is bit for bit the dense-panel one.
+uint8 / uint16 values when they are integral, per-column counts) and are
+densified on the device by ``ops/coo_densify.py`` (its CUDA kernel on the
+card, its plain twin on the CPU), which writes the ``nnz`` real entries and
+zeros everywhere else.  No padding is shipped, so no index falls outside the
+panel; canonical CSC holds each (row, column) once, so the densify is exact
+and a sparse-panel fit is bit for bit the dense-panel one.  A loader that
+has COO panels ships them (without a mesh) where the density is below 0.15,
+or where the dense panel cache is on and the compact wire bytes, reckoned
+before any decode (:func:`_coo_wire_bytes`), are below the dense panels'
+bytes: the host then decodes to COO and never densifies or pins a dense
+panel, and the cache keeps the panel the card densified once.
 
 Where the JAX package runs a whole cached sweep as one jitted ``lax.scan``
 (``_cached_sweep_{mse,cv,irls}``), the port's sweep over a full cache is
@@ -58,13 +62,14 @@ from ..io.upload import (STATIC_CACHE_BYTES, dense_cache_fits, device_bytes,
                          upload)
 from ..ops import features as feat
 from ..ops import linalg, losses, solvers
+from ..ops.coo_densify import coo_densify
 from ..parallel.mesh import NO_AXIS
 from ..result import NMFResult
 from ..utils.trace import Syncs, span, spans
 from .nmf import fit_device, init_factors
 
 # ---------------------------------------------------------------------------
-# Wire format and the densify on the device
+# Wire format
 # ---------------------------------------------------------------------------
 
 class _CompactChunk:
@@ -72,12 +77,11 @@ class _CompactChunk:
     consumer's critical path (in the Prefetcher worker) by
     :func:`_compact_sparse`."""
 
-    __slots__ = ("col_start", "num_cols", "nnz", "rows", "counts", "vals")
+    __slots__ = ("col_start", "num_cols", "rows", "counts", "vals")
 
-    def __init__(self, col_start, num_cols, nnz, rows, counts, vals):
+    def __init__(self, col_start, num_cols, rows, counts, vals):
         self.col_start = col_start
         self.num_cols = num_cols
-        self.nnz = nnz
         self.rows = rows
         self.counts = counts
         self.vals = vals
@@ -99,38 +103,19 @@ def _compact_sparse(ch: SparseChunk, rows_dim: int) -> _CompactChunk:
     if np.array_equal(v16, vals):
         vals = v16.astype(np.uint8) if int(v16.max(initial=0)) < 256 \
             else v16
-    return _CompactChunk(ch.col_start, ch.num_cols, ch.nnz, rows,
+    return _CompactChunk(ch.col_start, ch.num_cols, rows,
                          np.ascontiguousarray(ch.counts, dtype=np.int32),
                          vals)
 
 
-def _widen(t: torch.Tensor) -> torch.Tensor:
-    """A wire array back to its values: a uint16 array travels as its int16
-    view (torch's uint16 has few kernels) and is widened exactly with
-    ``& 0xFFFF``; uint8 and int32 convert as they are."""
-    if t.dtype == torch.int16:
-        return t.to(torch.int32) & 0xFFFF
-    return t
-
-
-def _coo_densify(rows, counts, vals, *, nnz: int, nrows: int,
-                 ncols: int) -> torch.Tensor:
-    """Dense (nrows, ncols) float32 panel from the compact triples on the
-    device: ``rows`` (int16 view of uint16, or int32), per-column
-    ``counts`` (int32, ncols), ``vals`` (uint8, int16 view of uint16, or
-    float32), each ``nnz`` long.  Column ids are expanded on the device
-    (``repeat_interleave`` with ``output_size``: no read back), and the
-    entries are written into a zeroed panel by a flat-index scatter; the
-    (row, column) pairs of canonical CSC are unique, so the panel is
-    exactly the host's densified one."""
-    dev = rows.device
-    cols = torch.repeat_interleave(
-        torch.arange(ncols, dtype=torch.int64, device=dev),
-        counts.to(torch.int64), output_size=nnz)
-    flat = _widen(rows).to(torch.int64) * ncols + cols
-    Z = torch.zeros(nrows * ncols, dtype=torch.float32, device=dev)
-    Z[flat] = _widen(vals).to(torch.float32)
-    return Z.view(nrows, ncols)
+def _coo_wire_bytes(nnz: int, m: int, n: int) -> int:
+    """The compact wire bytes of both panel sets of an (m, n) matrix with
+    ``nnz`` entries, reckoned before any decode: each entry's row (2 bytes
+    where the panel's rows fit uint16, else 4) and value (4 bytes, the worst
+    case), and 4 bytes a column for its count."""
+    def side(rows_dim: int, ncols: int) -> int:
+        return nnz * ((2 if rows_dim < (1 << 16) else 4) + 4) + 4 * ncols
+    return side(m, n) + side(n, m)
 
 
 # ---------------------------------------------------------------------------
@@ -361,8 +346,10 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
     state, shared with the JAX package).  ``panel_cache``: None (auto: the
     dense cache where both copies fit the card with headroom, else the wire
     cache for sparse panels), True (dense cache), ``"wire"`` (wire cache)
-    or False (neither).  ``sparse_panels``: None (auto: COO panels where the
-    loader has them and the density is below 0.15), True or False.
+    or False (neither).  ``sparse_panels``: None (auto: without a mesh, COO
+    panels where the loader has them and either the density is below 0.15
+    or the dense cache is on and the compact wire bytes are below the dense
+    panels'), True or False.
     ``device``: where the fit runs, the CUDA card by default (without a card
     that raises; pass ``device="cpu"`` for the CPU).
 
@@ -370,8 +357,9 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
     seconds of the panel reads and their preparation, summed over the
     Prefetcher's workers), ``wait_s`` (the seconds this thread waited on
     them), ``panels_decoded``, ``upload_s`` and ``upload_bytes`` (the
-    panels' copies to the device: host seconds and bytes),
-    ``panel_cache_hits``, ``sweep_s`` (wall seconds per sweep) and, for an
+    panels' copies to the device: host seconds and bytes), ``densified``
+    (the panels densified from COO on the device), ``panel_cache_hits``,
+    ``sweep_s`` (wall seconds per sweep) and, for an
     IRLS fit, ``inner_iters`` of its panel solves.
     ``res.misc["host_syncs"]`` counts the fit's synchronizing calls
     (``utils.trace.Syncs``; not the checkpoint's reads, a seeding SVD's or
@@ -453,8 +441,8 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
     dev_bytes = device_bytes(dev)
     syncs = Syncs()
     stream = {"decode_s": 0.0, "wait_s": 0.0, "panels_decoded": 0,
-              "upload_s": 0.0, "upload_bytes": 0, "panel_cache_hits": 0,
-              "sweep_s": []}
+              "upload_s": 0.0, "upload_bytes": 0, "densified": 0,
+              "panel_cache_hits": 0, "sweep_s": []}
     irls_counts = {"inner_iters": 0, "host_syncs": 0}
 
     # ---- panel residency caches ----
@@ -475,10 +463,14 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
 
     # ---- nnz-proportional ingest (sparse device panels) ----
     if sparse_panels is None:
-        # a mesh keeps dense panels (a block is cut from the dense panel)
+        # a mesh keeps dense panels (a block is cut from the dense panel);
+        # past 0.15 the compact panels go only where the dense cache keeps
+        # what the card densified, so a later sweep reads the same panels
         _nnz = loader.nnz() if loader.supports_sparse else None
         _sparse_mode = (mesh is None and _nnz is not None
-                        and _nnz < 0.15 * m * n)
+                        and (_nnz < 0.15 * m * n
+                             or (_cache_panels and _coo_wire_bytes(_nnz, m, n)
+                                 < 2 * 4 * m * n)))
     else:
         _sparse_mode = bool(sparse_panels)
 
@@ -550,9 +542,8 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
             stream["panel_cache_hits"] += 1
             if _cache_panels:
                 return hit
-            rows_d, counts_d, vals_d, nnz, nc = hit        # wire tuple
-            return _coo_densify(rows_d, counts_d, vals_d, nnz=nnz,
-                                nrows=rows_dim, ncols=nc)
+            stream["densified"] += 1                       # wire triple
+            return coo_densify(*hit, rows_dim)
         if ctx is not None:
             out = _upload(_block_of(ch.data, ch.num_cols, transposed))
         elif isinstance(ch, _CompactChunk):
@@ -567,10 +558,9 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
                     _panel_cache.clear()
                     _wire_cache = False
                 else:
-                    _panel_cache[key] = (rows_d, counts_d, vals_d, ch.nnz,
-                                         ch.num_cols)
-            out = _coo_densify(rows_d, counts_d, vals_d, nnz=ch.nnz,
-                               nrows=rows_dim, ncols=ch.num_cols)
+                    _panel_cache[key] = (rows_d, counts_d, vals_d)
+            stream["densified"] += 1
+            out = coo_densify(rows_d, counts_d, vals_d, rows_dim)
         else:
             out = _upload(ch.data)
         if _cache_panels:

@@ -39,6 +39,7 @@ from rcppml_tpu_torch import datasets
 from rcppml_tpu_torch.io import loaders, rdata, spz
 from rcppml_tpu_torch.io.upload import upload
 from rcppml_tpu_torch.models import nmf_chunked
+from rcppml_tpu_torch.ops import coo_densify
 from rcppml_tpu_torch.utils import resources
 
 REPO = Path(__file__).resolve().parent.parent
@@ -332,10 +333,9 @@ def test_densify_widens_uint16_exactly(m, big):
     wire = nmf_chunked._compact_sparse(ch, m)
     assert wire.rows.dtype == np.uint16 and wire.vals.dtype == np.uint16
     dev = torch.device("cpu")
-    got = nmf_chunked._coo_densify(
+    got = coo_densify.coo_densify(
         *(upload(x, dev)
-          for x in (wire.rows, wire.counts, wire.vals)),
-        nnz=wire.nnz, nrows=m, ncols=nc)
+          for x in (wire.rows, wire.counts, wire.vals)), m)
     assert torch.equal(got, torch.from_numpy(dense))
 
 

@@ -29,7 +29,9 @@ group width the plan can take.  The rank-2 clustering on the card equals the
 CPU port's split and tree on planted groups; checkpointed fits on the card
 are the uninterrupted fit bit for bit, with its kernel launches.  A
 ``.spz`` stream on the card holds to the same stream on the CPU port, and
-its wire-cached run to its uncached one within 1e-5.  The graph engine's
+its wire-cached run to its uncached one within 1e-5; its sparse panels are
+densified by the COO densify kernel, which equals its twin bit for bit at
+the hcabm40k stream's panel shapes and at its edges.  The graph engine's
 outer ALS on the card holds to the same net on the CPU (loss 1e-4,
 factors 1e-2 of the largest entry), with kernels 6 and 1 bitwise their
 twins at its deep layer's shapes, and a multi-modal fit is the stacked
@@ -1071,7 +1073,8 @@ def _stream_card_against_cpu(case, seed, tmp_path):
     import rcppml_tpu_torch as rtt
     from rcppml_tpu_torch.io.loaders import SpzLoader
     from rcppml_tpu_torch.models.nmf_chunked import nmf_chunked
-    from rcppml_tpu_torch.ops import cd_nnls, cd_nnls_batched, cholesky_clip
+    from rcppml_tpu_torch.ops import (cd_nnls, cd_nnls_batched,
+                                      cholesky_clip, coo_densify)
     rs = np.random.RandomState(seed)
     A = sp.random(700, 900, density=0.08, random_state=rs, format="csc",
                   dtype=np.float32)
@@ -1085,8 +1088,12 @@ def _stream_card_against_cpu(case, seed, tmp_path):
               else cd_nnls.cd_nnls_shared if kw
               else cholesky_clip.cholesky_clip)
     before = kernel.launches
+    densified = coo_densify.coo_densify.launches
     card = nmf_chunked(SpzLoader(path), cfg, panel_cache=False)
     assert kernel.launches > before
+    # every sparse panel on the card is densified by the kernel
+    assert coo_densify.coo_densify.launches - densified == \
+        card.misc["stream"]["densified"] > 0
     host = nmf_chunked(SpzLoader(path), cfg, panel_cache=False,
                        device="cpu")
     wire = nmf_chunked(SpzLoader(path), cfg, panel_cache="wire")
@@ -1111,6 +1118,61 @@ def test_streaming_fit_on_the_card_matches_the_cpu(cuda, case, tmp_path):
 def test_streaming_kl_on_the_card_matches_the_cpu_over_seeds(cuda, seed,
                                                              tmp_path):
     _stream_card_against_cpu("kl", seed, tmp_path)
+
+
+# csrc/coo_densify.cu at the hcabm40k stream's panels (forward 5,000 x 512
+# with about 422K entries, transposed 40,000 x 512 with about 3.4M) and at
+# its edges: (nrows, ncols, density, row type, value type)
+DENSIFY_CASES = {
+    "forward": (5000, 512, 0.165, "int16", "uint8"),
+    "transposed": (40000, 512, 0.165, "int16", "uint8"),
+    "uint16_values": (40000, 512, 0.02, "int16", "uint16"),
+    "float_values": (3073, 13, 0.3, "int16", "float32"),
+    "int32_rows": (70000, 9, 0.05, "int32", "uint8"),
+    "single_column": (6000, 1, 0.5, "int16", "uint8"),
+    "no_entries": (100, 17, 0.0, "int16", "uint8"),
+}
+
+
+def _coo_panel(nrows, ncols, density, row_type, val_kind, seed=0):
+    """A panel's wire triples in canonical CSC order, as the streaming
+    engine ships them, with every 37th column (from the second) empty."""
+    rs = np.random.RandomState(seed)
+    counts = rs.binomial(nrows, density, size=ncols).astype(np.int32)
+    counts[1::37] = 0
+    rows = np.concatenate([np.zeros(0, np.int64)] + [
+        np.sort(rs.choice(nrows, c, replace=False)) for c in counts])
+    rows_t = torch.from_numpy(rows.astype(np.uint16).view(np.int16)) \
+        if row_type == "int16" else torch.from_numpy(rows.astype(np.int32))
+    nnz = len(rows)
+    vals_t = {"uint8": lambda: torch.from_numpy(
+                  rs.randint(1, 256, nnz).astype(np.uint8)),
+              "uint16": lambda: torch.from_numpy(
+                  rs.randint(1, 65536, nnz).astype(np.uint16).view(np.int16)),
+              "float32": lambda: torch.from_numpy(
+                  rs.standard_normal(nnz).astype(np.float32))}[val_kind]()
+    return rows_t, torch.from_numpy(counts), vals_t
+
+
+@pytest.mark.parametrize("case", list(DENSIFY_CASES))
+def test_coo_densify_kernel_matches_plain_bitwise(cuda, case):
+    from rcppml_tpu_torch.ops import coo_densify as cd
+    nrows = DENSIFY_CASES[case][0]
+    wire = _coo_panel(*DENSIFY_CASES[case])
+    plain = cd.coo_densify(*wire, nrows)
+    before = cd.coo_densify.launches
+    got = cd.coo_densify(*(t.to(cuda) for t in wire), nrows)
+    torch.cuda.synchronize()
+    assert cd.coo_densify.launches == before + 1
+    assert got.is_cuda and got.shape == plain.shape
+    assert torch.equal(got.cpu().view(torch.int32), plain.view(torch.int32))
+
+
+def test_coo_densify_refuses_triples_on_two_devices(cuda):
+    from rcppml_tpu_torch.ops import coo_densify as cd
+    rows, counts, vals = _coo_panel(*DENSIFY_CASES["int32_rows"])
+    with pytest.raises(ValueError, match="coo_densify"):
+        cd.coo_densify(rows.to(cuda), counts, vals.to(cuda), 70000)
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,7 @@ from rcppml_tpu_torch import api
 from rcppml_tpu_torch.io import loaders
 from rcppml_tpu_torch.io.upload import upload
 from rcppml_tpu_torch.models import nmf_chunked
+from rcppml_tpu_torch.ops import coo_densify
 from rcppml_tpu_torch.utils import checkpoint as ck
 from rcppml_tpu_torch.utils import memory
 from rcppml_tpu_torch.utils.simulate import simulate_nmf
@@ -296,17 +297,62 @@ def _bitwise(a, b):
         assert np.array_equal(getattr(a, f), getattr(b, f)), f
 
 
-@pytest.mark.parametrize("kw", [{}, dict(solver="cd"),
-                                dict(loss="nb", dispersion="per_row"),
-                                dict(test_fraction=0.1, cv_seed=2)],
-                         ids=["cholesky", "cd", "nb", "cv"])
-def test_sparse_panels_and_panel_cache_are_bitwise_the_dense_stream(kw, data):
-    S = data["sparse"]
-    plain = _port_fit(S, dict(sparse_panels=False, panel_cache=False), **kw)
-    _bitwise(_port_fit(S, dict(sparse_panels=True, panel_cache=False), **kw),
-             plain)
-    _bitwise(_port_fit(S, dict(sparse_panels=False, panel_cache=True), **kw),
-             plain)
+# the config keywords of a fit on data["sparse"] (8% dense), or the dense
+# cache (on or off) of an auto-ingest fit on a .spz past the 0.15 density
+PANEL_CASES = {"cholesky": {}, "cd": dict(solver="cd"),
+               "nb": dict(loss="nb", dispersion="per_row"),
+               "cv": dict(test_fraction=0.1, cv_seed=2),
+               "auto_spz_cached": True, "auto_spz_uncached": False}
+
+
+@pytest.mark.parametrize("case", list(PANEL_CASES))
+def test_sparse_panels_and_panel_cache_are_bitwise_the_dense_stream(
+        case, data, tmp_path):
+    """Sparse panels, the dense cache and both together are the uncached
+    dense-panel stream bit for bit.  On a .spz at 16.5% density the auto
+    rule ships the compact panels where the dense cache is on (their bytes
+    are below the dense panels'), and the card densifies each panel once;
+    with the cache off it keeps the dense panels."""
+    kw = PANEL_CASES[case]
+    if isinstance(kw, dict):
+        S = data["sparse"]
+        plain = _port_fit(S, dict(sparse_panels=False, panel_cache=False),
+                          **kw)
+        _bitwise(_port_fit(S, dict(sparse_panels=True, panel_cache=False),
+                           **kw), plain)
+        _bitwise(_port_fit(S, dict(sparse_panels=False, panel_cache=True),
+                           **kw), plain)
+        return
+    rs = np.random.RandomState(4)
+    m, n = 150, 240
+    A = sp.random(m, n, density=0.165, random_state=rs, format="csc",
+                  dtype=np.float32)
+    A.data = np.ceil(A.data * 200)
+    path = str(tmp_path / "dense16.spz")
+    rtt.st_write(A, path, chunk_cols=32)
+    cfg = rtt.build_config(5, seed=3, maxit=MAXIT, tol=0.0, sort_model=False)
+
+    def fit(**engine):
+        return nmf_chunked.nmf_chunked(loaders.SpzLoader(path), cfg,
+                                       device="cpu", **engine)
+    ld = loaders.SpzLoader(path)
+    assert ld.nnz() >= 0.15 * m * n
+    cached = kw
+    auto = fit() if cached else fit(panel_cache=False)
+    st = auto.misc["stream"]
+    _bitwise(auto, fit(sparse_panels=False, panel_cache=cached))
+    panels = ld.num_chunks(False) + ld.num_chunks(True)
+    if cached:
+        compact = sum(sum(x.nbytes for x in (ch.rows, ch.counts, ch.vals))
+                      for t in (False, True)
+                      for ch in (nmf_chunked._compact_sparse(
+                          ld.chunk_coo(c, t), n if t else m)
+                          for c in range(ld.num_chunks(t))))
+        assert st["upload_bytes"] == compact < 2 * 4 * m * n
+        assert st["densified"] == st["panels_decoded"] == panels
+    else:
+        assert st["densified"] == 0
+        assert st["upload_bytes"] == MAXIT * 3 * 4 * m * n
 
 
 @pytest.mark.parametrize("kw", [{}, dict(L1=(0.0, 0.05), solver="cd"),
@@ -355,10 +401,9 @@ def test_densify_of_real_spz_chunks(tmp_path):
         for c in range(ld.num_chunks(transposed)):
             wire = nmf_chunked._compact_sparse(ld.chunk_coo(c, transposed),
                                                rows_dim)
-            got = nmf_chunked._coo_densify(
+            got = coo_densify.coo_densify(
                 *(upload(x, dev)
-                  for x in (wire.rows, wire.counts, wire.vals)),
-                nnz=wire.nnz, nrows=rows_dim, ncols=wire.num_cols)
+                  for x in (wire.rows, wire.counts, wire.vals)), rows_dim)
             assert np.array_equal(got.numpy(), ld.chunk(c, transposed).data)
 
 

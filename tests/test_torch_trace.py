@@ -148,9 +148,13 @@ def test_stream_spans_nest_as_documented(spz_path):
     assert c["rtt.stream.sweep"] == c["rtt.stream.loss"] == SWEEPS
     assert c["rtt.stream.panel"] == (fwd + tr) * SWEEPS
     # the panels stay on the device after the first sweep: it alone reads
-    # and uploads them, and only reads are waited on
-    assert c["rtt.stream.wait"] == c["rtt.stream.upload"] == fwd + tr
+    # and uploads them, and only reads are waited on.  The file is 43%
+    # dense and the dense cache is on, so its panels travel compact, three
+    # arrays each, and are densified on the device once
+    assert c["rtt.stream.wait"] == fwd + tr
+    assert c["rtt.stream.upload"] == 3 * (fwd + tr)
     assert res.misc["stream"]["panels_decoded"] == fwd + tr
+    assert res.misc["stream"]["densified"] == fwd + tr
     first = min((s, e) for s, e, name in spans
                 if name == "rtt.stream.sweep")
     assert all(first[0] <= s and e <= first[1]
