@@ -110,6 +110,26 @@ class DataLoader:
             total += float((ch.data.astype(np.float64) ** 2).sum())
         return total
 
+    def traces_panels(self, sparse: bool) -> bool:
+        """Whether ``chunk_traced`` gives each forward panel of this ingest
+        (COO where ``sparse``) with its part of ``trace_sq()``.  Here: the
+        dense panels, which the default ``trace_sq`` itself sums; a loader
+        that overrides ``trace_sq`` says for itself."""
+        return not sparse and type(self).trace_sq is DataLoader.trace_sq
+
+    def chunk_traced(self, idx: int, sparse: bool = False):
+        """(forward panel ``idx`` as ``chunk`` gives it, its part of
+        ``trace_sq()``), where ``traces_panels(sparse)``: the parts of
+        panels 0, 1, ... added in that order to 0.0 are ``trace_sq()`` bit
+        for bit."""
+        ch = self.chunk(idx)
+        return ch, _sq_sum(ch.data)
+
+
+def _sq_sum(x: np.ndarray) -> float:
+    """A panel's part of tr(A'A), as ``trace_sq`` computes it."""
+    return float((x.astype(np.float64) ** 2).sum())
+
 
 def auto_chunk_cols(m: int, budget_bytes: int = 256 << 20,
                     lo: int = 256, hi: int = 32768) -> int:
@@ -243,11 +263,16 @@ class SpzLoader(DataLoader):
             raise ValueError(spz_mod._err(self._lib))
         return out.value
 
+    def _dense_v2(self, col_start, p, i, x, transpose: bool) -> Chunk:
+        import scipy.sparse as sp
+        rows = self.shape[1] if transpose else self.shape[0]
+        sub = sp.csc_matrix((x, i, p), shape=(rows, len(p) - 1))
+        return Chunk(col_start, np.asarray(sub.todense(), dtype=np.float32))
+
     def chunk(self, idx: int, transpose: bool = False) -> Chunk:
         if self.version == 2:
-            col_start, sub = self.reader.chunk(idx, transpose)
-            return Chunk(col_start, np.asarray(sub.todense(),
-                                               dtype=np.float32))
+            return self._dense_v2(*self.reader.chunk_arrays(idx, transpose),
+                                  transpose)
         import ctypes
         cs = ctypes.c_uint32()
         nc = ctypes.c_uint32()
@@ -281,6 +306,22 @@ class SpzLoader(DataLoader):
         col_start, p, i, x = self.reader.chunk_arrays(idx, transpose)
         return SparseChunk(col_start, len(p) - 1, i,
                            np.diff(p).astype(np.int32), x)
+
+    def traces_panels(self, sparse: bool) -> bool:
+        # v2: the value stream under either ingest; v3: the dense panels
+        return self.version == 2 or not sparse
+
+    def chunk_traced(self, idx: int, sparse: bool = False):
+        """v2: one decode gives the panel (COO, or densified as ``chunk``
+        densifies it) and the sum of its squared values, as ``trace_sq``
+        sums them."""
+        if self.version != 2:
+            return super().chunk_traced(idx, sparse)
+        if sparse:
+            ch = self.chunk_coo(idx)
+            return ch, _sq_sum(ch.vals)
+        col_start, p, i, x = self.reader.chunk_arrays(idx, False)
+        return self._dense_v2(col_start, p, i, x, False), _sq_sum(x)
 
     def trace_sq(self) -> float:
         """sum(A^2) straight off the value streams — no densification
@@ -332,28 +373,37 @@ class Prefetcher:
     on device — the native rANS decode releases the GIL, so workers
     genuinely overlap there; the Python-side panel prep does NOT, which
     is why the hot path avoids scipy object construction and column-id
-    expansion entirely (chunk_arrays + counts).  ``transform`` runs IN THE
-    WORKER on each decoded chunk (e.g. the streaming engine's wire
-    compaction) so per-panel host prep leaves the consumer's critical
-    path.  ``depth=0`` reads each chunk on the consumer's thread.
+    expansion entirely (chunk_arrays + counts).  A worker runs, for each
+    chunk: the loader's read (``chunk``, or ``chunk_coo`` where
+    ``sparse``); with ``traced`` (forward panels of a loader whose
+    ``traces_panels(sparse)`` holds) the read is ``chunk_traced``, which
+    also sums the panel's squares as read; then ``transform`` (e.g. the
+    streaming engine's wire compaction), so per-panel host prep leaves the
+    consumer's critical path.  ``depth=0`` reads each chunk on the
+    consumer's thread.
 
     Counted on the consumer's thread, over the chunks taken: ``decoded``,
     ``decode_s`` (the host seconds of each fetch, transform included,
     summed over the workers) and ``wait_s`` (the seconds the consumer was
-    blocked on them, each wait a ``rtt.stream.wait`` span)."""
+    blocked on them, each wait a ``rtt.stream.wait`` span); with ``traced``,
+    ``trace_sq`` (the panels' parts of ``loader.trace_sq()`` added in panel
+    order: once every panel is taken, that value bit for bit)."""
 
     def __init__(self, loader: DataLoader, transpose: bool,
                  sparse: bool = False, depth: Optional[int] = None,
-                 transform=None):
+                 transform=None, traced: bool = False):
         import os
         self.loader = loader
         self.transpose = transpose
         self.n = loader.num_chunks(transpose)
-        fetch = loader.chunk_coo if sparse else loader.chunk
-        if transform is not None:
-            self._fetch = lambda c, t: transform(fetch(c, t))
-        else:
-            self._fetch = fetch
+        read = loader.chunk_coo if sparse else loader.chunk
+        prep = transform or (lambda ch: ch)
+
+        def fetch(c, t):
+            ch, part = (loader.chunk_traced(c, sparse) if traced
+                        else (read(c, t), None))
+            return prep(ch), part
+        self._fetch = fetch
         if depth is None:
             depth = max(1, min(3, (os.cpu_count() or 2) - 1))
         self.depth = depth
@@ -362,6 +412,7 @@ class Prefetcher:
         self.decoded = 0
         self.decode_s = 0.0
         self.wait_s = 0.0
+        self.trace_sq = 0.0 if traced else None
 
     def _timed(self, c: int):
         t0 = time.perf_counter()
@@ -376,12 +427,14 @@ class Prefetcher:
         for c in range(self.n):
             t0 = time.perf_counter()
             with span("rtt.stream.wait"):
-                chunk, decode_s = (futs.pop(c).result()
-                                   if self._pool is not None
-                                   else self._timed(c))
+                (chunk, part), decode_s = (futs.pop(c).result()
+                                           if self._pool is not None
+                                           else self._timed(c))
             self.wait_s += time.perf_counter() - t0
             self.decode_s += decode_s
             self.decoded += 1
+            if part is not None:
+                self.trace_sq += part
             nxt = c + self.depth
             if self._pool is not None and nxt < self.n:
                 futs[nxt] = self._pool.submit(self._timed, nxt)

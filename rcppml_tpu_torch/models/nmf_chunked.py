@@ -359,12 +359,17 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
     them), ``panels_decoded``, ``upload_s`` and ``upload_bytes`` (the
     panels' copies to the device: host seconds and bytes), ``densified``
     (the panels densified from COO on the device), ``panel_cache_hits``,
-    ``sweep_s`` (wall seconds per sweep) and, for an
-    IRLS fit, ``inner_iters`` of its panel solves.
+    ``sweep_s`` (wall seconds per sweep), ``trace_passes`` (whole-file
+    passes for tr(A'A), 0 or 1: the plain MSE loss reads it, and the pass
+    runs only where the loader cannot give a panel's part as the first
+    sweep reads it, ``DataLoader.traces_panels``), ``trace_panels`` (the
+    forward panels whose parts gave it, in the Prefetcher's workers) and,
+    for an IRLS fit, ``inner_iters`` of its panel solves.
     ``res.misc["host_syncs"]`` counts the fit's synchronizing calls
     (``utils.trace.Syncs``; not the checkpoint's reads, a seeding SVD's or
     a mesh's collectives).  Under a profiler the fit opens
-    ``rtt.stream.trace_sq`` (the loader's pass for tr(A'A)), ``rtt.loop``
+    ``rtt.stream.trace_sq`` (the loader's pass for tr(A'A), where
+    ``trace_passes`` is 1), ``rtt.loop``
     around its sweeps, ``rtt.stream.sweep`` for each, ``rtt.stream.panel``
     for each panel's put and solve, ``rtt.stream.wait`` where it waits on a
     decode, ``rtt.stream.upload``, ``rtt.stream.loss`` and
@@ -442,7 +447,8 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
     syncs = Syncs()
     stream = {"decode_s": 0.0, "wait_s": 0.0, "panels_decoded": 0,
               "upload_s": 0.0, "upload_bytes": 0, "densified": 0,
-              "panel_cache_hits": 0, "sweep_s": []}
+              "panel_cache_hits": 0, "sweep_s": [], "trace_passes": 0,
+              "trace_panels": 0}
     irls_counts = {"inner_iters": 0, "host_syncs": 0}
 
     # ---- panel residency caches ----
@@ -497,7 +503,10 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
 
     def _panels(transposed: bool, prefetch: bool = True):
         """Iterate panels; once a cache holds every panel of a side, yield
-        metadata-only chunks so later sweeps skip the host decode."""
+        metadata-only chunks so later sweeps skip the host decode.  The
+        first read of the forward panels of a fit whose loss reads tr(A'A)
+        takes it from them (the Prefetcher's ``traced``)."""
+        nonlocal trAtA
         meta = _panel_meta[transposed]
         if _cache_full(transposed):
             for cs in sorted(meta):
@@ -511,9 +520,11 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
             def prep(ch):
                 ch.data = np.ascontiguousarray(ch.data, dtype=np.float32)
                 return ch
+        traced = reads_trace and trAtA is None and not transposed
         # without prefetch the panels are read on this thread
         it = Prefetcher(loader, transpose=transposed, sparse=_sparse_mode,
-                        transform=prep, depth=None if prefetch else 0)
+                        transform=prep, depth=None if prefetch else 0,
+                        traced=traced)
         try:
             for ch in it:
                 meta[ch.col_start] = ch.num_cols
@@ -523,6 +534,9 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
             stream["decode_s"] += it.decode_s
             stream["wait_s"] += it.wait_s
             stream["panels_decoded"] += it.decoded
+            if traced and it.decoded == it.n:
+                trAtA = it.trace_sq
+                stream["trace_panels"] = it.decoded
 
     def _chunk_finite(ch) -> bool:
         vals = ch.vals if isinstance(ch, _CompactChunk) else ch.data
@@ -784,8 +798,16 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
         return syncs.to(torch.from_numpy(np.ascontiguousarray(sl)), dev,
                         torch.bool)
 
-    with span("rtt.stream.trace_sq"):
-        trAtA = loader.trace_sq()
+    # tr(A'A): only the plain MSE loss reads it.  The first sweep's
+    # forward panels give it as they are read (``_panels``), unless this
+    # loader cannot give a panel's part bit for bit in this ingest: then
+    # one pass over the file, before the loop
+    reads_trace = not use_masked and not use_irls
+    trAtA = None
+    if reads_trace and not loader.traces_panels(_sparse_mode):
+        with span("rtt.stream.trace_sq"):
+            trAtA = loader.trace_sq()
+        stream["trace_passes"] = 1
 
     if _resume is not None:
         prev_loss = _resume["prev_loss"]

@@ -355,6 +355,93 @@ def test_sparse_panels_and_panel_cache_are_bitwise_the_dense_stream(
         assert st["upload_bytes"] == MAXIT * 3 * 4 * m * n
 
 
+# name: (data, config keywords, engine keywords, whether the loss reads
+# tr(A'A) and the panels give it: True (from the first sweep's forward
+# panels), False (one pass over the loader, the fallback) or None (no loss
+# reads it))
+TRACE_CASES = {
+    "spz_coo_dense_cache": ("spz", {}, dict(sparse_panels=True,
+                                            panel_cache=True), True),
+    "spz_coo_wire_cache": ("spz", {}, dict(sparse_panels=True,
+                                           panel_cache="wire"), True),
+    "spz_coo_uncached": ("spz", {}, dict(sparse_panels=True,
+                                         panel_cache=False), True),
+    "spz_dense_panels": ("spz", {}, dict(sparse_panels=False), True),
+    "spz_v3_dense": ("spz3", {}, {}, True),
+    "memory_dense": ("dense", {}, {}, True),
+    "memory_sparse_dense_panels": ("sparse", {}, dict(sparse_panels=False),
+                                   True),
+    "memory_sparse_coo": ("sparse", {}, dict(sparse_panels=True), False),
+    "mesh": ("dense", {}, dict(mesh=True), True),
+    "resumed": ("spz", {}, dict(resume=True), True),
+    "kl": ("spz", dict(loss="kl"), {}, None),
+    "cv": ("spz", dict(test_fraction=0.1, cv_seed=2, cv_patience=100), {},
+           None),
+}
+
+
+@pytest.mark.parametrize("case", list(TRACE_CASES))
+def test_trace_comes_from_the_first_sweeps_panels(case, data, tmp_path):
+    """The plain MSE loss's tr(A'A) is the sum of the parts the first
+    sweep's forward panels give as they are read, in panel order: the fit
+    is bit for bit the fit whose tr(A'A) is ``loader.trace_sq()`` (the
+    loader made to refuse the parts), and it reads the file once less.
+    The in-memory scipy loader's COO panels cannot give the dense blocks'
+    sum and keep the pass; IRLS and CV losses read tr(A'A) neither way."""
+    key, kw, ekw, from_panels = TRACE_CASES[case]
+    ekw = dict(ekw)
+    # values whose squares round, so that a sum in another order or
+    # precision shows in the loss
+    S = data["sparse"].copy()
+    S.data = np.random.RandomState(6).uniform(0.1, 3.0, S.nnz).astype(
+        np.float32)
+    M = S if key in ("spz", "sparse") else data["dense"]
+    if key in ("spz", "spz3"):
+        path = str(tmp_path / "a.spz")
+        if key == "spz":
+            rtt.st_write(M, path, chunk_cols=32)
+        else:
+            rtt.st_write_dense(M, path, chunk_cols=32)
+
+        def make():
+            return loaders.SpzLoader(path)
+    else:
+        def make():
+            return loaders.InMemoryLoader(M, chunk_cols=32)
+    if ekw.pop("mesh", False):
+        ekw["mesh"] = rtt.default_mesh(devices=["cpu"])
+    else:
+        ekw["device"] = "cpu"
+    cfg = rtt.build_config(K, seed=2, maxit=MAXIT, tol=0.0,
+                           sort_model=False, **kw)
+    ckpts = [None, None]
+    if ekw.pop("resume", False):
+        ckpts = [str(tmp_path / "a.npz"), str(tmp_path / "b.npz")]
+        nmf_chunked.nmf_chunked(
+            make(), rtt.build_config(K, seed=2, maxit=3, tol=0.0,
+                                     sort_model=False, **kw),
+            checkpoint_path=ckpts[0], **ekw)
+        with open(ckpts[0], "rb") as f, open(ckpts[1], "wb") as g:
+            g.write(f.read())
+
+    def fit(ld, ckpt):
+        return nmf_chunked.nmf_chunked(ld, cfg, checkpoint_path=ckpt, **ekw)
+    ld = make()
+    fwd = ld.num_chunks(False)
+    res = fit(ld, ckpts[0])
+    passing = make()
+    passing.traces_panels = lambda sparse: False
+    ref = fit(passing, ckpts[1])
+    _bitwise(res, ref)
+    st = res.misc["stream"]
+    want = {True: (0, fwd), False: (1, 0), None: (0, 0)}[from_panels]
+    assert (st["trace_passes"], st["trace_panels"]) == want
+    assert ref.misc["stream"]["trace_passes"] == (from_panels is not None)
+    assert ref.misc["stream"]["trace_panels"] == 0
+    if ckpts[0] is not None:
+        assert res.iterations == MAXIT and len(res.loss_history) == MAXIT
+
+
 @pytest.mark.parametrize("kw", [{}, dict(L1=(0.0, 0.05), solver="cd"),
                                 dict(L2=(0.1, 0.0)),
                                 dict(test_fraction=0.1, cv_seed=7,
@@ -713,7 +800,8 @@ def test_caches_decode_each_panel_once(mode, data):
     pass and later sweeps read the cache); an uncached one decodes every
     panel of both sides and the forward panels again for the loss, every
     sweep.  Besides, tr(A'A) reads the forward panels once before the
-    first sweep."""
+    first sweep where they travel as COO, whose parts this loader cannot
+    give; the dense panels give it as the first sweep reads them."""
     S = data["sparse"]
     ekw = {"dense_cache": dict(sparse_panels=False, panel_cache=True),
            "sparse_dense_cache": dict(sparse_panels=True, panel_cache=True),
@@ -730,4 +818,6 @@ def test_caches_decode_each_panel_once(mode, data):
                                   device="cpu", **ekw)
     assert res.iterations == 3
     want = fwd + trp if mode != "uncached" else 3 * (2 * fwd + trp)
-    assert len(calls) == fwd + want
+    passes = 0 if mode == "dense_cache" else 1
+    assert res.misc["stream"]["trace_passes"] == passes
+    assert len(calls) == passes * fwd + want

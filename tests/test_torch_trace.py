@@ -139,12 +139,16 @@ def test_mse_fit_spans_nest_as_documented(A):
     assert order == ["rtt.fit.prepare", "rtt.loop", "rtt.fit.finalize"]
 
 
-def test_stream_spans_nest_as_documented(spz_path):
+def test_stream_spans_nest_as_documented(spz_path, A):
     fwd, tr = panels(spz_path)
     res, spans = traced(lambda: fit_stream(spz_path))
     c = counts(spans)
     assert c["rtt.nmf"] == c["rtt.loop"] == c["rtt.fit.finalize"] == 1
-    assert c["rtt.stream.trace_sq"] == 1
+    # tr(A'A) comes from the first sweep's forward panels: no pass of its
+    # own
+    assert c["rtt.stream.trace_sq"] == 0
+    assert res.misc["stream"]["trace_passes"] == 0
+    assert res.misc["stream"]["trace_panels"] == fwd
     assert c["rtt.stream.sweep"] == c["rtt.stream.loss"] == SWEEPS
     assert c["rtt.stream.panel"] == (fwd + tr) * SWEEPS
     # the panels stay on the device after the first sweep: it alone reads
@@ -165,13 +169,24 @@ def test_stream_spans_nest_as_documented(spz_path):
                           ("rtt.stream.wait", "rtt.stream.sweep"),
                           ("rtt.stream.loss", "rtt.stream.sweep"),
                           ("rtt.stream.upload", "rtt.stream.panel"),
-                          ("rtt.fit.finalize", "rtt.nmf"),
-                          ("rtt.stream.trace_sq", "rtt.nmf")):
+                          ("rtt.fit.finalize", "rtt.nmf")):
         assert inside(spans, child, parent), (child, parent)
     # a panel span holds the put and solve, never the wait for the panel
     waits = [(s, e) for s, e, name in spans if name == "rtt.stream.wait"]
     assert not any(s0 <= s and e <= e0 for s, e in waits
                    for s0, e0, name in spans if name == "rtt.stream.panel")
+    # a loader that cannot give its COO panels' parts (the in-memory scipy
+    # loader's) keeps one pass, in its span, before the loop
+    res, spans = traced(lambda: fit_stream(sp.csc_matrix(A), streaming=True,
+                                           chunk_cols=CHUNK))
+    assert res.misc["stream"]["densified"] == fwd + tr     # COO panels
+    assert counts(spans)["rtt.stream.trace_sq"] == 1
+    assert res.misc["stream"]["trace_passes"] == 1
+    assert res.misc["stream"]["trace_panels"] == 0
+    assert inside(spans, "rtt.stream.trace_sq", "rtt.nmf")
+    loop = min(s for s, _, name in spans if name == "rtt.loop")
+    assert all(e <= loop for _, e, name in spans
+               if name == "rtt.stream.trace_sq")
 
 
 @pytest.mark.parametrize("kind", ["mse", "stream"])
