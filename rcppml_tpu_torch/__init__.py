@@ -50,7 +50,7 @@ carries:
     ``cross_validate_graph``; ``nmf([A1, A2], k)`` / ``nmf({...}, k)`` fits
     a shared-H net over the modalities.
 
-Eight kernels written for Hopper run on a CUDA tensor, each with a plain
+Nine kernels written for Hopper run on a CUDA tensor, each with a plain
 PyTorch twin that runs on a CPU tensor: the shared-Gram CD NNLS solve
 (``csrc/cd_nnls_shared.cu``), the CD NNLS solve with one Gram per column that
 every IRLS inner iteration and every CD-mode masked solve calls
@@ -61,16 +61,18 @@ products that read A once, B = F A and B = H A^T (``csrc/rhs_tall.cu``), which
 the whole-fit kernel contains and the default loop calls when A is bfloat16,
 the per-column weighted Gram + RHS from given weights
 (``csrc/weighted_gram.cu``), which the masked and IRLS solves call when k^2 m
-is too large for the Khatri-Rao product, and the shared-Gram Cholesky solve +
-clip (``csrc/cholesky_clip.cu``), the solve of every default MSE fit.
+is too large for the Khatri-Rao product, the shared-Gram Cholesky solve +
+clip (``csrc/cholesky_clip.cu``), the solve of every default MSE fit, and
+the scatter that densifies a stream's compact COO panel on the card
+(``csrc/coo_densify.cu``, kernel 9).
 
 Entry points run on the CUDA card unless the caller asks for ``device="cpu"``
 or passes a CPU tensor.  A device mesh over ``torch.distributed``
 (``parallel/``: ``default_mesh``, ``multihost.initialize``,
 ``multihost.shard_host_data``) runs ``nmf(..., mesh=)`` with one process a
-rank: MSE, IRLS, cross-validated and masked fits.  Still raising
-``NotImplementedError`` with its ROADMAP.md item: checkpointed fits,
-streaming and the graph engine under a mesh.
+rank: MSE, IRLS, cross-validated and masked fits, checkpointed fits,
+streaming (``nmf_chunked(loader, cfg, mesh=)``, ``nmf("x.spz", k, mesh=)``)
+and the graph engine (``fit(net, mesh=)``).
 
 It imports ``torch`` and never ``jax``; kernels are built with ``nvcc`` at
 first use, never at import.

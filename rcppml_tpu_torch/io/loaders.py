@@ -10,7 +10,7 @@ double buffer).
 Panels are delivered as host numpy blocks: DENSE float32 (``Chunk``) or
 COO (``SparseChunk``).  Everything here runs on the host; the Prefetcher's
 worker threads decode and compact panels and make no CUDA call — the
-streaming engine (``models/nmf_chunked.py``) uploads them.
+streaming engine's panel source (``io/panels.py``) uploads them.
 """
 
 from __future__ import annotations

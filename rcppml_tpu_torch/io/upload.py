@@ -1,6 +1,6 @@
 """Stream panels onto the device, and the rule for keeping them there.
 
-Shared by the streaming NMF engine (``models/nmf_chunked.py``) and the
+Shared by the streaming NMF engine's panel source (``io/panels.py``) and the
 streaming SVD's product operator (``models/svd.py::_LoaderOp``): both read
 column panels from a loader, upload each one, and keep the dense panels on
 the device across sweeps when both copies of the matrix fit.

@@ -286,6 +286,70 @@ def _wait(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+class HostConvergence:
+    """The convergence rule of a loop that reads its loss on the host every
+    iteration (the stream's sweeps, :func:`fit_stepwise`).
+
+    Without CV: the relative change of the loss, once below ``tol`` for
+    ``patience`` consecutive iterations after the first, stops the loop.
+    With CV (``is_cv``): the test loss; ``patience`` counts the iterations
+    since its best (``best_test`` at ``best_iter``), and the loop stops
+    after ``cv_patience`` of them or at a relative change below ``tol``.
+    ``hist`` / ``test_hist`` hold every loss.  ``state``: the keys of a
+    stream checkpoint (``utils/checkpoint.py::load_stream_state``) to
+    resume from; :meth:`state` gives them back."""
+
+    KEYS = ("prev_loss", "patience", "best_test", "best_iter", "hist",
+            "test_hist", "converged")
+
+    def __init__(self, cfg: NMFConfig, is_cv: bool = False,
+                 state: Optional[dict] = None):
+        self.cfg, self.is_cv = cfg, is_cv
+        self.prev_loss, self.patience = np.inf, 0
+        self.best_test, self.best_iter = np.inf, -1
+        self.hist, self.test_hist = [], []
+        self.converged = False
+        self.final_tol = float("nan")
+        if state is not None:
+            for key in self.KEYS:
+                setattr(self, key, state[key])
+            self.hist, self.test_hist = list(self.hist), list(self.test_hist)
+
+    def state(self) -> dict:
+        """The rule's state under the stream checkpoint's keys."""
+        return {key: getattr(self, key) for key in self.KEYS}
+
+    def update(self, it: int, loss: float,
+               test_loss: Optional[float] = None) -> bool:
+        """Record iteration ``it``'s losses; whether the loop stops."""
+        self.hist.append(loss)
+        if test_loss is not None:
+            self.test_hist.append(test_loss)
+        value = loss
+        if self.is_cv:
+            value = test_loss
+            if test_loss < self.best_test:
+                self.best_test, self.best_iter = test_loss, it
+                self.patience = 0
+            else:
+                self.patience += 1
+        rel = abs(self.prev_loss - value) / (abs(self.prev_loss) + 1e-15)
+        self.prev_loss = value
+        if it > 0:
+            self.final_tol = rel
+        sub_tol = it > 0 and rel < self.cfg.tol
+        if self.is_cv:
+            stop = self.patience >= self.cfg.cv_patience or sub_tol
+        elif sub_tol:
+            self.patience += 1
+            stop = self.patience >= self.cfg.patience
+        else:
+            self.patience = 0
+            stop = False
+        self.converged = self.converged or stop
+        return stop
+
+
 def fit_stepwise(A: torch.Tensor, cfg: NMFConfig, W_T0, H0, d0, aux, *,
                  on_iteration=None) -> NMFResult:
     """Host-driven ALS loop with a wait after every section.
@@ -301,11 +365,7 @@ def fit_stepwise(A: torch.Tensor, cfg: NMFConfig, W_T0, H0, d0, aux, *,
     W_T, H, d = state.W_T, state.H, state.d
     trAtA, A = loop_operands(cfg, A)
     prof: dict = {}
-    hist = []
-    prev_loss = np.inf
-    patience = 0
-    converged = False
-    final_tol = float("nan")
+    rule = HostConvergence(cfg)
 
     def timed(name, fn):
         _wait(A.device)
@@ -321,27 +381,16 @@ def fit_stepwise(A: torch.Tensor, cfg: NMFConfig, W_T0, H0, d0, aux, *,
             "w_update", lambda: w_update(A, W_T, H, d, it))
         loss = float(timed("loss", lambda: compute_loss(
             trAtA, A, W_T, H, d, B_w, G_w)))
-        hist.append(loss)
         if on_iteration is not None:
             on_iteration(it + 1, loss, float("nan"))
-        if it > 0:
-            rel = abs(prev_loss - loss) / (abs(prev_loss) + 1e-15)
-            final_tol = rel
-            if rel < cfg.tol:
-                patience += 1
-                if patience >= cfg.patience:
-                    converged = True
-                    prev_loss = loss
-                    break
-            else:
-                patience = 0
-        prev_loss = loss
+        if rule.update(it, loss):
+            break
 
     res = NMFResult(
         W=W_T.cpu().numpy().T, d=d.cpu().numpy(), H=H.cpu().numpy(),
-        iterations=len(hist), converged=converged, final_tol=final_tol,
-        train_loss=float(prev_loss),
-        loss_history=np.asarray(hist, dtype=np.float32), profile=prof)
+        iterations=len(rule.hist), converged=rule.converged,
+        final_tol=rule.final_tol, train_loss=float(rule.prev_loss),
+        loss_history=np.asarray(rule.hist, dtype=np.float32), profile=prof)
     if cfg.sort_model:
         res.sort()
     return res

@@ -9,6 +9,17 @@ The port of ``rcppml_tpu/models/nmf_chunked.py`` (``nmf/fit_chunked.hpp:
     compute)  ->  gram(H)  ->  transpose panels: per-panel W_T updates  ->
     scaling  ->  loss accumulated panel by panel, in panel order.
 
+Three parts, each reading only the one below it:
+
+  * :func:`nmf_chunked`: the checks, the starting state, the sweeps and
+    the host's convergence rule (``models/nmf.py::HostConvergence``);
+  * :class:`_Sweep`: one side's update over its panels (the H update over
+    the forward panels and the W update over the transposed ones are the
+    same function) and the loss;
+  * the panels: ``io/panels.py::PanelSource`` (ingest, caches, prefetch,
+    tr(A'A), the stream's counters) and, on a mesh, this rank's block of
+    each panel (``parallel/mesh.py::PanelBlocks``).
+
 Memory on the device: O(m k + n k + panel), unless a panel cache holds the
 matrix there (``panel_cache``): the dense cache keeps every uploaded panel
 when forward and transpose copies fit the card's memory with headroom; the
@@ -23,18 +34,8 @@ kernel 5 where k^2 m exceeds ``KR_BUDGET_FLOATS``) for the CV and masked
 panels; ``nmf_irls.irls_solve_batch`` (kernel 2, kernel 4 under
 ``RCPPML_FUSED_WGRAM``) for the IRLS panels.
 
-Sparse panels travel as compact COO (uint16 rows when the panel's rows fit,
-uint8 / uint16 values when they are integral, per-column counts) and are
-densified on the device by ``ops/coo_densify.py`` (its CUDA kernel on the
-card, its plain twin on the CPU), which writes the ``nnz`` real entries and
-zeros everywhere else.  No padding is shipped, so no index falls outside the
-panel; canonical CSC holds each (row, column) once, so the densify is exact
-and a sparse-panel fit is bit for bit the dense-panel one.  A loader that
-has COO panels ships them (without a mesh) where the density is below 0.15,
-or where the dense panel cache is on and the compact wire bytes, reckoned
-before any decode (:func:`_coo_wire_bytes`), are below the dense panels'
-bytes: the host then decodes to COO and never densifies or pins a dense
-panel, and the cache keeps the panel the card densified once.
+Sparse panels travel as compact COO and are densified on the device; a
+sparse-panel fit is bit for bit the dense-panel one (``io/panels.py``).
 
 Where the JAX package runs a whole cached sweep as one jitted ``lax.scan``
 (``_cached_sweep_{mse,cv,irls}``), the port's sweep over a full cache is
@@ -55,94 +56,30 @@ import numpy as np
 import torch
 
 from .. import rng as rng_mod
-from ..config import ZI, Dispersion, Loss, NMFConfig, Solver
+from ..config import ZI, Dispersion, Loss, NMFConfig
 from ..device import set_fp32_precision
-from ..io.loaders import DataLoader, Prefetcher, SparseChunk, SpzLoader
-from ..io.upload import (STATIC_CACHE_BYTES, dense_cache_fits, device_bytes,
-                         upload)
+from ..io.loaders import DataLoader, SpzLoader
+from ..io.panels import PanelSource
 from ..ops import features as feat
-from ..ops import linalg, losses, solvers
-from ..ops.coo_densify import coo_densify
-from ..parallel.mesh import NO_AXIS
+from ..ops import linalg, losses
+from ..parallel.mesh import NO_AXIS, PanelBlocks, ShardContext, rank_device
 from ..result import NMFResult
 from ..utils.trace import Syncs, span, spans
-from .nmf import fit_device, init_factors
-
-# ---------------------------------------------------------------------------
-# Wire format
-# ---------------------------------------------------------------------------
-
-class _CompactChunk:
-    """Wire-ready sparse panel with compact dtypes, produced off the
-    consumer's critical path (in the Prefetcher worker) by
-    :func:`_compact_sparse`."""
-
-    __slots__ = ("col_start", "num_cols", "rows", "counts", "vals")
-
-    def __init__(self, col_start, num_cols, rows, counts, vals):
-        self.col_start = col_start
-        self.num_cols = num_cols
-        self.rows = rows
-        self.counts = counts
-        self.vals = vals
-
-
-def _compact_sparse(ch: SparseChunk, rows_dim: int) -> _CompactChunk:
-    """SparseChunk -> wire format: uint16 rows when they fit, integral
-    nonneg values in uint8 / uint16 (exact), per-column counts instead of
-    explicit column ids.  Unlike the JAX package no bucket padding is added
-    (it bounds XLA recompiles, which torch does not have)."""
-    rows = ch.rows.astype(np.uint16) if rows_dim < (1 << 16) else \
-        np.ascontiguousarray(ch.rows, dtype=np.int32)
-    vals = np.ascontiguousarray(ch.vals, dtype=np.float32)
-    # integral-nonneg-u16-range test in ONE cast+compare: a fractional,
-    # negative, non-finite, or >= 2^16 float can never equal its own
-    # uint16 cast (which wraps/truncates into [0, 65536))
-    with np.errstate(invalid="ignore"):
-        v16 = vals.astype(np.uint16)
-    if np.array_equal(v16, vals):
-        vals = v16.astype(np.uint8) if int(v16.max(initial=0)) < 256 \
-            else v16
-    return _CompactChunk(ch.col_start, ch.num_cols, rows,
-                         np.ascontiguousarray(ch.counts, dtype=np.int32),
-                         vals)
-
-
-def _coo_wire_bytes(nnz: int, m: int, n: int) -> int:
-    """The compact wire bytes of both panel sets of an (m, n) matrix with
-    ``nnz`` entries, reckoned before any decode: each entry's row (2 bytes
-    where the panel's rows fit uint16, else 4) and value (4 bytes, the worst
-    case), and 4 bytes a column for its count."""
-    def side(rows_dim: int, ncols: int) -> int:
-        return nnz * ((2 if rows_dim < (1 << 16) else 4) + 4) + 4 * ncols
-    return side(m, n) + side(n, m)
-
+from .nmf import HostConvergence, _solve, fit_device, init_factors
 
 # ---------------------------------------------------------------------------
 # Panel solves (one column panel each)
 # ---------------------------------------------------------------------------
 
-def _warm(X_warm: torch.Tensor, it: int) -> torch.Tensor:
-    """The warm start: the previous factor panel after the first sweep,
-    zeros in it (the reference's ``iter > 0``)."""
-    return X_warm * float(it > 0)
-
-
 def _solve_from_B(cfg: NMFConfig, side: str, G, B, X_warm, it: int):
     """The feature + solve tail of a shared-Gram panel solve, B = F @ A
-    already formed: the Cholesky solve + clip (kernel 6 on the card) or CD
-    NNLS (kernel 1)."""
+    already formed: the L1 shift, the in-memory fit's solve
+    (``models/nmf.py::_solve``: the Cholesky solve + clip, kernel 6 on the
+    card, or CD NNLS, kernel 1) and the upper bound."""
     fc = cfg.H if side == "H" else cfg.W
     if fc.L1 > 0:
         B = B - fc.L1
-    if cfg.solver == Solver.CHOLESKY:
-        X = solvers.cholesky_clip_batch(G, B, nonneg=fc.nonneg)
-    else:
-        X0 = _warm(X_warm, it)
-        B_res = B - G @ X0
-        X = solvers.cd_nnls_batch_traced(G, B_res, X0, 0.0, nonneg=fc.nonneg,
-                                         maxit=cfg.cd_max_iter,
-                                         cd_tol=cfg.cd_tol)
+    X = _solve(cfg, G, B, X_warm, fc, it)
     if fc.upper_bound > 0:
         X = feat.apply_upper_bound(X, fc.upper_bound)
     return X
@@ -190,7 +127,7 @@ def _panel_solve_cv(cfg: NMFConfig, side: str, F, A_panel, X_warm, it: int,
     train_w = _panel_train_w(seed, col0, A_panel, inv_prob, mask_zeros,
                              transposed, user_m, row0)
     X = masked_mse_solve_batch(A_panel, F, train_w, cfg, fc,
-                               _warm(X_warm, it), G_add=G_add, axis=axis)
+                               X_warm * float(it > 0), G_add=G_add, axis=axis)
     if fc.upper_bound > 0:
         X = feat.apply_upper_bound(X, fc.upper_bound)
     return X
@@ -255,7 +192,7 @@ def _panel_solve_irls(cfg: NMFConfig, side: str, F, A_panel, X_warm,
         extra_w = _panel_train_w(seed, col0, A_panel, inv_prob, mask_zeros,
                                  transposed, user_m, row0)
     X = irls_solve_batch(A_panel, F, cfg, active_loss, th_row, th_col, fc,
-                         False, extra_w=extra_w, X_warm=_warm(X_warm, it),
+                         False, extra_w=extra_w, X_warm=X_warm * float(it > 0),
                          G_add=G_add, counts=counts, axis=axis)
     if fc.upper_bound > 0:
         X = feat.apply_upper_bound(X, fc.upper_bound)
@@ -317,7 +254,7 @@ def _panel_cross_term(W_T, d, H_panel, A_panel):
 
 
 # ---------------------------------------------------------------------------
-# The streaming fit
+# One sweep: a side's update over its panels, and the loss
 # ---------------------------------------------------------------------------
 
 def _dense_graph(L, dev, syncs: Syncs):
@@ -326,6 +263,337 @@ def _dense_graph(L, dev, syncs: Syncs):
     return syncs.to(torch.from_numpy(np.array(
         L.todense() if hasattr(L, "todense") else L, np.float32,
         order="C")), dev)
+
+
+class _Sweep:
+    """What a stream's sweeps read besides the factors: the config, the
+    panels (``source``) and this rank's blocks of them (``blocks``), the
+    graph Laplacians, the user mask (``mask``), the CV holdout, the NB
+    sizes (``nb_vec``, fixed at their init as in the reference chunked
+    engine) and the ZI dropout rates (``pi_vec``, one EM update a sweep);
+    the IRLS solves' counts (``irls_counts``)."""
+
+    def __init__(self, cfg: NMFConfig, source: PanelSource,
+                 blocks: PanelBlocks, syncs: Syncs, dev, *, mask, graph_W,
+                 graph_H, resume):
+        self.cfg, self.source, self.blocks = cfg, source, blocks
+        self.syncs, self.dev = syncs, dev
+        self.m, self.n = source.rows_dim[False], source.rows_dim[True]
+        self.mask = mask
+        self.use_irls = cfg.requires_irls()
+        self.is_cv = cfg.is_cv()
+        self.use_masked = self.is_cv or mask is not None
+        self.plain = not self.use_masked and not self.use_irls
+        # streaming speckled CV (fit_streaming_spz.hpp:129-386): the panel
+        # holdout comes from the position hash on the device, so no mask is
+        # ever built on the host
+        self.cv_seed = int(np.uint32(cfg.cv_seed)) if self.is_cv else 0
+        self.inv_prob = int(1.0 / cfg.test_fraction) if self.is_cv else 0
+        self.graph = {"W": _dense_graph(graph_W, dev, syncs),
+                      "H": _dense_graph(graph_H, dev, syncs)}
+        self.active_loss = Loss.KL if cfg.loss == Loss.GP else cfg.loss
+        self.per_col = cfg.dispersion == Dispersion.PER_COL
+        self.is_nb = cfg.loss == Loss.NB
+        # fixed dispersion, like the reference chunked engine
+        # (fit_chunked.hpp:165-172): per-row (or per-col) NB size at its init
+        self.nb_vec = (torch.full((self.n if self.per_col else self.m,),
+                                  cfg.nb_size_init, dtype=torch.float32,
+                                  device=dev) if self.is_nb else None)
+        self.is_zi = self.use_irls and cfg.has_zi()
+        self.zi_row = cfg.zi == ZI.ROW
+        self.pi_vec = self._zi_start(resume) if self.is_zi else None
+        self.irls_counts = {"inner_iters": 0, "host_syncs": 0}
+        self.B_parts: dict = {}
+
+    def tensor(self, x) -> torch.Tensor:
+        return self.syncs.to(torch.from_numpy(np.array(x, np.float32,
+                                                        order="C")), self.dev)
+
+    def _zi_start(self, resume) -> torch.Tensor:
+        """Streaming NB zero-inflation: panel-local E-step imputation + one
+        pi EM update per sweep; pi init = min(zero_rate * 0.5, 0.3) as the
+        in-memory _zi_pi_init (fit_cpu.hpp:355-400), streamed in a
+        pre-pass."""
+        cfg, m, n = self.cfg, self.m, self.n
+        if cfg.zi_em_iters > 1:
+            warnings.warn(
+                f"streaming ZI runs ONE pi EM update per sweep; "
+                f"zi_em_iters={cfg.zi_em_iters} applies to the in-memory "
+                "path only")
+        if resume is not None and resume.get("pi_vec") is not None:
+            return self.tensor(resume["pi_vec"])
+        zc_row = np.zeros((m,), np.float64)
+        zc_col = np.zeros((n,), np.float64)
+        for ch in self.source.loader.iter_chunks(transpose=False):
+            zp = np.asarray(ch.data) == 0
+            zc_row += zp.sum(axis=1)
+            zc_col[ch.col_start:ch.col_start + ch.num_cols] += zp.sum(axis=0)
+        rate = (zc_row / n) if self.zi_row else (zc_col / m)
+        return self.tensor(np.minimum(rate * 0.5, 0.3))
+
+    def zi_bcast(self, cs, nc, transposed):
+        """(pi_b, r_b) broadcast terms for one panel ((rows, 1) / (1, pc));
+        forward panels hold columns of A, transpose panels columns of A^T
+        (= rows of A), so the row / column roles swap.  A mesh rank's
+        terms cover its block, the pads filled with 0.5 and 1.0 (they
+        leave every statistic; these keep the E-step away from 0 / 0)."""
+        b = self.blocks
+        along_rows = not self.zi_row if transposed else self.zi_row
+        pi_b = (b.rows_of(self.pi_vec, transposed, 0.5)[:, None] if along_rows
+                else b.cols_of(self.pi_vec, cs, nc, transposed, 0.5)[None, :])
+        r_rows = self.per_col if transposed else not self.per_col
+        r_b = (b.rows_of(self.nb_vec, transposed, 1.0)[:, None] if r_rows
+               else b.cols_of(self.nb_vec, cs, nc, transposed, 1.0)[None, :])
+        return pi_b, r_b
+
+    def thetas(self, cs, nc, transposed):
+        """(theta_row, theta_col) of a panel: the NB size vector along the
+        panel's rows or its columns (the roles swap on the W side,
+        fit_cpu.hpp:821-833)."""
+        if not self.is_nb:
+            return None, None
+        b = self.blocks
+        along_rows = self.per_col if transposed else not self.per_col
+        return ((b.rows_of(self.nb_vec, transposed, 1.0), None) if along_rows
+                else (None, b.cols_of(self.nb_vec, cs, nc, transposed, 1.0)))
+
+    def mask_panel(self, cs, nc, transposed):
+        """The user mask's part of a panel (this rank's block), or None."""
+        if self.mask is None:
+            return None
+        sl = (self.mask[cs:cs + nc, :].T if transposed
+              else self.mask[:, cs:cs + nc])
+        sl = self.blocks.block_of(sl, nc, transposed, bool)
+        return self.syncs.to(torch.from_numpy(np.ascontiguousarray(sl)),
+                             self.dev, torch.bool)
+
+    def update(self, it: int, side: str, X, F, d, keep_B: bool = False):
+        """One side's update over its panels: ``X`` (H, or W_T with
+        ``side="W"``) solved against the other factor ``F``, panel by panel
+        (projective H, IRLS with NB-ZI imputation after sweep 0, masked /
+        CV, or the shared-Gram solve), joined in panel order, then the
+        angular penalty and the scaling.  Returns (X, d, gram(F)); gram(F)
+        is formed on the W side always (the MSE loss reads it), on the H
+        side only for the shared-Gram solve.  ``keep_B``: keep the
+        right-hand sides for the loss (``B_parts``)."""
+        cfg, b = self.cfg, self.blocks
+        transposed = side == "W"
+        fc = cfg.W if transposed else cfg.H
+        G = G_f = G_add = None
+        if self.plain or transposed:
+            G_f = linalg.gram(F)
+        if self.plain:
+            G, _ = feat.apply_l1_l2(G_f, None, 0.0, fc.L2)
+            G = feat.apply_l21(G, X, fc.L21)
+            G = feat.apply_graph_reg(G, self.graph[side], X, fc.graph_lambda)
+        else:
+            # L21 rides the per-column Grams as the shared tier-2 k x k
+            # term, as on the in-memory masked / IRLS paths
+            G_add = feat.tier2_gram_addition(X, fc)
+        parts = {}
+        F_b = b.rows_of(F, transposed)          # this rank's rows of F
+        axis = b.axis(transposed)
+        for ch in spans("rtt.stream.panel", self.source.panels(transposed)):
+            cs, nc = ch.col_start, ch.num_cols
+            row0, col0 = b.offsets(cs, nc, transposed)
+            A_panel = self.source.put(ch, transposed, check_finite=(
+                it == 0 and not transposed))
+            X_warm = b.cols_of(X, cs, nc, transposed)
+            if cfg.projective and not transposed:
+                Y = axis.sum((F_b * d[:, None]) @ A_panel)
+            elif self.use_irls:
+                th_row, th_col = self.thetas(cs, nc, transposed)
+                if self.is_zi and it > 0:
+                    # solves see the soft-imputed panel (in-memory: the
+                    # iter >= 1 solves read state.A_imp)
+                    A_panel = _panel_zi_impute(
+                        F_b, d, X_warm, A_panel,
+                        *self.zi_bcast(cs, nc, transposed))
+                Y = _panel_solve_irls(
+                    cfg, side, F_b, A_panel, X_warm, it, th_row, th_col,
+                    self.cv_seed, col0, self.mask_panel(cs, nc, transposed),
+                    G_add, active_loss=self.active_loss,
+                    inv_prob=self.inv_prob, mask_zeros=cfg.mask_zeros,
+                    transposed=transposed, counts=self.irls_counts,
+                    row0=row0, axis=axis)
+            elif self.use_masked:
+                Y = _panel_solve_cv(
+                    cfg, side, F_b, A_panel, X_warm, it, self.cv_seed, col0,
+                    self.mask_panel(cs, nc, transposed), G_add,
+                    inv_prob=self.inv_prob, mask_zeros=cfg.mask_zeros,
+                    transposed=transposed, row0=row0, axis=axis)
+            else:
+                B = axis.sum(F_b @ A_panel)
+                if keep_B:
+                    self.B_parts[cs] = B
+                Y = _solve_from_B(cfg, side, G, B, X_warm, it)
+            parts[cs] = b.whole(Y, nc, transposed)
+            del A_panel
+        X = torch.cat([parts[cs] for cs in sorted(parts)], dim=1)
+        del parts
+        if fc.angular > 0:
+            X = feat.apply_angular_posthoc(X, fc.angular)
+        X, d = linalg.extract_scaling(X, cfg.norm)
+        return X, d, G_f
+
+    def loss(self, W_T, H, d, G_w, saved: bool):
+        """(train loss, test loss or None) after a sweep, one host read:
+        the IRLS loss (and the ZI E-step statistics, then pi's M-step), the
+        masked / CV losses, or the MSE loss (from the W update's saved
+        matrices with ``saved``, else tr(A'A) - 2 cross + reconstruction).
+        The forward panels are read again, on this thread."""
+        W_T_l = self.blocks.rows_of(W_T, False)
+        if self.use_irls and not self.use_masked:
+            return self._irls_loss(W_T_l, H, d), None
+        if self.use_masked:
+            return self._masked_loss(W_T_l, H, d)
+        return self._mse_loss(W_T, W_T_l, H, d, G_w, saved), None
+
+    def _irls_loss(self, W_T_l, H, d) -> float:
+        cfg, b, m, n = self.cfg, self.blocks, self.m, self.n
+        # per-panel device scalars; f64 host sum
+        tot_parts = []
+        if self.is_zi:
+            zs_row, zs_col, zn_row, zn_col = (
+                torch.zeros((size,), dtype=torch.float64, device=self.dev)
+                for size in (m, n, m, n))
+            r0, _, vr = b.rows_geom(False)
+        for ch in self.source.panels(False, prefetch=False):
+            cs, nc = ch.col_start, ch.num_cols
+            th_row, th_col = self.thetas(cs, nc, False)
+            A_panel = self.source.put(ch, False)
+            H_panel = b.cols_of(H, cs, nc, False)
+            if self.is_zi:
+                pl, sr, sc, cr, cc = _panel_irls_loss_zi(
+                    cfg, W_T_l, d, H_panel, A_panel, th_row, th_col,
+                    *self.zi_bcast(cs, nc, False), valid_rc=b.valid(nc))
+                tot_parts.append(pl)
+                # this rank's block's part; under a mesh the disjoint
+                # blocks' parts are summed after the sweep
+                c0, _, vc = b.cols_geom(nc, False)
+                zs_row[r0:r0 + vr] += sr[:vr]
+                zn_row[r0:r0 + vr] += cr[:vr]
+                zs_col[cs + c0:cs + c0 + vc] += sc[:vc]
+                zn_col[cs + c0:cs + c0 + vc] += cc[:vc]
+            else:
+                tot_parts.append(_panel_irls_loss(
+                    cfg, W_T_l, d, H_panel, A_panel, th_row, th_col,
+                    valid_rc=b.valid(nc)))
+            del A_panel
+        sum_all = b.ctx.sum_all
+        tot = sum_all(torch.stack(tot_parts)) if tot_parts else None
+        if self.is_zi:
+            zs_row, zn_row, zs_col, zn_col = (
+                sum_all(v) for v in (zs_row, zn_row, zs_col, zn_col))
+        loss = float(self.syncs.host(tot.double()).sum()) if tot_parts \
+            else 0.0
+        if self.is_zi:
+            # pi M-step (zi_em_step's update rule, once per sweep)
+            if self.zi_row:
+                new_pi = torch.clamp(zs_row / n, 0.001, 0.999)
+                keep = zn_row > 0
+            else:
+                new_pi = torch.clamp(zs_col / m, 0.001, 0.999)
+                keep = zn_col > 0
+            self.pi_vec = torch.where(keep, new_pi.to(torch.float32),
+                                      self.pi_vec)
+        return loss
+
+    def _masked_loss(self, W_T_l, H, d):
+        b = self.blocks
+        acc_parts = []
+        for ch in self.source.panels(False, prefetch=False):
+            cs, nc = ch.col_start, ch.num_cols
+            row0, col0 = b.offsets(cs, nc, False)
+            th_row, th_col = self.thetas(cs, nc, False)
+            A_panel = self.source.put(ch, False)
+            acc_parts.append(_panel_cv_losses(
+                self.cfg, W_T_l, d, b.cols_of(H, cs, nc, False), A_panel,
+                self.cv_seed, col0, th_row, th_col,
+                self.mask_panel(cs, nc, False), inv_prob=self.inv_prob,
+                mask_zeros=self.cfg.mask_zeros, row0=row0,
+                valid_rc=b.valid(nc)))
+            del A_panel
+        acc = b.ctx.sum_all(torch.stack(acc_parts))
+        # one read of the device; a float64 host sum keeps the entry counts
+        # exact and the loss sums below fp32 drift
+        acc = self.syncs.host(acc).astype(np.float64).sum(axis=0)
+        tr_sse, tr_n, te_sse, te_n = [float(v) for v in acc]
+        return tr_sse / max(tr_n, 1.0), te_sse / max(te_n, 1.0)
+
+    def _mse_loss(self, W_T, W_T_l, H, d, G_w, saved: bool) -> float:
+        host, trAtA = self.syncs.host, self.source.trAtA
+        if saved:
+            B_w = torch.cat([self.B_parts[cs] for cs in sorted(self.B_parts)],
+                            dim=1)
+            self.B_parts.clear()
+            return float(host(linalg.mse_loss_from_saved(
+                self.tensor(trAtA), W_T, d, B_w, G_w)))
+        # the cross term accumulates on the device in panel order; one read
+        # per sweep
+        cross_d = torch.zeros((), dtype=torch.float32, device=self.dev)
+        for ch in self.source.panels(False, prefetch=False):
+            cs, nc = ch.col_start, ch.num_cols
+            A_panel = self.source.put(ch, False)
+            cross_d = cross_d + _panel_cross_term(
+                W_T_l, d, self.blocks.cols_of(H, cs, nc, False), A_panel)
+            del A_panel
+        cross = float(host(self.blocks.ctx.sum_all(cross_d)))
+        G_wt = linalg.gram(W_T)
+        recon = float(host(((d[:, None] * d[None, :]) * G_wt * G_w).sum()))
+        return trAtA - 2.0 * cross + recon
+
+
+# ---------------------------------------------------------------------------
+# The streaming fit
+# ---------------------------------------------------------------------------
+
+def _load_resume(path, cfg: NMFConfig, ctx: ShardContext, shape):
+    """The stream state saved at ``path`` (``utils/checkpoint.py``'s, shared
+    with the JAX package), or None where there is none.  Under a mesh rank
+    0 alone reads the file; every rank follows it (or raises its error)."""
+    if path is None:
+        return None
+    from ..utils.checkpoint import load_stream_state
+    state = err = None
+    try:
+        if ctx.is_root and os.path.exists(path):
+            state = load_stream_state(path, cfg)
+            if (state["W_T"].shape, state["H"].shape) != shape:
+                raise ValueError(
+                    "checkpoint factor shapes do not match the data")
+    except Exception as e:                    # noqa: BLE001
+        err = e
+    err, state = ctx.share((err, state))
+    if err is not None:
+        raise err
+    return state
+
+
+def _start(cfg: NMFConfig, loader: DataLoader, resume, w_init, h_init, dev):
+    """The starting (W_T, H, d) on the host: the resumed state, an SVD
+    start streamed over the loader's panels, or ``init_factors``'."""
+    (m, n), k = loader.shape, cfg.rank
+    if resume is not None:
+        return resume["W_T"], resume["H"], resume["d"]
+    if cfg.init_mode not in (1, 2) or w_init is not None:
+        return init_factors(cfg, m, n, A=None, w_init=w_init, h_init=h_init)
+    # SVD init out of core: the init SVD itself streams over the loader's
+    # panels (the Lanczos leading subspace for both modes)
+    from .svd import streaming_svd
+    sres = streaming_svd(loader, k, method="lanczos", seed=cfg.seed,
+                         device=dev)
+    sq = np.sqrt(np.maximum(np.asarray(sres.d, np.float64), 0.0))
+    W_T0 = (np.abs(np.asarray(sres.U)) * sq[None, :]).T.astype(np.float32)
+    H0 = (np.abs(np.asarray(sres.V)) * sq[None, :]).T.astype(np.float32)
+    if W_T0.shape[0] < k:
+        fill_seed = 54321 if cfg.seed == 0 else cfg.seed + 999
+        pad_w = rng_mod.fill_uniform(fill_seed, k - W_T0.shape[0], m)
+        pad_h = rng_mod.fill_uniform(fill_seed, k - H0.shape[0], n,
+                                     offset=(k - H0.shape[0]) * m)
+        W_T0 = np.vstack([W_T0, pad_w])
+        H0 = np.vstack([H0, pad_h])
+    return W_T0, H0, np.ones((k,), np.float32)
 
 
 def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
@@ -435,725 +703,92 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
         if mask.shape != (m, n):
             raise ValueError(f"mask shape {mask.shape} != data {(m, n)}")
     # everything that needs no device is checked by now
-    ctx = None
-    if mesh is not None:
-        from ..parallel.mesh import ShardContext, rank_device
-        dev = rank_device(mesh, device)
-        ctx = ShardContext(mesh, m, n)
-    else:
-        dev = fit_device(loader, device)
+    dev = (rank_device(mesh, device) if mesh is not None
+           else fit_device(loader, device))
+    blocks = PanelBlocks(ShardContext(mesh, m, n))
+    ctx = blocks.ctx
     set_fp32_precision()
-    dev_bytes = device_bytes(dev)
     syncs = Syncs()
-    stream = {"decode_s": 0.0, "wait_s": 0.0, "panels_decoded": 0,
-              "upload_s": 0.0, "upload_bytes": 0, "densified": 0,
-              "panel_cache_hits": 0, "sweep_s": [], "trace_passes": 0,
-              "trace_panels": 0}
-    irls_counts = {"inner_iters": 0, "host_syncs": 0}
+    source = PanelSource(loader, blocks, dev, panel_cache=panel_cache,
+                         sparse_panels=sparse_panels,
+                         reads_trace=not (cfg.is_cv() or mask is not None
+                                          or use_irls))
+    resume = _load_resume(checkpoint_path, cfg, ctx, ((k, m), (k, n)))
+    sweep = _Sweep(cfg, source, blocks, syncs, dev, mask=mask,
+                   graph_W=graph_W, graph_H=graph_H, resume=resume)
+    W_T, H, d = (sweep.tensor(x) for x in _start(cfg, loader, resume,
+                                                 w_init, h_init, dev))
+    rule = HostConvergence(cfg, sweep.is_cv, resume)
+    # a plain MSE sweep whose panels all sit in the wire cache takes its
+    # loss from the W update's saved matrices (the JAX package's
+    # ``_cached_sweep_mse``)
+    may_save = (sweep.plain and not cfg.projective and graph_W is None
+                and graph_H is None)
 
-    # ---- panel residency caches ----
-    if panel_cache is None:
-        # the footprint is this rank's: its blocks of both panel sets
-        # (the JAX package's n_per); the gate reads free memory, so the
-        # decision is rank 0's
-        n_per = n if ctx is None else -(-n // mesh.size)
-        _cache_panels = dense_cache_fits(m, n_per, dev)
-        if ctx is not None:
-            _cache_panels = ctx.share(_cache_panels)
-    elif panel_cache == "wire":
-        _cache_panels = False           # wire cache gated below
-    else:
-        _cache_panels = bool(panel_cache)
-    _panel_cache: dict = {}
-    _panel_meta: dict = {False: {}, True: {}}   # col_start -> num_cols
-
-    # ---- nnz-proportional ingest (sparse device panels) ----
-    if sparse_panels is None:
-        # a mesh keeps dense panels (a block is cut from the dense panel);
-        # past 0.15 the compact panels go only where the dense cache keeps
-        # what the card densified, so a later sweep reads the same panels
-        _nnz = loader.nnz() if loader.supports_sparse else None
-        _sparse_mode = (mesh is None and _nnz is not None
-                        and (_nnz < 0.15 * m * n
-                             or (_cache_panels and _coo_wire_bytes(_nnz, m, n)
-                                 < 2 * 4 * m * n)))
-    else:
-        _sparse_mode = bool(sparse_panels)
-
-    # ---- wire-resident panel cache (sparse mode): the compact arrays of
-    # every panel stay on the device from the first sweep, within a byte
-    # budget; over budget the cache is dropped and the fit streams ----
-    _wire_cache = (_sparse_mode and not _cache_panels
-                   and panel_cache is not False)
-    _wire_budget = int(0.55 * dev_bytes) if dev_bytes > 0 else \
-        STATIC_CACHE_BYTES
-    _wire_bytes = 0
-
-    class _CachedChunk:
-        __slots__ = ("col_start", "num_cols")
-
-        def __init__(self, cs, nc):
-            self.col_start = cs
-            self.num_cols = nc
-
-    def _cache_full(transposed: bool) -> bool:
-        meta = _panel_meta[transposed]
-        return bool((_cache_panels or _wire_cache) and meta and all(
-            (transposed, cs) in _panel_cache for cs in meta))
-
-    def _panels(transposed: bool, prefetch: bool = True):
-        """Iterate panels; once a cache holds every panel of a side, yield
-        metadata-only chunks so later sweeps skip the host decode.  The
-        first read of the forward panels of a fit whose loss reads tr(A'A)
-        takes it from them (the Prefetcher's ``traced``)."""
-        nonlocal trAtA
-        meta = _panel_meta[transposed]
-        if _cache_full(transposed):
-            for cs in sorted(meta):
-                yield _CachedChunk(cs, meta[cs])
-            return
-        rows_dim = n if transposed else m
-        if _sparse_mode:
-            def prep(ch):
-                return _compact_sparse(ch, rows_dim)
-        else:
-            def prep(ch):
-                ch.data = np.ascontiguousarray(ch.data, dtype=np.float32)
-                return ch
-        traced = reads_trace and trAtA is None and not transposed
-        # without prefetch the panels are read on this thread
-        it = Prefetcher(loader, transpose=transposed, sparse=_sparse_mode,
-                        transform=prep, depth=None if prefetch else 0,
-                        traced=traced)
-        try:
-            for ch in it:
-                meta[ch.col_start] = ch.num_cols
-                yield ch
-        finally:
-            it.close()
-            stream["decode_s"] += it.decode_s
-            stream["wait_s"] += it.wait_s
-            stream["panels_decoded"] += it.decoded
-            if traced and it.decoded == it.n:
-                trAtA = it.trace_sq
-                stream["trace_panels"] = it.decoded
-
-    def _chunk_finite(ch) -> bool:
-        vals = ch.vals if isinstance(ch, _CompactChunk) else ch.data
-        if vals.dtype.kind == "u":      # compacted integral values
-            return True
-        return bool(np.isfinite(vals).all())
-
-    def _put_panel(ch, transposed: bool) -> torch.Tensor:
-        """One panel on the device, dense float32 (rows, cols): from a
-        cache, or uploaded (dense) / uploaded compact and densified there
-        (sparse)."""
-        nonlocal _wire_cache, _wire_bytes
-        key = (transposed, ch.col_start)
-        rows_dim = n if transposed else m
-        hit = _panel_cache.get(key)
-        if hit is not None:
-            stream["panel_cache_hits"] += 1
-            if _cache_panels:
-                return hit
-            stream["densified"] += 1                       # wire triple
-            return coo_densify(*hit, rows_dim)
-        if ctx is not None:
-            out = _upload(_block_of(ch.data, ch.num_cols, transposed))
-        elif isinstance(ch, _CompactChunk):
-            rows_d, counts_d, vals_d = (_upload(x) for x
-                                        in (ch.rows, ch.counts, ch.vals))
-            if _wire_cache:
-                _wire_bytes += (ch.rows.nbytes + ch.counts.nbytes
-                                + ch.vals.nbytes)
-                if _wire_bytes > _wire_budget:
-                    # over budget: drop the whole wire cache and stream
-                    # with the strict O(panel) footprint from here on
-                    _panel_cache.clear()
-                    _wire_cache = False
-                else:
-                    _panel_cache[key] = (rows_d, counts_d, vals_d)
-            stream["densified"] += 1
-            out = coo_densify(rows_d, counts_d, vals_d, rows_dim)
-        else:
-            out = _upload(ch.data)
-        if _cache_panels:
-            _panel_cache[key] = out
-        return out
-
-    def _upload(x: np.ndarray) -> torch.Tensor:
-        t0 = time.perf_counter()
-        out = upload(x, dev)
-        stream["upload_s"] += time.perf_counter() - t0
-        stream["upload_bytes"] += x.nbytes
-        return out
-
-    def _tensor(x):
-        return syncs.to(torch.from_numpy(np.array(x, np.float32, order="C")),
-                        dev)
-
-    # ---- a mesh rank's block of each panel ----
-    def _rows_geom(transposed: bool):
-        """(first row, block rows, valid rows) of this rank's block of a
-        panel: the forward panels' rows are A's rows, split over the
-        mesh's rows; the transposed panels' rows are A's columns, split
-        over its columns."""
-        if transposed:
-            return ctx.col0, ctx.n_blk, ctx.vn
-        return ctx.row0, ctx.m_blk, ctx.vm
-
-    def _cols_geom(nc: int, transposed: bool):
-        """(first column, block columns, valid columns) of this rank's
-        block of a panel of ``nc`` columns, zero-padded to divide the axis
-        it is split over ("cols" forward, "rows" transposed)."""
-        ri, ci = mesh.coords
-        parts, idx = ((mesh.shape["rows"], ri) if transposed
-                      else (mesh.shape["cols"], ci))
-        pb = -(-nc // parts)
-        c0 = idx * pb
-        return c0, pb, min(max(nc - c0, 0), pb)
-
-    def _block_of(data, nc: int, transposed: bool) -> np.ndarray:
-        """This rank's zero-padded block of a whole host panel."""
-        r0, rb, vr = _rows_geom(transposed)
-        c0, pb, vc = _cols_geom(nc, transposed)
-        out = np.zeros((rb, pb), np.float32)
-        out[:vr, :vc] = data[r0:r0 + vr, c0:c0 + vc]
-        return out
-
-    def _pad_vec(v, size: int, fill: float):
-        if v.shape[0] == size:
-            return v.contiguous()
-        return torch.cat([v, v.new_full((size - v.shape[0],), fill)])
-
-    def _rows_of(v, transposed: bool, fill: float = 0.0):
-        """A (k, rows) factor table (zero-padded) or a vector over the
-        panel's rows (padded with ``fill``), cut to this rank's block."""
-        if ctx is None:
-            return v
-        if v.dim() == 2:
-            return ctx.col_block(v) if transposed else ctx.row_block(v)
-        r0, rb, vr = _rows_geom(transposed)
-        return _pad_vec(v[r0:r0 + vr], rb, fill)
-
-    def _cols_of(v, cs: int, nc: int, transposed: bool, fill: float = 0.0):
-        """Columns ``cs .. cs + nc`` of a vector (or of a (k, n) table)
-        along the panel's columns, this rank's part, zero-padded."""
-        if ctx is None:
-            return v[..., cs:cs + nc]
-        c0, pb, vc = _cols_geom(nc, transposed)
-        part = v[..., cs + c0:cs + c0 + vc]
-        if v.dim() == 2:
-            out = v.new_zeros((v.shape[0], pb))
-            out[:, :vc] = part
-            return out
-        return _pad_vec(part, pb, fill)
-
-    def _row0_col0(cs: int, nc: int, transposed: bool):
-        """The global offsets of this rank's block of a panel: its first
-        row within the panel and its first column within A's panel."""
-        if ctx is None:
-            return 0, cs
-        return _rows_geom(transposed)[0], cs + _cols_geom(nc, transposed)[0]
-
-    def _valid(nc: int, transposed: bool = False):
-        if ctx is None:
-            return None
-        return _rows_geom(transposed)[2], _cols_geom(nc, transposed)[2]
-
-    # the sum over a panel's rows, and the gather of its solved columns
-    sum_f = ctx.rows if ctx is not None else NO_AXIS
-    sum_t = ctx.cols if ctx is not None else NO_AXIS
-
-    def _whole(X, nc: int, transposed: bool):
-        """A solved block of a panel's columns as the panel's whole
-        (k, nc) slice, on every rank."""
-        if ctx is None:
-            return X
-        return (ctx.rows if transposed else ctx.cols).gather(X, dim=1)[
-            :, :nc]
-
-    gW = _dense_graph(graph_W, dev, syncs)
-    gH = _dense_graph(graph_H, dev, syncs)
-    active_loss = Loss.KL if cfg.loss == Loss.GP else cfg.loss
-    per_col = cfg.dispersion == Dispersion.PER_COL
-    is_nb = cfg.loss == Loss.NB
-    # fixed dispersion, like the reference chunked engine
-    # (fit_chunked.hpp:165-172): per-row (or per-col) NB size at its init
-    nb_vec = (torch.full((n if per_col else m,), cfg.nb_size_init,
-                         dtype=torch.float32, device=dev) if is_nb else None)
-
-    # ---- sweep-granular checkpoint resume ----
-    _resume = None
-    if checkpoint_path is not None:
-        # under a mesh rank 0 alone reads the file; every rank follows it
-        # (or raises its error)
-        from ..utils.checkpoint import load_stream_state
-        try:
-            if (ctx is None or ctx.is_root) \
-                    and os.path.exists(checkpoint_path):
-                _resume = load_stream_state(checkpoint_path, cfg)
-                if _resume["W_T"].shape != (k, m) \
-                        or _resume["H"].shape != (k, n):
-                    raise ValueError(
-                        "checkpoint factor shapes do not match the data")
-            err = None
-        except Exception as e:                    # noqa: BLE001
-            if ctx is None:
-                raise
-            err = e
-        if ctx is not None:
-            err, _resume = ctx.share((err, _resume))
-            if err is not None:
-                raise err
-
-    # ---- streaming NB zero-inflation: panel-local E-step imputation + one
-    # pi EM update per sweep; pi init = min(zero_rate * 0.5, 0.3) as the
-    # in-memory _zi_pi_init (fit_cpu.hpp:355-400), streamed in a pre-pass
-    is_zi = use_irls and cfg.has_zi()
-    zi_row = cfg.zi == ZI.ROW
-    pi_vec = None
-    if is_zi:
-        if cfg.zi_em_iters > 1:
-            warnings.warn(
-                f"streaming ZI runs ONE pi EM update per sweep; "
-                f"zi_em_iters={cfg.zi_em_iters} applies to the in-memory "
-                "path only")
-        if _resume is not None and _resume.get("pi_vec") is not None:
-            pi_vec = _tensor(_resume["pi_vec"])
-        else:
-            zc_row = np.zeros((m,), np.float64)
-            zc_col = np.zeros((n,), np.float64)
-            for ch in loader.iter_chunks(transpose=False):
-                zp = np.asarray(ch.data) == 0
-                zc_row += zp.sum(axis=1)
-                zc_col[ch.col_start:ch.col_start + ch.num_cols] += \
-                    zp.sum(axis=0)
-            rate = (zc_row / n) if zi_row else (zc_col / m)
-            pi_vec = _tensor(np.minimum(rate * 0.5, 0.3))
-
-    def _zi_bcast(cs, nc, transposed):
-        """(pi_b, r_b) broadcast terms for one panel ((rows, 1) / (1, pc));
-        forward panels hold columns of A, transpose panels columns of A^T
-        (= rows of A), so the row / column roles swap.  A mesh rank's
-        terms cover its block, the pads filled with 0.5 and 1.0 (they
-        leave every statistic; these keep the E-step away from 0 / 0)."""
-        along_rows = not zi_row if transposed else zi_row
-        pi_b = (_rows_of(pi_vec, transposed, 0.5)[:, None] if along_rows
-                else _cols_of(pi_vec, cs, nc, transposed, 0.5)[None, :])
-        r_rows = per_col if transposed else not per_col
-        r_b = (_rows_of(nb_vec, transposed, 1.0)[:, None] if r_rows
-               else _cols_of(nb_vec, cs, nc, transposed, 1.0)[None, :])
-        return pi_b, r_b
-
-    def _thetas(cs, nc, transposed):
-        """(theta_row, theta_col) of a panel: the NB size vector along the
-        panel's rows or its columns (the roles swap on the W side,
-        fit_cpu.hpp:821-833)."""
-        if not is_nb:
-            return None, None
-        along_rows = per_col if transposed else not per_col
-        return ((_rows_of(nb_vec, transposed, 1.0), None) if along_rows
-                else (None, _cols_of(nb_vec, cs, nc, transposed, 1.0)))
-
-    if _resume is not None:
-        W_T0, H0, d0 = _resume["W_T"], _resume["H"], _resume["d"]
-    elif cfg.init_mode in (1, 2) and w_init is None:
-        # SVD init out of core: the init SVD itself streams over the
-        # loader's panels (the Lanczos leading subspace for both modes)
-        from .svd import streaming_svd
-        sres = streaming_svd(loader, cfg.rank, method="lanczos",
-                             seed=cfg.seed, device=dev)
-        sq = np.sqrt(np.maximum(np.asarray(sres.d, np.float64), 0.0))
-        W_T0 = (np.abs(np.asarray(sres.U)) * sq[None, :]).T.astype(np.float32)
-        H0 = (np.abs(np.asarray(sres.V)) * sq[None, :]).T.astype(np.float32)
-        if W_T0.shape[0] < k:
-            fill_seed = 54321 if cfg.seed == 0 else cfg.seed + 999
-            pad_w = rng_mod.fill_uniform(fill_seed, k - W_T0.shape[0], m)
-            pad_h = rng_mod.fill_uniform(fill_seed, k - H0.shape[0], n,
-                                         offset=(k - H0.shape[0]) * m)
-            W_T0 = np.vstack([W_T0, pad_w])
-            H0 = np.vstack([H0, pad_h])
-        d0 = np.ones((k,), np.float32)
-    else:
-        W_T0, H0, d0 = init_factors(cfg, m, n, A=None, w_init=w_init,
-                                    h_init=h_init)
-    W_T, H, d = _tensor(W_T0), _tensor(H0), _tensor(d0)
-
-    # streaming speckled CV (fit_streaming_spz.hpp:129-386): the panel
-    # holdout comes from the position hash on the device, so no mask is
-    # ever built on the host
-    is_cv = cfg.is_cv()
-    cv_seed = int(np.uint32(cfg.cv_seed)) if is_cv else 0
-    inv_prob = int(1.0 / cfg.test_fraction) if is_cv else 0
-    has_mask = mask is not None
-    use_masked = is_cv or has_mask
-
-    def _mask_panel(cs, nc, transposed):
-        if not has_mask:
-            return None
-        sl = mask[cs:cs + nc, :].T if transposed else mask[:, cs:cs + nc]
-        if ctx is not None:
-            sl = _block_of(sl, nc, transposed).astype(bool)
-        return syncs.to(torch.from_numpy(np.ascontiguousarray(sl)), dev,
-                        torch.bool)
-
-    # tr(A'A): only the plain MSE loss reads it.  The first sweep's
-    # forward panels give it as they are read (``_panels``), unless this
-    # loader cannot give a panel's part bit for bit in this ingest: then
-    # one pass over the file, before the loop
-    reads_trace = not use_masked and not use_irls
-    trAtA = None
-    if reads_trace and not loader.traces_panels(_sparse_mode):
-        with span("rtt.stream.trace_sq"):
-            trAtA = loader.trace_sq()
-        stream["trace_passes"] = 1
-
-    if _resume is not None:
-        prev_loss = _resume["prev_loss"]
-        best_test = _resume["best_test"]
-        best_iter = _resume["best_iter"]
-        patience = _resume["patience"]
-        hist = list(_resume["hist"])
-        test_hist = list(_resume["test_hist"])
-        converged = _resume["converged"]
-        it_start = _resume["it"]
-    else:
-        prev_loss, best_test, best_iter, patience = np.inf, np.inf, -1, 0
-        hist, test_hist = [], []
-        converged = False
-        it_start = 0
-
-    def _saved_loss_ready() -> bool:
-        """A plain MSE sweep whose panels all sit in the wire cache takes
-        its loss from the W update's saved matrices (the JAX package's
-        ``_cached_sweep_mse``)."""
-        return (_wire_cache and not use_masked and not use_irls
-                and not cfg.projective and gW is None and gH is None
-                and _cache_full(False) and _cache_full(True))
-
-    done_sweeps = it_start
+    done_sweeps = it_start = resume["it"] if resume is not None else 0
     with span("rtt.loop"):
         for it in spans("rtt.stream.sweep",
                         range(it_start, cfg.max_iter)):
-            if converged:
+            if rule.converged:
                 break
             t_sweep = time.perf_counter()
-            stop = False
-            saved_loss = _saved_loss_ready()
-
-            # ---- H update over forward panels ----
-            G_add_H = G_add_W = None
-            if not use_masked and not use_irls:
-                G = linalg.gram(W_T)
-                G, _ = feat.apply_l1_l2(G, None, 0.0, cfg.H.L2)
-                G = feat.apply_l21(G, H, cfg.H.L21)
-                G = feat.apply_graph_reg(G, gH, H, cfg.H.graph_lambda)
-            else:
-                # L21 rides the per-column Grams as the shared tier-2 k x k
-                # term, as on the in-memory masked / IRLS paths
-                G_add_H = feat.tier2_gram_addition(H, cfg.H)
-                G_add_W = feat.tier2_gram_addition(W_T, cfg.W)
-            H_parts = {}
-            W_T_f = _rows_of(W_T, False)            # this rank's rows of W_T
-            for ch in spans("rtt.stream.panel", _panels(False)):
-                cs, nc = ch.col_start, ch.num_cols
-                row0, col0 = _row0_col0(cs, nc, False)
-                if it == 0 and not isinstance(ch, _CachedChunk) \
-                        and not _chunk_finite(ch):
-                    # streamed panels (e.g. .spz) bypass the in-memory NaN
-                    # auto-mask, so a corrupt / NaN file must fail here
-                    raise ValueError(
-                        f"non-finite values in columns {cs}..{cs + nc}; "
-                        "streaming cannot auto-mask NaN/Inf — clean the "
-                        "data or fit in-memory with mask=")
-                A_panel = _put_panel(ch, False)
-                X_warm = _cols_of(H, cs, nc, False)
-                if cfg.projective:
-                    X = sum_f.sum((W_T_f * d[:, None]) @ A_panel)
-                elif use_irls:
-                    th_row, th_col = _thetas(cs, nc, False)
-                    if is_zi and it > 0:
-                        # solves see the soft-imputed panel (in-memory: the
-                        # iter >= 1 solves read state.A_imp)
-                        A_panel = _panel_zi_impute(W_T_f, d, X_warm, A_panel,
-                                                   *_zi_bcast(cs, nc, False))
-                    X = _panel_solve_irls(
-                        cfg, "H", W_T_f, A_panel, X_warm, it, th_row, th_col,
-                        cv_seed, col0, _mask_panel(cs, nc, False), G_add_H,
-                        active_loss=active_loss, inv_prob=inv_prob,
-                        mask_zeros=cfg.mask_zeros, transposed=False,
-                        counts=irls_counts, row0=row0, axis=sum_f)
-                elif use_masked:
-                    X = _panel_solve_cv(
-                        cfg, "H", W_T_f, A_panel, X_warm, it, cv_seed, col0,
-                        _mask_panel(cs, nc, False), G_add_H, inv_prob=inv_prob,
-                        mask_zeros=cfg.mask_zeros, transposed=False, row0=row0,
-                        axis=sum_f)
-                else:
-                    X = _solve_from_B(cfg, "H", G, sum_f.sum(W_T_f @ A_panel),
-                                      X_warm, it)
-                H_parts[cs] = _whole(X, nc, False)
-                del A_panel
-            H = torch.cat([H_parts[cs] for cs in sorted(H_parts)], dim=1)
-            del H_parts
-            if cfg.H.angular > 0:
-                H = feat.apply_angular_posthoc(H, cfg.H.angular)
-            H, d = linalg.extract_scaling(H, cfg.norm)
-
-            # ---- W update over transpose panels ----
-            G_w = linalg.gram(H)                             # saved for loss
-            if not use_masked and not use_irls:
-                G2, _ = feat.apply_l1_l2(G_w, None, 0.0, cfg.W.L2)
-                G2 = feat.apply_l21(G2, W_T, cfg.W.L21)
-                G2 = feat.apply_graph_reg(G2, gW, W_T, cfg.W.graph_lambda)
-            W_parts, B_parts = {}, {}
-            H_f = _rows_of(H, True)                 # this rank's columns of H
-            for ch in spans("rtt.stream.panel", _panels(True)):
-                cs, nc = ch.col_start, ch.num_cols
-                row0, col0 = _row0_col0(cs, nc, True)
-                At_panel = _put_panel(ch, True)      # (n, pc) columns of A^T
-                X_warm = _cols_of(W_T, cs, nc, True)
-                if use_irls:
-                    th_row, th_col = _thetas(cs, nc, True)
-                    if is_zi and it > 0:
-                        At_panel = _panel_zi_impute(H_f, d, X_warm, At_panel,
-                                                    *_zi_bcast(cs, nc, True))
-                    X = _panel_solve_irls(
-                        cfg, "W", H_f, At_panel, X_warm, it, th_row, th_col,
-                        cv_seed, col0, _mask_panel(cs, nc, True), G_add_W,
-                        active_loss=active_loss, inv_prob=inv_prob,
-                        mask_zeros=cfg.mask_zeros, transposed=True,
-                        counts=irls_counts, row0=row0, axis=sum_t)
-                elif use_masked:
-                    X = _panel_solve_cv(
-                        cfg, "W", H_f, At_panel, X_warm, it, cv_seed, col0,
-                        _mask_panel(cs, nc, True), G_add_W, inv_prob=inv_prob,
-                        mask_zeros=cfg.mask_zeros, transposed=True, row0=row0,
-                        axis=sum_t)
-                else:
-                    B = sum_t.sum(H_f @ At_panel)
-                    if saved_loss:
-                        B_parts[cs] = B
-                    X = _solve_from_B(cfg, "W", G2, B, X_warm, it)
-                W_parts[cs] = _whole(X, nc, True)
-                del At_panel
-            W_T = torch.cat([W_parts[cs] for cs in sorted(W_parts)], dim=1)
-            del W_parts
-            if cfg.W.angular > 0:
-                W_T = feat.apply_angular_posthoc(W_T, cfg.W.angular)
-            W_T, d = linalg.extract_scaling(W_T, cfg.norm)
-
+            saved = may_save and source.wire_full()
+            H, d, _ = sweep.update(it, "H", H, W_T, d)
+            W_T, d, G_w = sweep.update(it, "W", W_T, H, d, keep_B=saved)
             with span("rtt.stream.loss"):
-                # ---- loss ----
-                W_T_l = _rows_of(W_T, False)
-                if use_irls and not is_cv and not has_mask:
-                    # per-panel device scalars; f64 host sum
-                    tot_parts = []
-                    if is_zi:
-                        f64 = torch.float64
-                        zs_row = torch.zeros((m,), dtype=f64, device=dev)
-                        zs_col = torch.zeros((n,), dtype=f64, device=dev)
-                        zn_row = torch.zeros((m,), dtype=f64, device=dev)
-                        zn_col = torch.zeros((n,), dtype=f64, device=dev)
-                        r0, _, vr = ((0, m, m) if ctx is None
-                                     else _rows_geom(False))
-                    for ch in _panels(False, prefetch=False):
-                        cs, nc = ch.col_start, ch.num_cols
-                        th_row, th_col = _thetas(cs, nc, False)
-                        A_panel = _put_panel(ch, False)
-                        H_panel = _cols_of(H, cs, nc, False)
-                        if is_zi:
-                            pl, sr, sc, cr, cc = _panel_irls_loss_zi(
-                                cfg, W_T_l, d, H_panel, A_panel, th_row,
-                                th_col, *_zi_bcast(cs, nc, False),
-                                valid_rc=_valid(nc))
-                            tot_parts.append(pl)
-                            # this rank's block's part; under a mesh the
-                            # disjoint blocks' parts are summed after the
-                            # sweep
-                            c0, _, vc = ((0, nc, nc) if ctx is None
-                                         else _cols_geom(nc, False))
-                            zs_row[r0:r0 + vr] += sr[:vr]
-                            zn_row[r0:r0 + vr] += cr[:vr]
-                            zs_col[cs + c0:cs + c0 + vc] += sc[:vc]
-                            zn_col[cs + c0:cs + c0 + vc] += cc[:vc]
-                        else:
-                            tot_parts.append(_panel_irls_loss(
-                                cfg, W_T_l, d, H_panel, A_panel, th_row,
-                                th_col, valid_rc=_valid(nc)))
-                        del A_panel
-                    if ctx is not None:
-                        tot_parts = [ctx.sum_all(torch.stack(tot_parts))]
-                        if is_zi:
-                            zs_row, zn_row, zs_col, zn_col = (
-                                ctx.sum_all(v) for v in (zs_row, zn_row,
-                                                         zs_col, zn_col))
-                    loss = float(syncs.host(
-                        torch.stack(tot_parts).double()).sum()) \
-                        if tot_parts else 0.0
-                    if is_zi:
-                        # pi M-step (zi_em_step's update rule, once per sweep)
-                        if zi_row:
-                            new_pi = torch.clamp(zs_row / n, 0.001, 0.999)
-                            keep = zn_row > 0
-                        else:
-                            new_pi = torch.clamp(zs_col / m, 0.001, 0.999)
-                            keep = zn_col > 0
-                        pi_vec = torch.where(keep, new_pi.to(torch.float32),
-                                             pi_vec)
-                    hist.append(loss)
-                    rel = abs(prev_loss - loss) / (abs(prev_loss) + 1e-15)
-                    if it > 0 and rel < cfg.tol:
-                        patience += 1
-                        if patience >= cfg.patience:
-                            converged = True
-                            stop = True
-                    else:
-                        patience = 0
-                    prev_loss = loss
-
-                elif use_masked or use_irls:
-                    acc_parts = []
-                    for ch in _panels(False, prefetch=False):
-                        cs, nc = ch.col_start, ch.num_cols
-                        row0, col0 = _row0_col0(cs, nc, False)
-                        th_row, th_col = _thetas(cs, nc, False)
-                        A_panel = _put_panel(ch, False)
-                        acc_parts.append(_panel_cv_losses(
-                            cfg, W_T_l, d, _cols_of(H, cs, nc, False),
-                            A_panel, cv_seed, col0, th_row, th_col,
-                            _mask_panel(cs, nc, False), inv_prob=inv_prob,
-                            mask_zeros=cfg.mask_zeros, row0=row0,
-                            valid_rc=_valid(nc)))
-                        del A_panel
-                    acc = torch.stack(acc_parts)
-                    if ctx is not None:
-                        acc = ctx.sum_all(acc)
-                    # one read of the device; a float64 host sum keeps the
-                    # entry counts exact and the loss sums below fp32 drift
-                    acc = syncs.host(acc).astype(np.float64).sum(axis=0)
-                    tr_sse, tr_n, te_sse, te_n = [float(v) for v in acc]
-                    loss = tr_sse / max(tr_n, 1.0)
-                    test_loss = te_sse / max(te_n, 1.0)
-                    hist.append(loss)
-                    test_hist.append(test_loss)
-                    conv_loss = test_loss if is_cv else loss
-                    if is_cv:
-                        if test_loss < best_test:
-                            best_test = test_loss
-                            best_iter = it
-                            patience = 0
-                        else:
-                            patience += 1
-                    rel = abs(prev_loss - conv_loss) / (abs(prev_loss)
-                                                        + 1e-15)
-                    prev_loss = conv_loss
-                    if not is_cv:
-                        # consecutive sub-tol iterations only
-                        if it > 0 and rel < cfg.tol:
-                            patience += 1
-                        else:
-                            patience = 0
-                    if (is_cv and (patience >= cfg.cv_patience
-                                   or (it > 0 and rel < cfg.tol))) or \
-                       (not is_cv and patience >= cfg.patience):
-                        converged = True
-                        stop = True
-
-                else:
-                    if saved_loss:
-                        B_w = torch.cat(
-                            [B_parts[cs] for cs in sorted(B_parts)], dim=1)
-                        loss = float(syncs.host(linalg.mse_loss_from_saved(
-                            _tensor(trAtA), W_T, d, B_w, G_w)))
-                        del B_w
-                    else:
-                        # the cross term accumulates on the device in panel
-                        # order; one read per sweep
-                        cross_d = torch.zeros((), dtype=torch.float32,
-                                              device=dev)
-                        for ch in _panels(False, prefetch=False):
-                            cs, nc = ch.col_start, ch.num_cols
-                            A_panel = _put_panel(ch, False)
-                            cross_d = cross_d + _panel_cross_term(
-                                W_T_l, d, _cols_of(H, cs, nc, False), A_panel)
-                            del A_panel
-                        if ctx is not None:
-                            cross_d = ctx.sum_all(cross_d)
-                        cross = float(syncs.host(cross_d))
-                        G_wt = linalg.gram(W_T)
-                        recon = float(syncs.host(
-                            ((d[:, None] * d[None, :]) * G_wt * G_w).sum()))
-                        loss = trAtA - 2.0 * cross + recon
-                    hist.append(loss)
-                    rel = abs(prev_loss - loss) / (abs(prev_loss) + 1e-15)
-                    if it > 0 and rel < cfg.tol:
-                        patience += 1
-                        if patience >= cfg.patience:
-                            converged = True
-                            stop = True
-                    else:
-                        patience = 0
-                    prev_loss = loss
-                B_parts.clear()
-
-            # ---- per-sweep observability: callbacks and preemption-safe
-            # checkpoints at sweep boundaries ----
-            if ctx is not None:
-                # every rank holds the same loss; the stop is still rank 0's
-                stop = ctx.share(stop)
+                stop = rule.update(it, *sweep.loss(W_T, H, d, G_w, saved))
+            # every rank holds the same loss; the stop is still rank 0's
+            stop = ctx.share(stop)
             done_sweeps = it + 1
-            stream["sweep_s"].append(time.perf_counter() - t_sweep)
+            source.stream["sweep_s"].append(time.perf_counter() - t_sweep)
             if on_iteration is not None:
-                on_iteration(it + 1, float(hist[-1]),
-                             float(test_hist[-1]) if test_hist
+                on_iteration(it + 1, float(rule.hist[-1]),
+                             float(rule.test_hist[-1]) if rule.test_hist
                              else float("nan"))
+            # preemption-safe checkpoints at sweep boundaries
             if checkpoint_path is not None and (
                     (it + 1) % int(checkpoint_every) == 0 or stop
                     or it + 1 == cfg.max_iter):
                 from ..utils.checkpoint import save_stream_state
-                if ctx is None or ctx.is_root:
+                if ctx.is_root:
                     # the state is whole on every rank; rank 0 writes it
                     save_stream_state(
                         checkpoint_path, cfg, W_T=W_T, H=H, d=d, it=it + 1,
-                        prev_loss=prev_loss, patience=patience,
-                        best_test=best_test, best_iter=best_iter, hist=hist,
-                        test_hist=test_hist, pi_vec=pi_vec,
-                        converged=converged)
-                if ctx is not None:
-                    ctx.barrier()
+                        pi_vec=sweep.pi_vec, **rule.state())
+                ctx.barrier()
             if stop:
                 break
 
     with span("rtt.fit.finalize"):
         host = syncs.host
+        hist, test_hist = rule.hist, rule.test_hist
         res = NMFResult(
             W=host(W_T).T, d=host(d), H=host(H),
             iterations=done_sweeps,
-            converged=converged,
+            converged=rule.converged,
             train_loss=float(hist[-1]) if hist else float("nan"),
             test_loss=float(test_hist[-1]) if test_hist else float("nan"),
-            best_iter=best_iter,
+            best_iter=rule.best_iter,
             loss_history=np.asarray(hist, dtype=np.float64),
             test_loss_history=(np.asarray(test_hist, dtype=np.float64)
                                if test_hist else None),
         )
-        if is_cv:
-            res.misc["best_test_loss"] = float(best_test)
-        if is_nb:
+        if sweep.is_cv:
+            res.misc["best_test_loss"] = float(rule.best_test)
+        if sweep.is_nb:
             # fixed at init in streaming mode, like the reference chunked
             # engine
-            res.theta = host(nb_vec)
-        if is_zi:
-            if zi_row:
-                res.pi_row = host(pi_vec)
+            res.theta = host(sweep.nb_vec)
+        if sweep.is_zi:
+            if sweep.zi_row:
+                res.pi_row = host(sweep.pi_vec)
             else:
-                res.pi_col = host(pi_vec)
+                res.pi_col = host(sweep.pi_vec)
         if cfg.sort_model:
             res.sort()
+    stream = source.stream
     if use_irls:
-        stream["inner_iters"] = irls_counts["inner_iters"]
+        stream["inner_iters"] = sweep.irls_counts["inner_iters"]
     res.misc["stream"] = stream
-    res.misc["host_syncs"] = syncs.n + irls_counts["host_syncs"]
+    res.misc["host_syncs"] = syncs.n + sweep.irls_counts["host_syncs"]
     return res

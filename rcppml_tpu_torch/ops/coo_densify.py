@@ -6,7 +6,7 @@ scatter to XLA (``rcppml_tpu/models/nmf_chunked.py::_coo_densify``).  It
 exists for device memory: the twin holds int64 column ids, an int64 flat
 index and a float32 copy of the values beside the panel (60 to 85 MiB for a
 40,000 x 512 panel of 3.4M entries), and a stream that keeps its dense
-panels on the card (``models/nmf_chunked.py``) densifies its last panel when
+panels on the card (``io/panels.py``) densifies its last panel when
 that cache is full.  The CUDA source is ``csrc/coo_densify.cu``: a block owns
 a tile of :data:`TILE_COLS` columns by up to :data:`MAX_TILE_ROWS` rows in
 shared memory, zeroes it, scatters its columns' entries whose rows fall in

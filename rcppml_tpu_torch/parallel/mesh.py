@@ -488,6 +488,113 @@ class ShardContext:
         return out
 
 
+class PanelBlocks:
+    """This rank's block of each column panel of a stream
+    (``models/nmf_chunked.py``), from its :class:`ShardContext`.
+
+    A forward panel holds columns of A, a transposed panel columns of A^T.
+    On a mesh each panel is zero-padded and cut (rows, cols): a forward
+    panel's rows (A's rows) over the mesh's rows and its columns over the
+    mesh's columns, a transposed panel's rows (A's columns) over the mesh's
+    columns and its columns over its rows.  Without a mesh every cut
+    returns its argument itself, the same view: a product's operand layout
+    selects its kernel, and with it the rounding."""
+
+    def __init__(self, ctx: ShardContext):
+        self.ctx = ctx
+        mesh = ctx.mesh
+        self.sharded = mesh is not None
+        self.size = mesh.size if self.sharded else 1
+        self._shape = ((mesh.shape["rows"], mesh.shape["cols"])
+                       if self.sharded else (1, 1))
+        self._coords = mesh.coords if self.sharded else (0, 0)
+
+    def axis(self, transposed: bool) -> Axis:
+        """The axis a panel's right-hand sides and Grams sum over: the
+        ranks holding the panel's other rows."""
+        return self.ctx.cols if transposed else self.ctx.rows
+
+    def rows_geom(self, transposed: bool):
+        """(first row, block rows, valid rows) of this rank's block of a
+        panel."""
+        c = self.ctx
+        return (c.col0, c.n_blk, c.vn) if transposed else (c.row0, c.m_blk,
+                                                            c.vm)
+
+    def cols_geom(self, nc: int, transposed: bool):
+        """(first column, block columns, valid columns) of this rank's
+        block of a panel of ``nc`` columns, zero-padded to divide the axis
+        it is split over ("cols" forward, "rows" transposed)."""
+        (r, c), (ri, ci) = self._shape, self._coords
+        parts, idx = (r, ri) if transposed else (c, ci)
+        pb = -(-nc // parts)
+        c0 = idx * pb
+        return c0, pb, min(max(nc - c0, 0), pb)
+
+    def block_of(self, data, nc: int, transposed: bool, dtype=np.float32):
+        """This rank's zero-padded block of a whole host panel."""
+        if not self.sharded:
+            return data
+        r0, rb, vr = self.rows_geom(transposed)
+        c0, pb, vc = self.cols_geom(nc, transposed)
+        out = np.zeros((rb, pb), dtype)
+        out[:vr, :vc] = data[r0:r0 + vr, c0:c0 + vc]
+        return out
+
+    def rows_of(self, v, transposed: bool, fill: float = 0.0):
+        """A (k, rows) factor table (zero-padded) or a vector over the
+        panel's rows (padded with ``fill``), cut to this rank's block."""
+        if not self.sharded:
+            return v
+        if v.dim() == 2:
+            return (self.ctx.col_block(v) if transposed
+                    else self.ctx.row_block(v))
+        r0, rb, vr = self.rows_geom(transposed)
+        return _pad_vec(v[r0:r0 + vr], rb, fill)
+
+    def cols_of(self, v, cs: int, nc: int, transposed: bool,
+                fill: float = 0.0):
+        """Columns ``cs .. cs + nc`` of a vector (or of a (k, n) table)
+        along the panel's columns, this rank's part, zero-padded."""
+        if not self.sharded:
+            return v[..., cs:cs + nc]
+        c0, pb, vc = self.cols_geom(nc, transposed)
+        part = v[..., cs + c0:cs + c0 + vc]
+        if v.dim() == 2:
+            out = v.new_zeros((v.shape[0], pb))
+            out[:, :vc] = part
+            return out
+        return _pad_vec(part, pb, fill)
+
+    def offsets(self, cs: int, nc: int, transposed: bool):
+        """The global offsets of this rank's block of a panel: its first
+        row within the panel and its first column within A's panel."""
+        return (self.rows_geom(transposed)[0],
+                cs + self.cols_geom(nc, transposed)[0])
+
+    def valid(self, nc: int, transposed: bool = False):
+        """The valid (rows, cols) extent of this rank's block of a panel;
+        None without a mesh."""
+        if not self.sharded:
+            return None
+        return self.rows_geom(transposed)[2], self.cols_geom(nc,
+                                                             transposed)[2]
+
+    def whole(self, X, nc: int, transposed: bool):
+        """A solved block of a panel's columns as the panel's whole
+        (k, nc) slice, on every rank."""
+        if not self.sharded:
+            return X
+        return (self.ctx.rows if transposed else self.ctx.cols).gather(
+            X, dim=1)[:, :nc]
+
+
+def _pad_vec(v, size: int, fill: float):
+    if v.shape[0] == size:
+        return v.contiguous()
+    return torch.cat([v, v.new_full((size - v.shape[0],), fill)])
+
+
 def _pad_slice(X, lo: int, width: int, true: int):
     """Columns ``lo .. lo + width`` of ``X`` (true width ``true``), the part
     past ``true`` zero: a float32 host array, or a tensor on X's device."""

@@ -37,8 +37,8 @@ from rcppml_tpu.utils import resources as ref_resources
 import rcppml_tpu_torch as rtt
 from rcppml_tpu_torch import datasets
 from rcppml_tpu_torch.io import loaders, rdata, spz
+from rcppml_tpu_torch.io.panels import _compact_sparse
 from rcppml_tpu_torch.io.upload import upload
-from rcppml_tpu_torch.models import nmf_chunked
 from rcppml_tpu_torch.ops import coo_densify
 from rcppml_tpu_torch.utils import resources
 
@@ -232,11 +232,11 @@ def test_import_guard_scans_the_io_modules():
     package."""
     io_sources = sorted(p.name for p in
                         (REPO / "rcppml_tpu_torch" / "io").glob("*.py"))
-    assert io_sources == ["__init__.py", "loaders.py", "rdata.py", "spz.py",
-                          "spz_meta.py", "upload.py"]
+    assert io_sources == ["__init__.py", "loaders.py", "panels.py",
+                          "rdata.py", "spz.py", "spz_meta.py", "upload.py"]
     code = ("import sys, rcppml_tpu_torch.io.spz, rcppml_tpu_torch.io.rdata, "
             "rcppml_tpu_torch.io.loaders, rcppml_tpu_torch.io.spz_meta, "
-            "rcppml_tpu_torch.io.upload, "
+            "rcppml_tpu_torch.io.upload, rcppml_tpu_torch.io.panels, "
             "rcppml_tpu_torch.models.nmf_chunked, rcppml_tpu_torch.datasets; "
             "bad = [m for m in ('jax', 'rcppml_tpu') if m in sys.modules]; "
             "assert not bad, bad")
@@ -362,7 +362,7 @@ def test_densify_widens_uint16_exactly(m, big):
                              np.bincount(cols, minlength=nc).astype(np.int32),
                              vals[order])
     dense[ch.rows, ch.cols_expanded()] = ch.vals
-    wire = nmf_chunked._compact_sparse(ch, m)
+    wire = _compact_sparse(ch, m)
     assert wire.rows.dtype == np.uint16 and wire.vals.dtype == np.uint16
     dev = torch.device("cpu")
     got = coo_densify.coo_densify(

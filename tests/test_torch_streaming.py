@@ -33,6 +33,7 @@ from rcppml_tpu.utils import checkpoint as ref_ck
 import rcppml_tpu_torch as rtt
 from rcppml_tpu_torch import api
 from rcppml_tpu_torch.io import loaders
+from rcppml_tpu_torch.io.panels import _compact_sparse
 from rcppml_tpu_torch.io.upload import upload
 from rcppml_tpu_torch.models import nmf_chunked
 from rcppml_tpu_torch.ops import coo_densify
@@ -260,12 +261,11 @@ def test_zi_em_iters_warns_as_the_jax_engine(data):
                                 build(K, **cfg_kw), **extra)
 
 
-def test_mesh_is_not_ported(data):
-    """``mesh=`` raised ``NotImplementedError`` until sharded streaming was
-    ported.  On a (1, 1) mesh, where every collective is a no-op, the
-    stream is now the single-device stream bit for bit, and sparse panels
-    are refused as the JAX package refuses them
-    (``tests/test_torch_parallel.py`` holds the 8-rank stream in full)."""
+def test_one_rank_mesh_stream_is_the_single_device_stream(data):
+    """On a (1, 1) mesh, where every collective is a no-op, the stream is
+    the single-device stream bit for bit, and sparse panels are refused as
+    the JAX package refuses them (``tests/test_torch_parallel.py`` holds
+    the 8-rank stream in full)."""
     cfg = rtt.build_config(K, maxit=2, tol=0.0)
     one = rtt.default_mesh(devices=["cpu"])
     on_mesh = nmf_chunked.nmf_chunked(
@@ -279,6 +279,82 @@ def test_mesh_is_not_ported(data):
     with pytest.raises(ValueError, match="sparse_panels is incompatible"):
         nmf_chunked.nmf_chunked(loaders.InMemoryLoader(data["dense"]), cfg,
                                 mesh=one, sparse_panels=True)
+
+
+@pytest.mark.parametrize("transposed", [False, True],
+                         ids=["forward", "transposed"])
+@pytest.mark.parametrize("shape", [None, (2, 2)], ids=["no_mesh", "mesh22"])
+def test_panel_blocks_cut_each_panel(shape, transposed):
+    """``parallel/mesh.py::PanelBlocks``.  Without a mesh every cut is its
+    argument itself (the same storage and strides: a product's operand
+    layout selects its kernel and its rounding).  On a (2, 2) mesh (each
+    rank's ``Mesh`` built alone: the cut needs no process group) the four
+    blocks of a panel tile it and its zero pads; a forward panel's rows
+    split over the mesh's rows and its columns over its columns, a
+    transposed panel's the other way round."""
+    import torch
+
+    from rcppml_tpu_torch.parallel.mesh import Mesh, PanelBlocks, ShardContext
+    m, n, k = 7, 23, 3
+    cs, nc = (2, 5) if transposed else (10, 5)
+    rows, true = (n, m) if transposed else (m, n)   # panel rows, A's columns
+    rs = np.random.RandomState(0)
+    panel = rs.rand(rows, nc).astype(np.float32) + 1.0
+    F = torch.from_numpy(rs.rand(k, rows).astype(np.float32))
+    X = torch.from_numpy(rs.rand(k, true).astype(np.float32))
+    vec = torch.from_numpy(rs.rand(rows).astype(np.float32))
+    if shape is None:
+        b = PanelBlocks(ShardContext(None, m, n))
+        assert b.block_of(panel, nc, transposed) is panel
+        for got, arg in ((b.rows_of(F, transposed), F),
+                         (b.rows_of(vec, transposed, 0.5), vec),
+                         (b.cols_of(X, cs, nc, transposed), X),
+                         (b.whole(X, nc, transposed), X),
+                         (b.axis(transposed).sum(X), X)):
+            assert got.untyped_storage().data_ptr() == \
+                arg.untyped_storage().data_ptr()
+            assert got.stride() == arg.stride()
+        assert b.cols_of(X, cs, nc, transposed).data_ptr() == \
+            X[:, cs:].data_ptr()
+        assert b.offsets(cs, nc, transposed) == (0, cs)
+        assert b.valid(nc, transposed) is None
+        return
+    r, c = shape
+    rb, pb = -(-rows // (c if transposed else r)), -(-nc // (r if transposed
+                                                              else c))
+    whole = np.full((2 * rb, 2 * pb), np.nan, np.float32)
+    devices = np.empty(shape, object)
+    devices[...] = torch.device("cpu")
+    for rank in range(r * c):
+        b = PanelBlocks(ShardContext(Mesh(devices, rank, {}), m, n))
+        ri, ci = divmod(rank, c)
+        i, j = (ci, ri) if transposed else (ri, ci)
+        r0, c0 = i * rb, j * pb
+        vr, vc = min(max(rows - r0, 0), rb), min(max(nc - c0, 0), pb)
+        assert b.offsets(cs, nc, transposed) == (r0, cs + c0)
+        assert b.valid(nc, transposed) == (vr, vc)
+        blk = b.block_of(panel, nc, transposed)
+        assert blk.shape == (rb, pb)
+        assert np.isnan(whole[r0:r0 + rb, c0:c0 + pb]).all()
+        whole[r0:r0 + rb, c0:c0 + pb] = blk
+        # the factor table, a vector and a slice of the other factor, cut
+        # and padded as the block is
+        F_pad = np.zeros((k, 2 * rb), np.float32)
+        F_pad[:, :rows] = F.numpy()
+        assert np.array_equal(b.rows_of(F, transposed).numpy(),
+                              F_pad[:, r0:r0 + rb])
+        v_pad = np.full(2 * rb, 0.5, np.float32)
+        v_pad[:rows] = vec.numpy()
+        assert np.array_equal(b.rows_of(vec, transposed, 0.5).numpy(),
+                              v_pad[r0:r0 + rb])
+        X_pad = np.zeros((k, 2 * pb), np.float32)
+        X_pad[:, :nc] = X.numpy()[:, cs:cs + nc]
+        assert np.array_equal(b.cols_of(X, cs, nc, transposed).numpy(),
+                              X_pad[:, c0:c0 + pb])
+    assert np.array_equal(whole[:rows, :nc], panel)
+    pads = np.ones(whole.shape, bool)
+    pads[:rows, :nc] = False
+    assert (whole[pads] == 0).all()
 
 
 # ---------------------------------------------------------------------------
@@ -345,9 +421,9 @@ def test_sparse_panels_and_panel_cache_are_bitwise_the_dense_stream(
     if cached:
         compact = sum(sum(x.nbytes for x in (ch.rows, ch.counts, ch.vals))
                       for t in (False, True)
-                      for ch in (nmf_chunked._compact_sparse(
-                          ld.chunk_coo(c, t), n if t else m)
-                          for c in range(ld.num_chunks(t))))
+                      for ch in (_compact_sparse(ld.chunk_coo(c, t),
+                                                 n if t else m)
+                                 for c in range(ld.num_chunks(t))))
         assert st["upload_bytes"] == compact < 2 * 4 * m * n
         assert st["densified"] == st["panels_decoded"] == panels
     else:
@@ -486,8 +562,7 @@ def test_densify_of_real_spz_chunks(tmp_path):
     dev = torch.device("cpu")
     for transposed, rows_dim in ((False, m), (True, n)):
         for c in range(ld.num_chunks(transposed)):
-            wire = nmf_chunked._compact_sparse(ld.chunk_coo(c, transposed),
-                                               rows_dim)
+            wire = _compact_sparse(ld.chunk_coo(c, transposed), rows_dim)
             got = coo_densify.coo_densify(
                 *(upload(x, dev)
                   for x in (wire.rows, wire.counts, wire.vals)), rows_dim)

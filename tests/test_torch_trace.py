@@ -33,6 +33,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import rcppml_tpu_torch as rtt
 from rcppml_tpu_torch.io import loaders, upload
+from rcppml_tpu_torch.io.panels import _compact_sparse
 from rcppml_tpu_torch.models import nmf_chunked
 from rcppml_tpu_torch.utils import trace
 
@@ -226,9 +227,9 @@ def test_stream_counts_its_panels_and_bytes(case, A, spz_path):
     else:
         compact = sum(sum(x.nbytes for x in (ch.rows, ch.counts, ch.vals))
                       for t in (False, True)
-                      for ch in (nmf_chunked._compact_sparse(
-                          ld.chunk_coo(c, t), N if t else M)
-                          for c in range(ld.num_chunks(t))))
+                      for ch in (_compact_sparse(ld.chunk_coo(c, t),
+                                                 N if t else M)
+                                 for c in range(ld.num_chunks(t))))
         assert st["upload_bytes"] == compact
         assert st["panels_decoded"] == fwd + tr
     assert len(st["sweep_s"]) == SWEEPS
