@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile]
 
-It builds the CUDA kernels from ``rcppml_tpu_torch/csrc`` (eight sources, one
+It builds the CUDA kernels from ``rcppml_tpu_torch/csrc`` (nine sources, one
 ``nvcc`` each, started together), holds each against its plain PyTorch twin,
 drives the port's main paths through ``rcppml_tpu_torch.nmf`` on a matrix on
 the card, and times kernels, twins and fits with CUDA events:
@@ -64,7 +64,9 @@ the card, and times kernels, twins and fits with CUDA events:
     5.15%): the codec bit for bit, ``nmf`` of the ``.spz`` path with both
     solvers against the in-memory card fit (the kernel's launches once a
     panel a sweep), the uncached, sparse-panel and checkpointed streams bit
-    for bit the cached one, the wire cache within 1e-5 of the uncached
+    for bit the cached one (which builds its transposed panels on the card
+    from the forward ones: the transposed-panel kernel, bit for bit its
+    twin, phase 13c, and the stream that decodes them), the wire cache within 1e-5 of the uncached
     stream, KL and CV streams through kernel 2, streaming SVD (randomized,
     lanczos, irlba) within 1e-3 of the in-memory SVD and
     ``nnls_streaming`` within 1e-5 of ``nnls``;
@@ -1366,6 +1368,67 @@ def check_coo_densify(card):
     return out
 
 
+def check_transpose_panels(card):
+    """The transposed-panel kernel against its plain twin (both on the
+    card, bit for bit) at the hcabm40k stream's panels: forward 5,000 x 512
+    with a last one of 5,000 x 64, transposed 40,000 x 512 and 40,000 x 392.
+    Each is timed beside the byte bound (the panel read once and written
+    once), with each one's peak device memory over the inputs: the kernel
+    as a replayed CUDA graph of DENSIFY_BATCH launches, the twin as
+    DENSIFY_BATCH eager calls back to back; median of REPS.  Returns
+    {shape label: (ms, plain_ms, bound_ms, "bytes")}."""
+    from rcppml_tpu_torch.ops import transpose_panels as tp
+    m, n, width = STREAM_I["m"], STREAM_I["n"], STREAM_I["chunk_cols"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    starts = list(range(0, n, width))
+    panels = [torch.rand((m, min(width, n - s)), generator=gen,
+                         device="cuda") for s in starts]
+    tab = tp.panel_table(panels, starts)
+    check(tab.vec == 4, "the forward panels take 16-byte accesses")
+
+    def replayed_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(DENSIFY_BATCH):
+                fn()
+        ms = cuda_ms(graph.replay) / DENSIFY_BATCH
+        del graph
+        return ms
+    out = {}
+    last = m - (m - 1) // width * width
+    for label, (row0, nc) in ((f"transposed {n:,} x {width}", (0, width)),
+                              (f"transposed {n:,} x {last}",
+                               (m - last, last))):
+        before = tp.transpose_panels.launches
+        got = tp.transpose_panels(tab, row0, nc)
+        plain = tp.transpose_panels_plain(tab, row0, nc)
+        torch.cuda.synchronize()
+        check(tp.transpose_panels.launches == before + 1 and torch.equal(
+            got.view(torch.int32), plain.view(torch.int32)),
+            f"transpose_panels {label}: one launch, bit for bit the twin")
+        del got, plain
+        ms = replayed_ms(lambda: tp.transpose_panels(tab, row0, nc))
+        plain_ms = cuda_ms(lambda: [tp.transpose_panels_plain(tab, row0, nc)
+                                    for _ in range(DENSIFY_BATCH)]) \
+            / DENSIFY_BATCH
+        mib = peak_mib(lambda: tp.transpose_panels(tab, row0, nc))
+        plain_mib = peak_mib(lambda: tp.transpose_panels_plain(tab, row0,
+                                                               nc))
+        in_mib = torch.cuda.memory_allocated() / 2**20
+        nbytes = 2 * 4 * n * nc
+        bound, by = bound_ms(nbytes, 0)
+        out[label] = (ms, plain_ms, bound, by)
+        print(f"transpose_panels {label}: {ms:.4f} ms, twin {plain_ms:.4f} "
+              f"ms, bound {bound:.4f} ms ({by}, {nbytes / 1e6:.1f} MB, "
+              f"{100 * bound / ms:.1f}% of it); peak {mib - in_mib:.1f} MiB "
+              f"over the inputs, twin {plain_mib - in_mib:.1f} MiB  "
+              f"[{card}]", flush=True)
+    del panels, tab
+    return out
+
+
 def check_holdout():
     """The holdout mask computed on the card against the host's."""
     from rcppml_tpu_torch import rng
@@ -2171,10 +2234,13 @@ def streaming_phases(rtt, card, counted, reset_counts, kernels, keep):
 
     from rcppml_tpu_torch.io.loaders import SpzLoader
     from rcppml_tpu_torch.models import nmf_irls
+    from rcppml_tpu_torch.models.nmf_chunked import nmf_chunked
     from rcppml_tpu_torch.ops.coo_densify import coo_densify
+    from rcppml_tpu_torch.ops.transpose_panels import transpose_panels
     times, paths = {}, {}
     launches = {name: {} for name in kernels}
     launches["coo_densify"] = {}
+    launches["transpose_panels"] = {}
     chol, cd_shared, cd_batched = (kernels["cholesky_clip"],
                                    kernels["cd_nnls_shared"],
                                    kernels["cd_nnls_batched"])
@@ -2185,17 +2251,28 @@ def streaming_phases(rtt, card, counted, reset_counts, kernels, keep):
               f"{what}: {got} launches and no other kernel")
         return got
 
-    def densified(fit, what, want=None):
+    def densified(fit, what, want=None, transposed=0):
         """``fit()`` with the COO densify kernel's launches counted: one a
-        panel the stream densified (``want`` of them where given)."""
+        panel the stream densified (``want`` of them where given); and the
+        transposed-panel kernel's, one a transposed panel built from the
+        forward ones (``transposed`` of them)."""
         before = coo_densify.launches
+        before_t = transpose_panels.launches
         out = fit()
         got = coo_densify.launches - before
-        n = out[0].misc["stream"]["densified"]
+        got_t = transpose_panels.launches - before_t
+        stream = out[0].misc["stream"]
+        n = stream["densified"]
         check(got == n > 0 and (want is None or got == want),
               f"{what}: {got} launches of coo_densify, one a panel "
               f"densified ({n})")
+        check(got_t == stream["transposed_on_card"] == transposed,
+              f"{what}: {got_t} launches of transpose_panels, one a "
+              f"transposed panel built on the card "
+              f"({stream['transposed_on_card']})")
         launches["coo_densify"][what] = got
+        if got_t:
+            launches["transpose_panels"][what] = got_t
         return out
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2252,7 +2329,8 @@ def streaming_phases(rtt, card, counted, reset_counts, kernels, keep):
               f"maxit={STREAM_MAXIT}, tol=0, seed=1")
         path = paths["(i)"]
         ld = SpzLoader(path)
-        panels = ld.num_chunks(False) + ld.num_chunks(True)
+        fwd, trp = ld.num_chunks(False), ld.num_chunks(True)
+        panels = fwd + trp
         kw = dict(maxit=STREAM_MAXIT, tol=0, seed=1)
         for solver, fn, name in (("cholesky", chol, "cholesky_clip"),
                                  ("cd", cd_shared, "cd_nnls_shared")):
@@ -2262,11 +2340,12 @@ def streaming_phases(rtt, card, counted, reset_counts, kernels, keep):
             check(only(fn, f"in-memory {solver}") == 2 * STREAM_MAXIT,
                   "the in-memory fit launches twice an iteration")
             reset_counts()
-            # 16.5% dense, the dense cache on: compact panels, each
-            # densified once on the card
+            # 16.5% dense, the dense cache on: compact forward panels, each
+            # densified once on the card, and the transposed panels built
+            # there from them
             res, ms = densified(lambda: timed_once(lambda: rtt.nmf(
                 path, STREAM_K, solver=solver, **kw)),
-                f"streaming MSE (i) {solver}", want=panels)
+                f"streaming MSE (i) {solver}", want=fwd, transposed=trp)
             got = only(fn, f"streaming {solver}")
             check(got == STREAM_MAXIT * panels,
                   f"streaming {solver}: {got} launches of {name}, once a "
@@ -2305,6 +2384,15 @@ def streaming_phases(rtt, card, counted, reset_counts, kernels, keep):
         check(same(res, cached) and res.misc["stream"]["densified"] == 0,
               "sparse_panels=False (dense panels from the host): bit for bit "
               "the default fit's compact panels densified on the card")
+        # and a loader that withholds the exact-transpose guarantee decodes,
+        # uploads and densifies the transpose stream: the same fit
+        withheld = SpzLoader(path)
+        withheld.exact_transpose = lambda: False
+        res = densified(lambda: (nmf_chunked(withheld, rtt.build_config(
+            STREAM_K, **kw)),), "streaming MSE (i) transpose stream read",
+            want=panels)[0]
+        check(same(res, cached), "the transposed panels decoded from the "
+              "file: bit for bit the fit that built them on the card")
         res, ms = timed_once(lambda: stream_fit(path, STREAM_K,
                                                 sparse_panels=True, **kw))
         check(same(res, cached), "sparse_panels=True: bit for bit the dense "
@@ -3296,7 +3384,7 @@ def main():
     from rcppml_tpu_torch.ops import (_build, cd_nnls, cd_nnls_batched,
                                       cholesky_clip, coo_densify, fused_als,
                                       linalg, rhs_tall, solvers,
-                                      weighted_gram, wgram)
+                                      transpose_panels, weighted_gram, wgram)
     from rcppml_tpu_torch.utils.simulate import simulate_nmf
     cd_shared, cd_batched = cd_nnls.cd_nnls_shared, \
         cd_nnls_batched.cd_nnls_batched
@@ -3334,8 +3422,9 @@ def main():
                                    wgram.KERNEL, fused_als.KERNEL,
                                    rhs_tall.KERNEL, weighted_gram.KERNEL,
                                    cholesky_clip.KERNEL,
-                                   coo_densify.KERNEL]),
-          f"the eight sources were built: {sorted(built)}")
+                                   coo_densify.KERNEL,
+                                   transpose_panels.KERNEL]),
+          f"the nine sources were built: {sorted(built)}")
     for name, (path, seconds) in built.items():
         print(f"built {path.name} in {seconds:.2f} s", flush=True)
         # one line per distinct report: the product tiles are instantiated
@@ -3739,6 +3828,10 @@ def main():
     phase("13b COO densify kernel against its plain twin (bitwise) at the "
           "hcabm40k stream's panels")
     densify_times = check_coo_densify(card)
+
+    phase("13c transposed-panel kernel against its plain twin (bitwise) at "
+          "the hcabm40k stream's panels")
+    transpose_times = check_transpose_panels(card)
 
     phase("14 the holdout mask on the card against the host's")
     check_holdout()
@@ -4542,6 +4635,16 @@ def main():
              source="rcppml_tpu_torch/csrc/coo_densify.cu", replaces=None,
              max_abs_err=0.0, max_rel_err=0.0, library_ms=None,
              launches_by_path=path_launches["coo_densify"]),
+        # replaces no TPU kernel (the JAX package decodes the transpose
+        # stream); the stream's transposed panel of 512 columns
+        dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"),
+                 transpose_times[f"transposed {STREAM_I['n']:,} x "
+                                 f"{STREAM_I['chunk_cols']}"]),
+             name="transpose_panels", route="cuda",
+             source="rcppml_tpu_torch/csrc/transpose_panels.cu",
+             replaces=None, max_abs_err=0.0, max_rel_err=0.0,
+             library_ms=None,
+             launches_by_path=path_launches.get("transpose_panels", {})),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

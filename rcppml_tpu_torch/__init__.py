@@ -50,7 +50,7 @@ carries:
     ``cross_validate_graph``; ``nmf([A1, A2], k)`` / ``nmf({...}, k)`` fits
     a shared-H net over the modalities.
 
-Nine kernels written for Hopper run on a CUDA tensor, each with a plain
+Ten kernels written for Hopper run on a CUDA tensor, each with a plain
 PyTorch twin that runs on a CPU tensor: the shared-Gram CD NNLS solve
 (``csrc/cd_nnls_shared.cu``), the CD NNLS solve with one Gram per column that
 every IRLS inner iteration and every CD-mode masked solve calls
@@ -64,7 +64,9 @@ the per-column weighted Gram + RHS from given weights
 is too large for the Khatri-Rao product, the shared-Gram Cholesky solve +
 clip (``csrc/cholesky_clip.cu``), the solve of every default MSE fit, and
 the scatter that densifies a stream's compact COO panel on the card
-(``csrc/coo_densify.cu``, kernel 9).
+(``csrc/coo_densify.cu``, kernel 9), and the copy that builds a stream's
+transposed panel from the forward panels its dense cache holds
+(``csrc/transpose_panels.cu``, kernel 10).
 
 Entry points run on the CUDA card unless the caller asks for ``device="cpu"``
 or passes a CPU tensor.  A device mesh over ``torch.distributed``

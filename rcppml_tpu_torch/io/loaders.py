@@ -125,6 +125,18 @@ class DataLoader:
         ch = self.chunk(idx)
         return ch, _sq_sum(ch.data)
 
+    def exact_transpose(self) -> bool:
+        """Whether every transposed panel holds, value for value, A's
+        entries as the forward panels hold them (so a transposed panel may
+        be built from the forward ones).  Here: not declared."""
+        return False
+
+    def chunk_place(self, idx: int, transpose: bool = False):
+        """(col_start, num_cols) of panel ``idx``; here by reading it, a
+        loader that can tell without a decode says so itself."""
+        ch = self.chunk(idx, transpose)
+        return ch.col_start, ch.num_cols
+
 
 def _sq_sum(x: np.ndarray) -> float:
     """A panel's part of tr(A'A), as ``trace_sq`` computes it."""
@@ -195,6 +207,17 @@ class InMemoryLoader(DataLoader):
         src = self.At if transpose else self.A
         stop = min(start + cc, src.shape[1])
         return _csc_to_coo_chunk(start, src[:, start:stop])
+
+    def exact_transpose(self) -> bool:
+        # both sides read one float32 array, or one scipy matrix whose
+        # entries are unique (duplicates would be summed per side)
+        return not self._sparse or bool(self.A.has_canonical_format)
+
+    def chunk_place(self, idx: int, transpose: bool = False):
+        cc = self.chunk_cols_t if transpose else self.chunk_cols
+        start = idx * cc
+        n = self.shape[0] if transpose else self.shape[1]
+        return start, min(cc, n - start)
 
 
 class SpzLoader(DataLoader):
@@ -311,6 +334,27 @@ class SpzLoader(DataLoader):
         # v2: the value stream under either ingest; v3: the dense panels
         return self.version == 2 or not sparse
 
+    def exact_transpose(self) -> bool:
+        # every codec but quant8 (an offset and scale set per chunk, so the
+        # two streams round apart) stores each value as itself
+        return self.version == 3 or \
+            self.reader.info["value_type"] != "quant8"
+
+    def chunk_place(self, idx: int, transpose: bool = False):
+        """From the chunk's header (v2) or the decoder's size query (v3):
+        no decode."""
+        if self.version == 2:
+            return self.reader.chunk_info(idx, transpose)[:2]
+        import ctypes
+        cs = ctypes.c_uint32()
+        nc = ctypes.c_uint32()
+        if self._lib.spz3_decode_chunk(self._buf, len(self._data),
+                                       int(transpose), idx, ctypes.byref(cs),
+                                       ctypes.byref(nc), None):
+            from . import spz as spz_mod
+            raise ValueError(spz_mod._err(self._lib))
+        return cs.value, nc.value
+
     def chunk_traced(self, idx: int, sparse: bool = False):
         """v2: one decode gives the panel (COO, or densified as ``chunk``
         densifies it) and the sum of its squared values, as ``trace_sq``
@@ -351,6 +395,12 @@ class CachingLoader(DataLoader):
 
     def num_chunks(self, transpose: bool = False) -> int:
         return self.inner.num_chunks(transpose)
+
+    def exact_transpose(self) -> bool:
+        return self.inner.exact_transpose()
+
+    def chunk_place(self, idx: int, transpose: bool = False):
+        return self.inner.chunk_place(idx, transpose)
 
     def chunk(self, idx: int, transpose: bool = False) -> Chunk:
         key = (idx, transpose)

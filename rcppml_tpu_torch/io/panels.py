@@ -3,9 +3,11 @@
 The streaming NMF engine (``models/nmf_chunked.py``) reads every panel
 through a :class:`PanelSource`: the choice of dense or compact COO panels
 (:func:`_compact_sparse`, densified on the device by ``ops/coo_densify.py``),
-the dense and wire caches, the ``Prefetcher``'s reads, tr(A'A) for the MSE
-loss, a mesh rank's block of each dense panel (``parallel/mesh.py``'s
-:class:`PanelBlocks`) and the counters of ``res.misc["stream"]``.
+the dense and wire caches, the ``Prefetcher``'s reads, the transposed panels
+built on the device from the cached forward ones
+(``ops/transpose_panels.py``), tr(A'A) for the MSE loss, a mesh rank's block
+of each dense panel (``parallel/mesh.py``'s :class:`PanelBlocks`) and the
+counters of ``res.misc["stream"]``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from ..ops.coo_densify import coo_densify
+from ..ops.transpose_panels import panel_table, transpose_panels
 from ..parallel.mesh import PanelBlocks
 from ..utils.trace import span
 from .loaders import DataLoader, Prefetcher, SparseChunk
@@ -30,6 +33,8 @@ _CompactChunk = namedtuple("_CompactChunk",
                            "col_start num_cols rows counts vals")
 # a panel every copy of which a cache holds: its place only
 _CachedChunk = namedtuple("_CachedChunk", "col_start num_cols")
+# a transposed panel to build from the cached forward panels: its place only
+_FromForward = namedtuple("_FromForward", "col_start num_cols")
 
 
 def _compact_sparse(ch: SparseChunk, rows_dim: int) -> _CompactChunk:
@@ -74,7 +79,13 @@ class PanelSource:
     below 0.15 or the dense cache is on and the compact wire bytes,
     :func:`_coo_wire_bytes`, are below the dense panels'), True or False.
     ``reads_trace``: whether the fit's loss reads tr(A'A) (:attr:`trAtA`).
-    ``stream``: the counters of ``res.misc["stream"]``."""
+    ``stream``: the counters of ``res.misc["stream"]``.
+
+    Once the dense cache holds every forward panel of a fit without a mesh,
+    and the loader declares its transposed panels the forward panels'
+    exact transposes (``DataLoader.exact_transpose``), the transposed
+    panels are not read: each is built on the device from the forward
+    panels (``transposed_on_card`` counts them), the same bits."""
 
     def __init__(self, loader: DataLoader, blocks: PanelBlocks,
                  dev: torch.device, *, panel_cache=None,
@@ -86,7 +97,8 @@ class PanelSource:
         self.stream = {"decode_s": 0.0, "wait_s": 0.0, "panels_decoded": 0,
                        "upload_s": 0.0, "upload_bytes": 0, "densified": 0,
                        "panel_cache_hits": 0, "sweep_s": [],
-                       "trace_passes": 0, "trace_panels": 0}
+                       "trace_passes": 0, "trace_panels": 0,
+                       "transposed_on_card": 0}
         if panel_cache is None:
             # the footprint is this rank's: its blocks of both panel sets
             # (the JAX package's n_per); the gate reads the card's memory,
@@ -119,6 +131,7 @@ class PanelSource:
         self.wire_bytes = 0
         self._cache: dict = {}
         self._meta: dict = {False: {}, True: {}}   # col_start -> num_cols
+        self._forward = None    # the forward panels' table, once built
         # tr(A'A): the first sweep's forward panels give it as they are
         # read (:meth:`panels`), unless this loader cannot give a panel's
         # part bit for bit in this ingest: then one pass over the file
@@ -141,7 +154,9 @@ class PanelSource:
 
     def panels(self, transposed: bool, prefetch: bool = True):
         """The panels of a side in order; once a cache holds every panel
-        of the side, placeholders that :meth:`put` reads from it.  Without
+        of the side, placeholders that :meth:`put` reads from it, and where
+        the class's rule holds, transposed placeholders that it builds
+        from the cached forward panels.  Without
         ``prefetch`` the panels are read on this thread.  The first read of
         the forward panels of a fit whose loss reads tr(A'A) takes it from
         them (the Prefetcher's ``traced``)."""
@@ -149,6 +164,19 @@ class PanelSource:
         if self.full(transposed):
             for cs in sorted(meta):
                 yield _CachedChunk(cs, meta[cs])
+            return
+        if transposed and self.dense and not self.blocks.sharded \
+                and self.full(False) and self.loader.exact_transpose():
+            # the class's rule: build the transposed panels from the
+            # cached forward ones
+            if self._forward is None:
+                fwd = sorted(self._meta[False])
+                self._forward = panel_table(
+                    [self._cache[(False, cs)] for cs in fwd], fwd)
+            for c in range(self.loader.num_chunks(True)):
+                cs, nc = self.loader.chunk_place(c, True)
+                meta[cs] = nc
+                yield _FromForward(cs, nc)
             return
         rows_dim = self.rows_dim[transposed]
         if self.sparse:
@@ -178,8 +206,9 @@ class PanelSource:
 
     def put(self, ch, transposed: bool, check_finite: bool = False):
         """One panel (this rank's block of it) on the device, dense float32
-        (rows, cols): from a cache, or uploaded (dense) / uploaded compact
-        and densified there (sparse).  ``check_finite``: refuse a decoded
+        (rows, cols): from a cache, built from the cached forward panels
+        (a transposed panel), or uploaded (dense) / uploaded compact and
+        densified there (sparse).  ``check_finite``: refuse a decoded
         panel with a non-finite value (streamed panels bypass the in-memory
         NaN auto-mask)."""
         cs, nc = ch.col_start, ch.num_cols
@@ -198,7 +227,11 @@ class PanelSource:
                 return hit
             self.stream["densified"] += 1                  # wire triple
             return coo_densify(*hit, rows_dim)
-        if isinstance(ch, _CompactChunk):
+        if isinstance(ch, _FromForward):
+            with span("rtt.stream.transpose"):
+                out = transpose_panels(self._forward, cs, nc)
+            self.stream["transposed_on_card"] += 1
+        elif isinstance(ch, _CompactChunk):
             arrays = (ch.rows, ch.counts, ch.vals)
             on_dev = tuple(self._upload(x) for x in arrays)
             if self.wire:

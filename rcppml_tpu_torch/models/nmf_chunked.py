@@ -36,6 +36,8 @@ panels; ``nmf_irls.irls_solve_batch`` (kernel 2, kernel 4 under
 
 Sparse panels travel as compact COO and are densified on the device; a
 sparse-panel fit is bit for bit the dense-panel one (``io/panels.py``).
+Where the dense cache holds every forward panel (no mesh), the W update's
+transposed panels are built there from them, not decoded a second time.
 
 Where the JAX package runs a whole cached sweep as one jitted ``lax.scan``
 (``_cached_sweep_{mse,cv,irls}``), the port's sweep over a full cache is
@@ -631,8 +633,10 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
     passes for tr(A'A), 0 or 1: the plain MSE loss reads it, and the pass
     runs only where the loader cannot give a panel's part as the first
     sweep reads it, ``DataLoader.traces_panels``), ``trace_panels`` (the
-    forward panels whose parts gave it, in the Prefetcher's workers) and,
-    for an IRLS fit, ``inner_iters`` of its panel solves.
+    forward panels whose parts gave it, in the Prefetcher's workers),
+    ``transposed_on_card`` (the transposed panels built on the device from
+    the cached forward panels instead of read: ``io/panels.py``) and, for
+    an IRLS fit, ``inner_iters`` of its panel solves.
     ``res.misc["host_syncs"]`` counts the fit's synchronizing calls
     (``utils.trace.Syncs``; not the checkpoint's reads, a seeding SVD's or
     a mesh's collectives).  Under a profiler the fit opens
@@ -640,7 +644,8 @@ def nmf_chunked(loader: Union[DataLoader, str], cfg: NMFConfig, *,
     ``trace_passes`` is 1), ``rtt.loop``
     around its sweeps, ``rtt.stream.sweep`` for each, ``rtt.stream.panel``
     for each panel's put and solve, ``rtt.stream.wait`` where it waits on a
-    decode, ``rtt.stream.upload``, ``rtt.stream.loss`` and
+    decode, ``rtt.stream.upload``, ``rtt.stream.transpose`` (a transposed
+    panel built from the forward ones), ``rtt.stream.loss`` and
     ``rtt.fit.finalize`` (``utils/trace.py``).
 
     ``mesh``: a ``parallel.mesh.Mesh`` every rank of which calls this

@@ -31,7 +31,10 @@ are the uninterrupted fit bit for bit, with its kernel launches.  A
 ``.spz`` stream on the card holds to the same stream on the CPU port, and
 its wire-cached run to its uncached one within 1e-5; its sparse panels are
 densified by the COO densify kernel, which equals its twin bit for bit at
-the hcabm40k stream's panel shapes and at its edges.  The graph engine's
+the hcabm40k stream's panel shapes and at its edges, and with the dense
+cache its transposed panels are built from the forward ones by the
+transposed-panel kernel, bit for bit its twin at those shapes and the
+decoded stream's fit.  The graph engine's
 outer ALS on the card holds to the same net on the CPU (loss 1e-4,
 factors 1e-2 of the largest entry), with kernels 6 and 1 bitwise their
 twins at its deep layer's shapes, and a multi-modal fit is the stacked
@@ -1173,6 +1176,83 @@ def test_coo_densify_refuses_triples_on_two_devices(cuda):
     rows, counts, vals = _coo_panel(*DENSIFY_CASES["int32_rows"])
     with pytest.raises(ValueError, match="coo_densify"):
         cd.coo_densify(rows.to(cuda), counts, vals.to(cuda), 70000)
+
+
+# csrc/transpose_panels.cu at the hcabm40k stream's panels (forward 5,000 x
+# 512 with a last one of 5,000 x 64, transposed 40,000 x 512 with a last one
+# of 40,000 x 392), a transposed width that is no multiple of 4 (one float a
+# thread against 16-byte forward panels) and a ragged small case: (m,
+# forward widths, transposed widths)
+TRANSPOSE_CASES = {
+    "main_path": (5000, [512] * 78 + [64], [512] * 9 + [392]),
+    "odd_ncols": (600, [64, 64, 32], [255, 345]),
+    "ragged": (45, [7, 13, 1, 9], [17, 17, 11]),
+}
+
+
+@pytest.mark.parametrize("case", list(TRANSPOSE_CASES))
+def test_transpose_panels_kernel_matches_plain_bitwise(cuda, case):
+    """Every transposed panel, one launch each, equals the plain twin's
+    bit for bit (the twin on the same forward panels on the card)."""
+    from rcppml_tpu_torch.ops import transpose_panels as tp
+    m, widths, t_widths = TRANSPOSE_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    starts = np.concatenate([[0], np.cumsum(widths)[:-1]]).tolist()
+    panels = [torch.randn((m, w), generator=gen, device=cuda)
+              for w in widths]
+    tab = tp.panel_table(panels, starts)
+    assert tab.vec == (4 if all(w % 4 == 0 for w in widths) else 1)
+    row0 = 0
+    for nc in t_widths:
+        before = tp.transpose_panels.launches
+        got = tp.transpose_panels(tab, row0, nc)
+        plain = tp.transpose_panels_plain(tab, row0, nc)
+        torch.cuda.synchronize()
+        assert tp.transpose_panels.launches == before + 1
+        assert got.is_cuda and got.shape == plain.shape == (sum(widths), nc)
+        assert torch.equal(got.view(torch.int32), plain.view(torch.int32))
+        row0 += nc
+    assert row0 == m
+
+
+def test_transpose_panels_refuses_panels_on_two_devices(cuda):
+    from rcppml_tpu_torch.ops import transpose_panels as tp
+    F = torch.ones((4, 8))
+    with pytest.raises(ValueError, match="transpose_panels"):
+        tp.panel_table([F.to(cuda), F], [0, 8])
+
+
+@pytest.mark.parametrize("case", ["mse", "kl"])
+def test_stream_builds_its_transposed_panels_on_the_card(cuda, case,
+                                                         tmp_path):
+    """A ``.spz`` stream with the dense cache on the card builds every
+    transposed panel with the kernel, once, and fits bit for bit what the
+    same stream fits when its loader withholds the guarantee and the
+    transpose stream is decoded, uploaded and densified."""
+    import scipy.sparse as sp
+    import rcppml_tpu_torch as rtt
+    from rcppml_tpu_torch.io.loaders import SpzLoader
+    from rcppml_tpu_torch.models.nmf_chunked import nmf_chunked
+    from rcppml_tpu_torch.ops import transpose_panels as tp
+    rs = np.random.RandomState(9)
+    A = sp.random(700, 900, density=0.165, random_state=rs, format="csc",
+                  dtype=np.float32)
+    A.data = np.ceil(A.data * 6)
+    path = str(tmp_path / "a.spz")
+    rtt.st_write(A, path, chunk_cols=128)
+    cfg = rtt.build_config(5, maxit=6, tol=0, seed=1,
+                           **({"loss": "kl"} if case == "kl" else {}))
+    before = tp.transpose_panels.launches
+    built = nmf_chunked(SpzLoader(path), cfg, panel_cache=True)
+    launched = tp.transpose_panels.launches - before
+    withheld = SpzLoader(path)
+    withheld.exact_transpose = lambda: False
+    read = nmf_chunked(withheld, cfg, panel_cache=True)
+    trp = withheld.num_chunks(True)
+    assert launched == built.misc["stream"]["transposed_on_card"] == trp
+    assert read.misc["stream"]["transposed_on_card"] == 0
+    for f in ("W", "d", "H", "loss_history"):
+        assert np.array_equal(getattr(built, f), getattr(read, f)), f
 
 
 # ---------------------------------------------------------------------------

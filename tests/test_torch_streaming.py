@@ -387,8 +387,9 @@ def test_sparse_panels_and_panel_cache_are_bitwise_the_dense_stream(
     """Sparse panels, the dense cache and both together are the uncached
     dense-panel stream bit for bit.  On a .spz at 16.5% density the auto
     rule ships the compact panels where the dense cache is on (their bytes
-    are below the dense panels'), and the card densifies each panel once;
-    with the cache off it keeps the dense panels."""
+    are below the dense panels'), and the card densifies each forward panel
+    once and builds the transposed ones from them; with the cache off it
+    keeps the dense panels."""
     kw = PANEL_CASES[case]
     if isinstance(kw, dict):
         S = data["sparse"]
@@ -417,17 +418,16 @@ def test_sparse_panels_and_panel_cache_are_bitwise_the_dense_stream(
     auto = fit() if cached else fit(panel_cache=False)
     st = auto.misc["stream"]
     _bitwise(auto, fit(sparse_panels=False, panel_cache=cached))
-    panels = ld.num_chunks(False) + ld.num_chunks(True)
+    fwd = ld.num_chunks(False)
     if cached:
         compact = sum(sum(x.nbytes for x in (ch.rows, ch.counts, ch.vals))
-                      for t in (False, True)
-                      for ch in (_compact_sparse(ld.chunk_coo(c, t),
-                                                 n if t else m)
-                                 for c in range(ld.num_chunks(t))))
-        assert st["upload_bytes"] == compact < 2 * 4 * m * n
-        assert st["densified"] == st["panels_decoded"] == panels
+                      for ch in (_compact_sparse(ld.chunk_coo(c), m)
+                                 for c in range(fwd)))
+        assert st["upload_bytes"] == compact < 4 * m * n
+        assert st["densified"] == st["panels_decoded"] == fwd
+        assert st["transposed_on_card"] == ld.num_chunks(True)
     else:
-        assert st["densified"] == 0
+        assert st["densified"] == st["transposed_on_card"] == 0
         assert st["upload_bytes"] == MAXIT * 3 * 4 * m * n
 
 
@@ -872,9 +872,10 @@ def test_streaming_callback_and_checkpoint_through_the_api(data, tmp_path):
                                   "wire", "uncached"])
 def test_caches_decode_each_panel_once(mode, data):
     """A cached stream decodes each panel once (the first sweep; the loss
-    pass and later sweeps read the cache); an uncached one decodes every
-    panel of both sides and the forward panels again for the loss, every
-    sweep.  Besides, tr(A'A) reads the forward panels once before the
+    pass and later sweeps read the cache), and the dense cache only the
+    forward panels (the transposed ones are built from them); an uncached
+    one decodes every panel of both sides and the forward panels again for
+    the loss, every sweep.  Besides, tr(A'A) reads the forward panels once before the
     first sweep where they travel as COO, whose parts this loader cannot
     give; the dense panels give it as the first sweep reads them."""
     S = data["sparse"]
@@ -892,7 +893,182 @@ def test_caches_decode_each_panel_once(mode, data):
     res = nmf_chunked.nmf_chunked(ld, rtt.build_config(K, maxit=3, tol=0),
                                   device="cpu", **ekw)
     assert res.iterations == 3
-    want = fwd + trp if mode != "uncached" else 3 * (2 * fwd + trp)
+    want = {"dense_cache": fwd, "sparse_dense_cache": fwd,
+            "wire": fwd + trp, "uncached": 3 * (2 * fwd + trp)}[mode]
     passes = 0 if mode == "dense_cache" else 1
     assert res.misc["stream"]["trace_passes"] == passes
     assert len(calls) == passes * fwd + want
+    assert res.misc["stream"]["transposed_on_card"] == \
+        (trp if "dense_cache" in mode else 0)
+
+
+# ---------------------------------------------------------------------------
+# Transposed panels built from the cached forward panels
+# ---------------------------------------------------------------------------
+
+class _Withheld:
+    """Another loader's panels, without its guarantee that the transposed
+    panels are the forward panels' exact transposes."""
+
+    def __init__(self, inner):
+        self._inner = inner
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def exact_transpose(self):
+        return False
+
+
+def _counts_matrix(m, n, top, seed, fractional=False):
+    """A sparse (m, n) CSC matrix at 16.5% density with values in
+    [1, top] (a fraction added where ``fractional``)."""
+    rs = np.random.RandomState(seed)
+    S = sp.random(m, n, density=0.165, random_state=rs, format="csc",
+                  dtype=np.float32)
+    S.data = np.ceil(S.data * top)
+    if fractional:
+        S.data += rs.uniform(0.01, 0.99, S.nnz).astype(np.float32)
+    return S
+
+
+# name: (how the loader's file or matrix is made, the loader's value type:
+# the v2 type st_write names, "raw" for v3, None in memory)
+EXACT_LOADERS = {
+    "spz_uint8": ("spz", dict(top=200), "uint8"),
+    "spz_uint16": ("spz", dict(top=60000), "uint16"),
+    "spz_float32": ("spz", dict(top=50, fractional=True), "float32"),
+    "spz_float16": ("spz", dict(top=50, fractional=True), "float16"),
+    "spz3_raw": ("spz3", dict(top=50, fractional=True), "raw"),
+    "memory_sparse": ("sparse", dict(top=50, fractional=True), None),
+    "memory_dense": ("dense", dict(top=50, fractional=True), None),
+}
+
+
+def _exact_loader(case, tmp_path, m=90, n=140):
+    kind, mk, vt = EXACT_LOADERS[case]
+    S = _counts_matrix(m, n, seed=13, **mk)
+    path = str(tmp_path / f"{case}.spz")
+    if kind == "spz":
+        rtt.st_write(S, path, chunk_cols=32, value_type=vt)
+        return loaders.SpzLoader(path)
+    if kind == "spz3":
+        rtt.st_write_dense(S.toarray(), path, chunk_cols=32)
+        return loaders.SpzLoader(path)
+    return loaders.InMemoryLoader(S if kind == "sparse" else S.toarray(),
+                                  chunk_cols=32)
+
+
+@pytest.mark.parametrize("case", list(EXACT_LOADERS))
+def test_transposed_panels_from_the_forward_cache_are_the_loaders(
+        case, tmp_path):
+    """Once the dense cache holds every forward panel, each transposed
+    panel the panel source builds from them equals, bit for bit, the panel
+    the loader decodes, at the place the loader gives without a decode; no
+    transposed panel is read."""
+    import torch
+    from rcppml_tpu_torch.io.panels import PanelSource, _FromForward
+    from rcppml_tpu_torch.parallel.mesh import PanelBlocks, ShardContext
+    ld = _exact_loader(case, tmp_path)
+    m, n = ld.shape
+    assert ld.exact_transpose()
+    if case.startswith("spz") and case != "spz3_raw":
+        assert ld.reader.info["value_type"] == EXACT_LOADERS[case][2]
+    for t in (False, True):
+        for c in range(ld.num_chunks(t)):
+            ch = ld.chunk(c, t)
+            assert ld.chunk_place(c, t) == (ch.col_start, ch.num_cols)
+    src = PanelSource(ld, PanelBlocks(ShardContext(None, m, n)),
+                      torch.device("cpu"), panel_cache=True)
+    for ch in src.panels(False):
+        src.put(ch, False)
+    built = [(ch, src.put(ch, True)) for ch in src.panels(True)]
+    assert len(built) == ld.num_chunks(True)
+    for c, (ch, panel) in enumerate(built):
+        assert isinstance(ch, _FromForward)
+        want = ld.chunk(c, True).data
+        assert panel.shape == want.shape
+        assert np.array_equal(panel.numpy().view(np.int32),
+                              np.ascontiguousarray(want).view(np.int32))
+    st = src.stream
+    assert st["transposed_on_card"] == ld.num_chunks(True)
+    assert st["panels_decoded"] == ld.num_chunks(False)
+    assert src.full(True)
+
+
+# name: (loader, engine keywords, transposed reads a fit of MAXIT sweeps
+# makes: the transposed panels once, or every sweep)
+OFF_CASES = {
+    "quant8": ("quant8", {}, 1),
+    "mesh": ("spz", dict(mesh=True), 1),
+    "wire": ("spz", dict(panel_cache="wire", sparse_panels=True), 1),
+    "uncached": ("spz", dict(panel_cache=False), MAXIT),
+    "undeclared": ("withheld", {}, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(OFF_CASES))
+def test_transposed_panels_are_read_where_the_rule_is_off(case, tmp_path):
+    """No transposed panel is built from the forward ones, and the
+    transpose stream is read as before, for a quant8 file (its two streams
+    round apart), a mesh stream, the wire cache, no cache, and a loader
+    that does not declare the guarantee."""
+    kind, ekw, reads = OFF_CASES[case]
+    S = _counts_matrix(90, 140, 200, 14)
+    path = str(tmp_path / "a.spz")
+    rtt.st_write(S, path, chunk_cols=32,
+                 value_type="quant8" if kind == "quant8" else "auto")
+    ld = loaders.SpzLoader(path)
+    assert ld.exact_transpose() == (kind != "quant8")
+    if kind == "withheld":
+        ld = _Withheld(ld)
+    calls = []
+    for name in ("chunk", "chunk_coo"):
+        real = getattr(ld, name)
+        setattr(ld, name, lambda c, t=False, real=real: (
+            calls.append(t), real(c, t))[1])
+    ekw = dict(ekw)
+    if ekw.pop("mesh", False):
+        ekw["mesh"] = rtt.default_mesh(devices=["cpu"])
+    else:
+        ekw["device"] = "cpu"
+    res = nmf_chunked.nmf_chunked(
+        ld, rtt.build_config(K, maxit=MAXIT, tol=0.0), **ekw)
+    assert res.misc["stream"]["transposed_on_card"] == 0
+    assert calls.count(True) == reads * ld.num_chunks(True)
+
+
+@pytest.mark.parametrize("source", ["spz", "memory_sparse"])
+@pytest.mark.parametrize("fit", ["mse", "kl", "cv"])
+def test_stream_fits_with_transposed_panels_built_on_the_device(fit, source,
+                                                                 tmp_path):
+    """MSE, KL and CV streams whose transposed panels come from the cached
+    forward panels are, bit for bit, the same fits through a loader that
+    withholds the guarantee (and so reads its transpose stream)."""
+    kw = {"mse": {}, "kl": dict(loss="kl"),
+          "cv": dict(test_fraction=0.1, cv_seed=3, cv_patience=100)}[fit]
+    S = _counts_matrix(90, 140, 9, 15)
+    if source == "spz":
+        path = str(tmp_path / "a.spz")
+        rtt.st_write(S, path, chunk_cols=32)
+
+        def make():
+            return loaders.SpzLoader(path)
+    else:
+        def make():
+            return loaders.InMemoryLoader(S, chunk_cols=32)
+    cfg = rtt.build_config(K, seed=2, maxit=MAXIT, tol=0.0,
+                           sort_model=False, **kw)
+    built = nmf_chunked.nmf_chunked(make(), cfg, device="cpu",
+                                    panel_cache=True)
+    read = nmf_chunked.nmf_chunked(_Withheld(make()), cfg, device="cpu",
+                                   panel_cache=True)
+    _bitwise(built, read)
+    if fit == "cv":
+        assert np.array_equal(built.test_loss_history,
+                              read.test_loss_history)
+    trp = make().num_chunks(True)
+    assert built.misc["stream"]["transposed_on_card"] == trp
+    assert read.misc["stream"]["transposed_on_card"] == 0
+    assert read.misc["stream"]["panels_decoded"] == \
+        built.misc["stream"]["panels_decoded"] + trp

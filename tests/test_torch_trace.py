@@ -153,13 +153,17 @@ def test_stream_spans_nest_as_documented(spz_path, A):
     assert c["rtt.stream.sweep"] == c["rtt.stream.loss"] == SWEEPS
     assert c["rtt.stream.panel"] == (fwd + tr) * SWEEPS
     # the panels stay on the device after the first sweep: it alone reads
-    # and uploads them, and only reads are waited on.  The file is 43%
-    # dense and the dense cache is on, so its panels travel compact, three
-    # arrays each, and are densified on the device once
-    assert c["rtt.stream.wait"] == fwd + tr
-    assert c["rtt.stream.upload"] == 3 * (fwd + tr)
-    assert res.misc["stream"]["panels_decoded"] == fwd + tr
-    assert res.misc["stream"]["densified"] == fwd + tr
+    # and uploads the forward ones, and only reads are waited on.  The file
+    # is 43% dense and the dense cache is on, so its panels travel compact,
+    # three arrays each, and are densified on the device once; the
+    # transposed panels are built there from the forward ones, each in its
+    # span inside its panel's
+    assert c["rtt.stream.wait"] == fwd
+    assert c["rtt.stream.upload"] == 3 * fwd
+    assert c["rtt.stream.transpose"] == tr
+    assert res.misc["stream"]["panels_decoded"] == fwd
+    assert res.misc["stream"]["densified"] == fwd
+    assert res.misc["stream"]["transposed_on_card"] == tr
     first = min((s, e) for s, e, name in spans
                 if name == "rtt.stream.sweep")
     assert all(first[0] <= s and e <= first[1]
@@ -170,6 +174,7 @@ def test_stream_spans_nest_as_documented(spz_path, A):
                           ("rtt.stream.wait", "rtt.stream.sweep"),
                           ("rtt.stream.loss", "rtt.stream.sweep"),
                           ("rtt.stream.upload", "rtt.stream.panel"),
+                          ("rtt.stream.transpose", "rtt.stream.panel"),
                           ("rtt.fit.finalize", "rtt.nmf")):
         assert inside(spans, child, parent), (child, parent)
     # a panel span holds the put and solve, never the wait for the panel
@@ -180,7 +185,8 @@ def test_stream_spans_nest_as_documented(spz_path, A):
     # loader's) keeps one pass, in its span, before the loop
     res, spans = traced(lambda: fit_stream(sp.csc_matrix(A), streaming=True,
                                            chunk_cols=CHUNK))
-    assert res.misc["stream"]["densified"] == fwd + tr     # COO panels
+    assert res.misc["stream"]["densified"] == fwd          # COO panels
+    assert res.misc["stream"]["transposed_on_card"] == tr
     assert counts(spans)["rtt.stream.trace_sq"] == 1
     assert res.misc["stream"]["trace_passes"] == 1
     assert res.misc["stream"]["trace_panels"] == 0
@@ -203,10 +209,11 @@ def test_the_profiler_changes_no_bit(kind, A, spz_path):
 
 @pytest.mark.parametrize("case", ["dense", "uncached", "sparse"])
 def test_stream_counts_its_panels_and_bytes(case, A, spz_path):
-    """Uploads count the bytes handed to the device: the dense panels of
-    both sides once (a cached stream), the forward panels again in every
-    loss pass and both sides every sweep (no cache), or the compact COO
-    arrays of each panel (sparse panels, the wire cache)."""
+    """Uploads count the bytes handed to the device: the dense forward
+    panels once (a cached stream, which builds its transposed panels on the
+    device from them), the forward panels again in every loss pass and
+    both sides every sweep (no cache), or the compact COO arrays of each
+    panel (sparse panels, the wire cache)."""
     fwd, tr = panels(spz_path)
     ld = loaders.SpzLoader(spz_path)
     cfg = rtt.build_config(K, maxit=SWEEPS, tol=0, seed=1)
@@ -217,12 +224,14 @@ def test_stream_counts_its_panels_and_bytes(case, A, spz_path):
     st = res.misc["stream"]
     dense = 4 * M * N
     if case == "dense":
-        assert st["upload_bytes"] == 2 * dense
-        assert st["panels_decoded"] == fwd + tr
+        assert st["upload_bytes"] == dense
+        assert st["panels_decoded"] == fwd
+        assert st["transposed_on_card"] == tr
         assert st["panel_cache_hits"] == fwd + (SWEEPS - 1) * (2 * fwd + tr)
     elif case == "uncached":
         assert st["upload_bytes"] == SWEEPS * 3 * dense
         assert st["panels_decoded"] == SWEEPS * (2 * fwd + tr)
+        assert st["transposed_on_card"] == 0
         assert st["panel_cache_hits"] == 0
     else:
         compact = sum(sum(x.nbytes for x in (ch.rows, ch.counts, ch.vals))
@@ -232,6 +241,7 @@ def test_stream_counts_its_panels_and_bytes(case, A, spz_path):
                                  for c in range(ld.num_chunks(t))))
         assert st["upload_bytes"] == compact
         assert st["panels_decoded"] == fwd + tr
+        assert st["transposed_on_card"] == 0
     assert len(st["sweep_s"]) == SWEEPS
     assert st["decode_s"] > 0 and st["wait_s"] > 0 and st["upload_s"] > 0
     assert "inner_iters" not in st
